@@ -1,0 +1,39 @@
+"""mpc_blaster_tpu_torch — the PyTorch + CUDA (NVIDIA Hopper) port of
+`mpc_blaster_tpu`.
+
+The JAX package beside it stays the reference; every module here keeps
+its counterpart's name and subpackage so a reader finds one from the
+other. Plain tensor code is eager PyTorch; the one TPU kernel on the
+slice's path (the Pallas box-QP IPM, `mpc_blaster_tpu/ops/pallas_ipm.py`)
+is a hand-written CUDA C++ kernel for sm_90a (`csrc/box_qp_ipm.cu`,
+wrapped by `ops/box_qp_ipm.py`).
+
+Ported so far (the RTI tick and closed loop with `qp_backend="pallas"`):
+
+  - ``core``      rotations, nozzle homogeneous-transform chain
+  - ``dynamics``  the 17-state BLASTER ODE, RK4, jacfwd sensitivities
+  - ``poc``       water-jet point-of-contact solve + Jacobians
+  - ``ocp``       OCP specification and cost
+  - ``qp``        QP data containers
+  - ``ops``       the box-QP IPM kernel, its plain twin and launch wrapper
+  - ``sqp``       the SQP-RTI tick
+  - ``sim``       the closed loop (cold, frozen-POC branch)
+  - ``parallel``  the batched tick on one device
+  - ``convert``   numpy <-> port containers (state shared with the JAX side)
+
+Options outside that slice raise `NotImplementedError` naming the
+ROADMAP item that ports them. Presets are `mpc_blaster_tpu.config`,
+re-exported unchanged (numpy + dataclasses only; it imports no JAX).
+
+float32 matrix products run in full float32: TF32 (10-bit mantissa) is
+switched off at import, the Hopper form of the reduced-precision matmul
+trap that broke the QP on the TPU (its bf16 matmul passes).
+"""
+import torch
+
+from mpc_blaster_tpu_torch import config as config  # noqa: F401
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

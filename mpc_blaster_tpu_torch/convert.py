@@ -1,0 +1,56 @@
+"""State carried across between the JAX package and the port, as numpy.
+
+`*_from_numpy` turn the fields of a JAX container (an `OCPSpec`,
+`RTIState` or `QPData`, as numpy arrays, or a mapping of them) into the
+port's container on a device and dtype; `*_to_numpy` go the other way,
+returning a dict of numpy arrays keyed by field name. The parity tests
+use these so both sides compute from the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
+from mpc_blaster_tpu_torch.qp.data import QPData
+from mpc_blaster_tpu_torch.sqp.rti import RTIState
+
+
+def _fields(d) -> Mapping:
+    return d._asdict() if hasattr(d, "_asdict") else d
+
+
+def _from_numpy(cls, d, device, dtype):
+    f = _fields(d)
+    return cls(**{k: torch.as_tensor(np.array(f[k]), dtype=dtype,
+                                     device=device) for k in cls._fields})
+
+
+def _to_numpy(x) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in x._asdict().items()}
+
+
+def spec_from_numpy(d, device=None, dtype=torch.float32) -> OCPSpec:
+    return _from_numpy(OCPSpec, d, device, dtype)
+
+
+def spec_to_numpy(spec: OCPSpec) -> dict:
+    return _to_numpy(spec)
+
+
+def rti_state_from_numpy(d, device=None, dtype=torch.float32) -> RTIState:
+    return _from_numpy(RTIState, d, device, dtype)
+
+
+def rti_state_to_numpy(state: RTIState) -> dict:
+    return _to_numpy(state)
+
+
+def qp_from_numpy(d, device=None, dtype=torch.float32) -> QPData:
+    return _from_numpy(QPData, d, device, dtype)
+
+
+def qp_to_numpy(qp: QPData) -> dict:
+    return _to_numpy(qp)
