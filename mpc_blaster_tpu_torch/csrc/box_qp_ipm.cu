@@ -1,12 +1,26 @@
 // Batched box-constrained OCP-QP interior-point solve for Hopper (sm_90a).
 //
-// Replaces mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel in its plain mode
-// (cold start, hard bounds, resident), with the in-kernel algebra of that
-// file (_contractT, _contractT_vec, _matvec, _chol_inverse_lanes). One launch
-// runs the whole Mehrotra predictor-corrector solve -- init, every IPM
+// Replaces mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel in three of its
+// modes (cold start, hard bounds, resident), with the in-kernel algebra of
+// that file (_contractT, _contractT_vec, _matvec, _chol_inverse_lanes). One
+// launch runs the whole Mehrotra predictor-corrector solve -- init, every IPM
 // iteration, best-merit tracking and the final KKT sweep -- for a batch of
-// problems. The plain PyTorch twin is ops/box_qp_ipm.py::box_qp_solve_plain;
-// both follow the same operation order.
+// problems. The mode is a template parameter of the kernel:
+//
+//   PLAIN      host-assembled QP in, deltas out (pallas_box_qp_solve);
+//   FUSE_COST  host-linearized A/B/c in; the cost gradients, delta bounds and
+//              dx0 are assembled in the kernel from the iterate and the spec,
+//              and a last pass writes the updated ABSOLUTE iterate and the
+//              step norms / worst box violation (pallas_batched_fused_tick);
+//   FUSE_LIN   FUSE_COST's assembly plus a linearization prologue: RK4 of the
+//              rows-form BLASTER ODE on forward-mode dual numbers gives A, B
+//              and c for every node inside the kernel; deltas out
+//              (pallas_fused_rti_solve, the one-launch B=1 tick).
+//
+// The plain PyTorch twins are ops/box_qp_ipm.py::box_qp_solve_plain,
+// batched_fused_tick_plain and fused_rti_solve_plain (the prologue's twin is
+// dynamics/fastlin.py::fast_linearize); each follows the same operation
+// order.
 //
 // What bounds it on this card: the solve is a chain of O(N * iters) small
 // dependent steps (17x17 products, a 6x6 factorization) -- per problem it is
@@ -19,13 +33,16 @@
 // the per-problem min/sum/max, and the stage stacks live in a problem-major
 // global workspace (a problem's A/B record, P stack, Z, Hinv and vectors reach
 // ~230 KB at N=60, more than one block's 227 KB of shared memory). A batch of
-// B problems is B blocks, spread over the 132 SMs. Shared-memory staging,
-// warp-level factorization and tensor-core products are later work.
+// B problems is B blocks, spread over the 132 SMs. The fused modes' assembly
+// is elementwise over the block's threads; the FUSE_LIN prologue gives each
+// thread one (node, tangent column) pair (N * 23 pairs), so it needs no jvp
+// and no cross-thread traffic. Shared-memory staging, warp-level
+// factorization and tensor-core products are later work.
 //
 // Interface: plain C (loaded with ctypes), float32, contiguous problem-major
 // tensors; launches on the caller's stream and returns cudaGetLastError().
 // Build without --use_fast_math: the guards rely on IEEE division, square
-// root and NaN behaviour.
+// root, sin/cos/tan and NaN behaviour.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,6 +64,8 @@ constexpr float SIGMA_MAX = 1e7f;
 constexpr float LAM_MAX = 1e7f;
 constexpr float EPS_S = 1e-9f;
 constexpr float DUAL_CLIP = 1e12f;
+
+enum Mode : int { PLAIN = 0, FUSE_COST = 1, FUSE_LIN = 2 };
 
 // NaN-propagating min/max/clip, as jnp.minimum/maximum/clip and
 // torch.minimum/maximum/clamp behave (fminf/fmaxf drop NaNs).
@@ -84,11 +103,20 @@ __device__ float block_reduce(float v, float* red, Op op) {
   return out;
 }
 
-__host__ __device__ size_t workspace_floats(int N) {
+// Floats of the FUSE_LIN prologue's record per problem: A (N, NX, NX),
+// B (N, NX, NU), c (N, NX).
+__host__ __device__ size_t lin_floats(int N) {
+  return (size_t)N * (NXX + NX * NU + NX);
+}
+
+__host__ __device__ size_t workspace_floats(int N, int mode) {
   const size_t n = N, n1 = N + 1;
-  return n1 * (NXX + 4 * NX)                  // P, dx, ddx, ddxa, qr
-         + n * (NU * NX + NU * NU + 5 * NU + NX);  // Z, Hinv, kff, du,
-                                                   // ddu, ddua, rr, req
+  size_t w = n1 * (NXX + 4 * NX)                  // P, dx, ddx, ddxa, qr
+             + n * (NU * NX + NU * NU + 5 * NU + NX);  // Z, Hinv, kff, du,
+                                                       // ddu, ddua, rr, req
+  if (mode != PLAIN) w += n1 * NX + 2 * n * NX + 3 * n * NU;  // q, r, bounds
+  if (mode == FUSE_LIN) w += lin_floats(N);
+  return w;
 }
 
 struct Inputs {  // problem-major float32
@@ -105,15 +133,37 @@ struct Inputs {  // problem-major float32
   const float* lbu;  // (B, N, NU)
   const float* ubu;
   const float* dx0;  // (B, NX)
+  // fused modes (q, r, the bounds and dx0 above are unused there): the
+  // iterate, the spec rows and the absolute boxes the kernel assembles from
+  const float* xbar;    // (B, N+1, NX)
+  const float* ubar;    // (B, N, NU)
+  const float* x0;      // (B, NX)
+  const float* Rg;      // (B, NU, NU)  R of the cost gradient (qp_r_floor)
+  const float* yrx;     // (B, N, NX)
+  const float* yru;     // (B, N, NU)
+  const float* yre;     // (B, NX)
+  const float* box[4];  // lbx, ubx (B, NX); lbu, ubu (B, NU); +-1e18 = inf
+  const float* sp;      // (B, N, np) stage parameters (FUSE_LIN)
+  int np;
+};
+
+// Model constants of the FUSE_LIN prologue (runtime arguments). The RK4
+// step constants arrive as the float32 roundings of h = dt / nsteps, h / 2
+// and h / 6, as the Python linearizers use them.
+struct Model {
+  float inv_m, g, lx, ly, cy, j1, j2, j3;
+  float h, h2, h6;
+  int nsteps;
 };
 
 struct Outputs {
-  float* dx;    // (B, N+1, NX) best-merit iterate
-  float* du;    // (B, N, NU)
+  float* dx;    // (B, N+1, NX) best-merit iterate (FUSE_COST: xbar + dx)
+  float* du;    // (B, N, NU)                      (FUSE_COST: ubar + du)
   float* diag;  // (B, 6)
   float* s[4];  // last-iterate slacks: lx, ux (B, N, NX); lu, uu (B, N, NU)
   float* lam[4];  // last-iterate duals, same layout
-  float* work;  // (B, workspace_floats(N))
+  float* work;  // (B, workspace_floats(N, mode))
+  float* lin;   // FUSE_LIN, optional: (B, lin_floats(N)) A, B, c it built
 };
 
 struct Shared {
@@ -194,11 +244,182 @@ __device__ __forceinline__ float clamp_into(float v, float lb, float ub) {
   return clipf(v, lo, nmax(hi, lo));
 }
 
+// ---- forward-mode dual numbers (value, tangent) ---------------------------
+// The tangent rules are JAX's jvp rules (sin' = cos, cos' = -sin,
+// tan' = 1 + tan^2, the quotient rule); the value part is the plain float
+// arithmetic, so ode_rows<float> and the value of ode_rows<Dual> agree.
+struct Dual {
+  float v, d;
+};
+__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
+  return {a.v + b.v, a.d + b.d};
+}
+__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
+  return {a.v - b.v, a.d - b.d};
+}
+__device__ __forceinline__ Dual operator-(Dual a, float b) {
+  return {a.v - b, a.d};
+}
+__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
+__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+__device__ __forceinline__ Dual operator*(Dual a, float b) {
+  return {a.v * b, a.d * b};
+}
+__device__ __forceinline__ Dual operator*(float a, Dual b) {
+  return {a * b.v, a * b.d};
+}
+__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+  const float q = a.v / b.v;
+  return {q, (a.d - q * b.d) / b.v};
+}
+__device__ __forceinline__ Dual operator/(Dual a, float b) {
+  return {a.v / b, a.d / b};
+}
+__device__ __forceinline__ float fsin(float x) { return sinf(x); }
+__device__ __forceinline__ float fcos(float x) { return cosf(x); }
+__device__ __forceinline__ float ftan(float x) { return tanf(x); }
+__device__ __forceinline__ Dual fsin(Dual x) {
+  return {sinf(x.v), cosf(x.v) * x.d};
+}
+__device__ __forceinline__ Dual fcos(Dual x) {
+  return {cosf(x.v), -sinf(x.v) * x.d};
+}
+__device__ __forceinline__ Dual ftan(Dual x) {
+  const float t = tanf(x.v);
+  return {t, (1.f + t * t) * x.d};
+}
+
+// The BLASTER ODE with components as scalars, written once over the scalar
+// type: dynamics/fastlin.py::_ode_rows term for term (its operation order),
+// X (17), U (6), P (25 stage parameters) -> Xd (17).
+template <class T>
+__device__ __forceinline__ void ode_rows(const T* X, const T* U,
+                                         const float* P, const Model& md,
+                                         T* Xd) {
+  const T phi = X[3], th = X[4], psi = X[5];
+  const T vx = X[6], vy = X[7], vz = X[8];
+  const T w1 = X[9], w2 = X[10], w3 = X[11];
+  const T a1 = X[12], a2 = X[13];
+  const T t1 = U[0], t2 = U[1], t3 = U[2], t4 = U[3];
+  const T ad1 = U[4], ad2 = U[5];
+  const float tb = P[24];
+
+  const T cphi = fcos(phi), sphi = fsin(phi);
+  const T cth = fcos(th), sth = fsin(th);
+  const T cpsi = fcos(psi), spsi = fsin(psi);
+
+  // world-from-body R = Rz(psi) Ry(th) Rx(phi)
+  const T r00 = cpsi * cth;
+  const T r01 = cpsi * sth * sphi - spsi * cphi;
+  const T r02 = cpsi * sth * cphi + spsi * sphi;
+  const T r10 = spsi * cth;
+  const T r11 = spsi * sth * sphi + cpsi * cphi;
+  const T r12 = spsi * sth * cphi - cpsi * sphi;
+  const T r20 = -sth;
+  const T r21 = cth * sphi;
+  const T r22 = cth * cphi;
+
+  // body-frame force: collective thrust + blast along the nozzle axis
+  const T c1 = fcos(a1), s1 = fsin(a1);
+  const T c2 = fcos(a2), s2 = fsin(a2);
+  const T t_tot = t1 + t2 + t3 + t4;
+  const T fb0 = s1 * c2 * tb;
+  const T fb1 = -s2 * tb;
+  const T fb2 = t_tot + c1 * c2 * tb;
+  const T vdx = (r00 * fb0 + r01 * fb1 + r02 * fb2) * md.inv_m;
+  const T vdy = (r10 * fb0 + r11 * fb1 + r12 * fb2) * md.inv_m;
+  const T vdz = (r20 * fb0 + r21 * fb1 + r22 * fb2) * md.inv_m - md.g;
+
+  // Euler's equation, diagonal inertia, rotor mixing
+  const T m0 = (t2 + t4 - t1 - t3) * md.ly;
+  const T m1 = (-t1 - t4 + t2 + t3) * md.lx;
+  const T m2 = (-t1 - t2 + t3 + t4) * md.cy;
+  const T wd1 = (m0 - (w2 * (md.j3 * w3) - w3 * (md.j2 * w2))) / md.j1;
+  const T wd2 = (m1 - (w3 * (md.j1 * w1) - w1 * (md.j3 * w3))) / md.j2;
+  const T wd3 = (m2 - (w1 * (md.j2 * w2) - w2 * (md.j1 * w1))) / md.j3;
+
+  // attitude kinematics (closed-form E^-1)
+  const T tth = ftan(th);
+  const T phid = w1 + sphi * tth * w2 + cphi * tth * w3;
+  const T thd = cphi * w2 - sphi * w3;
+  const T psid = (sphi * w2 + cphi * w3) / cth;
+
+  Xd[0] = vx;
+  Xd[1] = vy;
+  Xd[2] = vz;
+  Xd[3] = phid;
+  Xd[4] = thd;
+  Xd[5] = psid;
+  Xd[6] = vdx;
+  Xd[7] = vdy;
+  Xd[8] = vdz;
+  Xd[9] = wd1;
+  Xd[10] = wd2;
+  Xd[11] = wd3;
+  Xd[12] = ad1;
+  Xd[13] = ad2;
+  // POC propagation j_pos v + j_euler eul_dot + j_angles alpha_dot
+  // (column-major packing of the 25-vector)
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    T acc = P[15 + i] * vx + P[18 + i] * vy + P[21 + i] * vz;
+    acc = acc + P[6 + i] * phid + P[9 + i] * thd + P[12 + i] * psid;
+    acc = acc + P[i] * ad1 + P[3 + i] * ad2;
+    Xd[14 + i] = acc;
+  }
+}
+
+// Classic RK4 with md.nsteps substeps, in place on X:
+// dynamics/fastlin.py::_rk4_rows, x + h/6 (((k1 + 2 k2) + 2 k3) + k4).
+template <class T>
+__device__ __forceinline__ void rk4_rows(T* X, const T* U, const float* P,
+                                         const Model& md) {
+  for (int s = 0; s < md.nsteps; ++s) {
+    T k[NX], acc[NX], Xs[NX];
+    ode_rows(X, U, P, md, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = k[i];
+      Xs[i] = X[i] + md.h2 * k[i];
+    }
+    ode_rows(Xs, U, P, md, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + 2.f * k[i];
+      Xs[i] = X[i] + md.h2 * k[i];
+    }
+    ode_rows(Xs, U, P, md, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + 2.f * k[i];
+      Xs[i] = X[i] + md.h * k[i];
+    }
+    ode_rows(Xs, U, P, md, k);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + k[i];
+      X[i] = X[i] + md.h6 * acc[i];
+    }
+  }
+}
+
+// The float instantiation: the same ODE without tangents.
+template __device__ void rk4_rows<float>(float*, const float*, const float*,
+                                         const Model&);
+
 // One problem's solve, run by one thread block.
+template <int MODE>
 struct Solver {
   // inputs of this problem
   const float *A, *Bm, *c, *Qs, *Qt, *q, *R, *r, *dx0;
-  const float* bnd[4];  // lbx, ubx, lbu, ubu
+  const float* bnd[4];  // lbx, ubx, lbu, ubu (delta form)
+  // fused modes: the iterate, spec rows, absolute boxes; the rows they fill
+  const float *xbar, *ubar, *x0, *Rg, *yrx, *yru, *yre, *sp;
+  const float* box[4];
+  float *qf, *rf, *bd[4], *Aw, *Bw, *cw;
+  int np;
   // outputs (slacks/duals double as the iterate's state)
   float *dxb, *dub, *diag;
   float *s[4], *lam[4];
@@ -214,19 +435,23 @@ struct Solver {
       : sh(sh_), N(N_), t(threadIdx.x), mu0(mu0_), reg(reg_), n_ineq(1.f),
         mu_t(0.f) {
     const size_t b = blockIdx.x, n = N, n1 = N + 1;
-    A = in.A + b * n * NXX;
-    Bm = in.Bm + b * n * NX * NU;
-    c = in.c + b * n * NX;
     Qs = in.Qs + b * NXX;
     Qt = in.Qt + b * NXX;
-    q = in.q + b * n1 * NX;
     R = in.R + b * NU * NU;
-    r = in.r + b * n * NU;
-    dx0 = in.dx0 + b * NX;
-    bnd[0] = in.lbx + b * n * NX;
-    bnd[1] = in.ubx + b * n * NX;
-    bnd[2] = in.lbu + b * n * NU;
-    bnd[3] = in.ubu + b * n * NU;
+    if constexpr (MODE != FUSE_LIN) {
+      A = in.A + b * n * NXX;
+      Bm = in.Bm + b * n * NX * NU;
+      c = in.c + b * n * NX;
+    }
+    if constexpr (MODE == PLAIN) {
+      q = in.q + b * n1 * NX;
+      r = in.r + b * n * NU;
+      dx0 = in.dx0 + b * NX;
+      bnd[0] = in.lbx + b * n * NX;
+      bnd[1] = in.ubx + b * n * NX;
+      bnd[2] = in.lbu + b * n * NU;
+      bnd[3] = in.ubu + b * n * NU;
+    }
     dxb = out.dx + b * n1 * NX;
     dub = out.du + b * n * NU;
     diag = out.diag + b * 6;
@@ -235,7 +460,7 @@ struct Solver {
       s[g] = out.s[g] + b * n * w;
       lam[g] = out.lam[g] + b * n * w;
     }
-    float* w = out.work + b * workspace_floats(N);
+    float* w = out.work + b * workspace_floats(N, MODE);
     P = w;        w += n1 * NXX;
     dx = w;       w += n1 * NX;
     ddx = w;      w += n1 * NX;
@@ -248,7 +473,139 @@ struct Solver {
     ddu = w;      w += n * NU;
     ddua = w;     w += n * NU;
     rr = w;       w += n * NU;
-    req = w;
+    req = w;      w += n * NX;
+    if constexpr (MODE != PLAIN) {
+      xbar = in.xbar + b * n1 * NX;
+      ubar = in.ubar + b * n * NU;
+      x0 = in.x0 + b * NX;
+      Rg = in.Rg + b * NU * NU;
+      yrx = in.yrx + b * n * NX;
+      yru = in.yru + b * n * NU;
+      yre = in.yre + b * NX;
+      qf = w;     w += n1 * NX;
+      rf = w;     w += n * NU;
+      for (int g = 0; g < 4; ++g) {
+        const size_t wd = g < 2 ? NX : NU;
+        box[g] = in.box[g] + b * wd;
+        bd[g] = w;
+        w += n * wd;
+        bnd[g] = bd[g];
+      }
+      q = qf;
+      r = rf;
+    }
+    if constexpr (MODE == FUSE_LIN) {
+      np = in.np;
+      sp = in.sp + b * n * np;
+      float* L = out.lin ? out.lin + b * lin_floats(N) : w;
+      Aw = L;
+      Bw = L + n * NXX;
+      cw = Bw + n * NX * NU;
+      A = Aw;
+      Bm = Bw;
+      c = cw;
+    }
+  }
+
+  // ---- fused assembly ----------------------------------------------------
+  // FUSE_LIN prologue: thread e takes node k = e / 23 and tangent column
+  // j = e % 23 (j < NX seeds x_j, else u_{j-NX}), runs RK4 on duals and
+  // writes column j of A_k or B_k; column 0 also writes the shooting defect
+  // c_k = x_next - xbar_{k+1}.
+  __device__ void linearize(const Model& md) {
+    constexpr int C = NX + NU;
+    for (int e = t; e < N * C; e += THREADS) {
+      const int k = e / C, j = e - k * C;
+      Dual X[NX], U[NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        X[i] = {xbar[k * NX + i], i == j ? 1.f : 0.f};
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        U[i] = {ubar[k * NU + i], NX + i == j ? 1.f : 0.f};
+      }
+      rk4_rows(X, U, sp + (size_t)k * np, md);
+      if (j < NX) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) Aw[((size_t)k * NX + i) * NX + j] = X[i].d;
+      } else {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          Bw[((size_t)k * NX + i) * NU + (j - NX)] = X[i].d;
+        }
+      }
+      if (j == 0) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          cw[k * NX + i] = X[i].v - xbar[(k + 1) * NX + i];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // build_qp's cost and bound rows from the iterate (Qs and R arrive
+  // dt-scaled, the terminal Qt unscaled; the gradient uses Rg):
+  // q_k = Qs' (xbar_k - yref_k), q_N = Qt' (xbar_N - yref_e),
+  // r_k = Rg' (ubar_k - yref_u,k), delta bound = absolute box - iterate.
+  __device__ void cost_fill() {
+    for (int e = t; e < (N + 1) * NX; e += THREADS) {
+      const int k = e / NX, i = e - k * NX;
+      const float* Qm = k == N ? Qt : Qs;
+      const float* yr = k == N ? yre : yrx + k * NX;
+      const float* xb = xbar + k * NX;
+      float a = Qm[i] * (xb[0] - yr[0]);
+      for (int j = 1; j < NX; ++j) a += Qm[j * NX + i] * (xb[j] - yr[j]);
+      qf[e] = a;
+    }
+    for (int e = t; e < N * NU; e += THREADS) {
+      const int k = e / NU, i = e - k * NU;
+      const float* ub = ubar + k * NU;
+      const float* yr = yru + k * NU;
+      float a = Rg[i] * (ub[0] - yr[0]);
+      for (int j = 1; j < NU; ++j) a += Rg[j * NU + i] * (ub[j] - yr[j]);
+      rf[e] = a;
+    }
+    for (int e = t; e < N * NX; e += THREADS) {
+      const int i = e % NX;
+      const float x = xbar[e + NX];
+      bd[0][e] = box[0][i] - x;
+      bd[1][e] = box[1][i] - x;
+    }
+    for (int e = t; e < N * NU; e += THREADS) {
+      const int i = e % NU;
+      const float u = ubar[e];
+      bd[2][e] = box[2][i] - u;
+      bd[3][e] = box[3][i] - u;
+    }
+    __syncthreads();
+  }
+
+  // FUSE_COST's last pass: the best iterate (in dx/du) leaves as the
+  // absolute xbar + dx / ubar + du; step norms (stage 0 included) and the
+  // worst box violation of the new iterate (a +-1e18 box never counts).
+  __device__ void finish(float& sx, float& su, float& vio) {
+    float ax = 0.f, au = 0.f, v = 0.f;
+    for (int e = t; e < (N + 1) * NX; e += THREADS) {
+      const int i = e % NX;
+      const float d = dx[e], xn = xbar[e] + d;
+      ax = nmax(ax, fabsf(d));
+      dxb[e] = xn;
+      v = nmax(v, box[0][i] - xn);
+      v = nmax(v, xn - box[1][i]);
+    }
+    for (int e = t; e < N * NU; e += THREADS) {
+      const int i = e % NU;
+      const float d = du[e], un = ubar[e] + d;
+      au = nmax(au, fabsf(d));
+      dub[e] = un;
+      v = nmax(v, box[2][i] - un);
+      v = nmax(v, un - box[3][i]);
+    }
+    sx = block_reduce(ax, sh.red, OpMax());
+    su = block_reduce(au, sh.red, OpMax());
+    vio = block_reduce(v, sh.red, OpMax());
   }
 
   // ---- bound rows -------------------------------------------------------
@@ -304,7 +661,13 @@ struct Solver {
   // ---- phases -------------------------------------------------------------
   // rollout (du = 0) with the 10%-inset clamp, centred slacks and duals
   __device__ void init() {
-    if (t < NX) dx[t] = dx0[t];
+    if (t < NX) {
+      if constexpr (MODE == PLAIN) {
+        dx[t] = dx0[t];
+      } else {
+        dx[t] = x0[t] - xbar[t];
+      }
+    }
     __syncthreads();
     for (int k = 0; k < N; ++k) {
       if (t < NX) {
@@ -657,7 +1020,9 @@ struct Solver {
     __syncthreads();
   }
 
-  __device__ void run(int iters, float alpha_frac) {
+  __device__ void run(int iters, float alpha_frac, const Model& md) {
+    if constexpr (MODE == FUSE_LIN) linearize(md);
+    if constexpr (MODE != PLAIN) cost_fill();
     init();
     float st, eq;
     kkt(st, eq);
@@ -691,36 +1056,54 @@ struct Solver {
     copy(dx, dxb, du, dub);
     kkt(st, eq);
     st = isfinite(st) ? nmin(st, best) : best;
+    float sx = 0.f, su = 0.f, vio = 0.f;
+    if constexpr (MODE == FUSE_COST) finish(sx, su, vio);
     if (t == 0) {
       diag[0] = st;
       diag[1] = eq;
       diag[2] = best;
-      diag[3] = 0.f;
-      diag[4] = 0.f;
-      diag[5] = 0.f;
+      diag[3] = sx;
+      diag[4] = su;
+      diag[5] = vio;
     }
   }
 };
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-box_qp_ipm_kernel(Inputs in, Outputs out, int N, int iters, float mu0,
-                  float alpha_frac, float reg) {
+box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
+                  float mu0, float alpha_frac, float reg) {
   __shared__ Shared sh;
-  Solver solver(in, out, sh, N, mu0, reg);
-  solver.run(iters, alpha_frac);
+  Solver<MODE> solver(in, out, sh, N, mu0, reg);
+  solver.run(iters, alpha_frac, md);
+}
+
+template <int MODE>
+int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
+           int N, int iters, float mu0, float alpha_frac, float reg,
+           void* stream) {
+  if (B <= 0 || N <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  box_qp_ipm_kernel<MODE><<<B, THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, md, N, iters, mu0, alpha_frac, reg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" long long box_qp_ipm_workspace_floats(int N) {
-  return (long long)workspace_floats(N);
+extern "C" long long box_qp_ipm_workspace_floats(int N, int mode) {
+  return (long long)workspace_floats(N, mode);
+}
+
+extern "C" long long box_qp_ipm_lin_floats(int N) {
+  return (long long)lin_floats(N);
 }
 
 extern "C" const char* box_qp_ipm_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// One launch solves the whole batch: grid = B blocks of THREADS threads.
+// PLAIN: one launch solves the whole batch: grid = B blocks of THREADS
+// threads.
 extern "C" int box_qp_ipm_solve(
     const float* A, const float* Bm, const float* c, const float* Qs,
     const float* Qt, const float* q, const float* R, const float* r,
@@ -731,10 +1114,84 @@ extern "C" int box_qp_ipm_solve(
     float* slu, float* suu, float* llu, float* luu,
     float* work, int B, int N, int iters, float mu0, float alpha_frac,
     float reg, void* stream) {
-  if (B <= 0 || N <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
   Inputs in{A, Bm, c, Qs, Qt, q, R, r, lbx, ubx, lbu, ubu, dx0};
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu}, work};
-  box_qp_ipm_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      in, out, N, iters, mu0, alpha_frac, reg);
-  return (int)cudaGetLastError();
+  return launch<PLAIN>(in, out, Model{}, B, N, iters, mu0, alpha_frac, reg,
+                       stream);
+}
+
+// FUSE_COST (the batched fused tick): xnew/unew receive the updated
+// absolute iterate, diag rows 3-5 the step norms and the box violation.
+extern "C" int box_qp_ipm_fused_cost(
+    const float* A, const float* Bm, const float* c,
+    const float* xbar, const float* ubar, const float* x0,
+    const float* Qs, const float* Qt, const float* R, const float* Rg,
+    const float* yrx, const float* yru, const float* yre,
+    const float* lbx, const float* ubx, const float* lbu, const float* ubu,
+    float* xnew, float* unew, float* diag,
+    float* slx, float* sux, float* llx, float* lux,
+    float* slu, float* suu, float* llu, float* luu,
+    float* work, int B, int N, int iters, float mu0, float alpha_frac,
+    float reg, void* stream) {
+  Inputs in{};
+  in.A = A;
+  in.Bm = Bm;
+  in.c = c;
+  in.Qs = Qs;
+  in.Qt = Qt;
+  in.R = R;
+  in.xbar = xbar;
+  in.ubar = ubar;
+  in.x0 = x0;
+  in.Rg = Rg;
+  in.yrx = yrx;
+  in.yru = yru;
+  in.yre = yre;
+  in.box[0] = lbx;
+  in.box[1] = ubx;
+  in.box[2] = lbu;
+  in.box[3] = ubu;
+  Outputs out{xnew, unew, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
+              work};
+  return launch<FUSE_COST>(in, out, Model{}, B, N, iters, mu0, alpha_frac,
+                           reg, stream);
+}
+
+// FUSE_LIN (the one-launch RTI tick): dx/du receive deltas; `lin`, when not
+// null, receives the A, B and c the prologue built (B, lin_floats(N)).
+extern "C" int box_qp_ipm_fused_lin(
+    const float* xbar, const float* ubar, const float* sp, const float* x0,
+    const float* Qs, const float* Qt, const float* R, const float* Rg,
+    const float* yrx, const float* yru, const float* yre,
+    const float* lbx, const float* ubx, const float* lbu, const float* ubu,
+    float* dx, float* du, float* diag,
+    float* slx, float* sux, float* llx, float* lux,
+    float* slu, float* suu, float* llu, float* luu,
+    float* lin, float* work, int B, int N, int np, int iters, float mu0,
+    float alpha_frac, float reg, float inv_m, float g, float lx, float ly,
+    float cy, float j1, float j2, float j3, float h, float h2, float h6,
+    int nsteps, void* stream) {
+  if (np < 25 || nsteps < 1) return (int)cudaErrorInvalidValue;
+  Inputs in{};
+  in.Qs = Qs;
+  in.Qt = Qt;
+  in.R = R;
+  in.xbar = xbar;
+  in.ubar = ubar;
+  in.x0 = x0;
+  in.Rg = Rg;
+  in.yrx = yrx;
+  in.yru = yru;
+  in.yre = yre;
+  in.box[0] = lbx;
+  in.box[1] = ubx;
+  in.box[2] = lbu;
+  in.box[3] = ubu;
+  in.sp = sp;
+  in.np = np;
+  Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
+              work, lin};
+  const Model md{inv_m, g, lx, ly, cy, j1, j2, j3, h, h2, h6, nsteps};
+  return launch<FUSE_LIN>(in, out, md, B, N, iters, mu0, alpha_frac, reg,
+                          stream);
 }

@@ -1,31 +1,39 @@
 """Batched box-constrained OCP-QP interior-point solve: the Hopper kernel,
-its plain PyTorch twin and the launch wrapper.
+its plain PyTorch twins and the launch wrappers.
 
-Replaces `mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel` in its plain
-mode (cold start, hard bounds, VMEM-resident; reached through
-`pallas_box_qp_solve` -> `_pallas_box_qp_solve` -> `pl.pallas_call`),
-together with its in-kernel algebra (`_contractT*`, `_matvec`,
-`_chol_inverse_lanes`) and the host side of `_pallas_box_qp_solve`.
+Replaces `mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel` in three modes
+(cold start, hard bounds, VMEM-resident), together with its in-kernel
+algebra (`_contractT*`, `_matvec`, `_chol_inverse_lanes`) and the host side
+of `_pallas_box_qp_solve`:
+
+  - plain (`pallas_box_qp_solve`): `box_qp_solve`, twin
+    `box_qp_solve_plain`. The host assembles the QP.
+  - fuse_cost (`pallas_batched_fused_tick`): `batched_fused_tick`, twin
+    `batched_fused_tick_plain`. The host linearizes; the kernel assembles
+    the cost gradients, delta bounds and dx0 from the iterate and the spec,
+    solves, and returns the updated absolute iterate with the step norms
+    and the worst box violation.
+  - fuse_lin (`pallas_fused_rti_solve`): `fused_rti_solve`, twin
+    `fused_rti_solve_plain`. The kernel also linearizes (RK4 on dual
+    numbers, `dynamics/fastlin.py::fast_linearize` is the twin): the whole
+    B=1 RTI QP is one launch.
 
 One call runs a whole Mehrotra predictor-corrector IPM (Gondzio-clipped
 targets, Riccati factorization and sweeps, fraction-to-boundary steps,
-best-merit tracking) for every problem of a batch:
-
-  - `box_qp_solve` is the wrapper the main path calls. A CUDA batch goes
-    to the kernel in `csrc/box_qp_ipm.cu` (one launch, every IPM
-    iteration inside it); a CPU batch goes to the plain twin. Nothing
-    falls back: an unsupported CUDA input raises.
-  - `box_qp_solve_plain` is the same algorithm in eager PyTorch, batched
-    over a leading axis, with the kernel's f32 cast and +-inf handling.
-    The CPU tests hold it against the Pallas kernel in interpret mode;
-    `chip_smoke.py` holds the CUDA kernel against it on the card.
+best-merit tracking) for every problem of a batch. CUDA tensors go to the
+kernel in `csrc/box_qp_ipm.cu` (one launch, every IPM iteration inside
+it; counted in the wrapper's `launches`); CPU tensors go to the plain
+twin. Nothing falls back: an unsupported CUDA input raises. The CPU tests
+hold the twins against the Pallas kernel in interpret mode;
+`chip_smoke.py` holds the CUDA kernel against them on the card.
 
 Host-side preparation (the K8 part of the Pallas wrapper): +-inf bounds
-become +-1e18 (the kernel derives bound masks from |b| > 5e17), the
-stage-0 state bound row is dropped (dx_0 is pinned), everything is cast
-to contiguous float32. The Pallas wrapper's 128-lane padding, batch-last
-tiling and VMEM sizing have no counterpart: the kernel takes the batch
-problem-major, one thread block per problem.
+become +-1e18 before any subtraction (the kernel derives bound masks from
+|b| > 5e17), the stage-0 state bound row is dropped (dx_0 is pinned),
+everything is cast to contiguous float32, and outputs are fresh tensors
+(never aliases of an input). The Pallas wrapper's 128-lane padding,
+batch-last tiling and VMEM sizing have no counterpart: the kernel takes the
+batch problem-major, one thread block per problem.
 
 Semantics kept from the Pallas kernel (compare here first on a mismatch):
 slacks floored at s_min=1e-3 at init and eps_s=1e-9 after each step;
@@ -33,9 +41,10 @@ masked bounds held at slack 1e20 / dual 0; barrier weights and RHS
 factors capped at sigma_max=1e7; dual divides clipped at +-1e12; duals
 clipped to [0, lam_max=1e7]; dx/du are the best-merit iterate while the
 returned slacks/duals are the LAST iterate; diag rows are
-[kkt_stat estimate, kkt_eq, best merit]. `kkt_stat` is an upper-bound
-estimate (last-iterate duals, clipped by the best merit), `kkt_eq` is
-exact on the returned iterate.
+[kkt_stat estimate, kkt_eq, best merit] (plus step_norm_x, step_norm_u,
+bound_viol in the fuse_cost mode). `kkt_stat` is an upper-bound estimate
+(last-iterate duals, clipped by the best merit), `kkt_eq` is exact on the
+returned iterate.
 """
 from __future__ import annotations
 
@@ -49,9 +58,15 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
+from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
+
+# Kernel modes (the `Mode` template parameter of csrc/box_qp_ipm.cu).
+PLAIN, FUSE_COST, FUSE_LIN = 0, 1, 2
 
 _BIG = 1e20     # slack sentinel for masked (infinite) bounds
 _BIGB = 1e18    # finite stand-in for an infinite bound value
@@ -88,16 +103,21 @@ class _Prepped(NamedTuple):
     dx0: torch.Tensor  # (B, nx)
 
 
+def _f32(x):
+    return x.to(torch.float32).contiguous()
+
+
+def _san(b, lo):
+    """+-inf bound -> -+1e18 (float32, contiguous)."""
+    return _f32(torch.where(torch.isfinite(b), b,
+                            torch.full_like(b, -_BIGB if lo else _BIGB)))
+
+
 def _prep(data: QPData) -> _Prepped:
     """Sanitize +-inf bounds, drop the pinned stage-0 state bounds, cast
     to contiguous float32. Stage Hessians must be stage-invariant (the
     RTI's LINEAR_LS cost): Q[:, 0] and R[:, 0] are used."""
-    def f32(x):
-        return x.to(torch.float32).contiguous()
-
-    def san(b, lo):
-        return f32(torch.where(torch.isfinite(b), b,
-                               torch.full_like(b, -_BIGB if lo else _BIGB)))
+    f32, san = _f32, _san
 
     return _Prepped(
         A=f32(data.A), Bm=f32(data.B), c=f32(data.c),
@@ -383,6 +403,135 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
                       s_lx=S[0], s_ux=S[1], s_lu=S[2], s_uu=S[3])
 
 
+class _Fused(NamedTuple):
+    """The iterate and spec rows the fused modes assemble their QP from,
+    float32 and contiguous, absolute boxes sanitized."""
+    xbar: torch.Tensor  # (B, N+1, nx)
+    ubar: torch.Tensor  # (B, N, nu)
+    x0: torch.Tensor    # (B, nx)
+    Qs: torch.Tensor    # (B, nx, nx)  dt-scaled stage Hessian
+    Qt: torch.Tensor    # (B, nx, nx)  terminal Hessian (unscaled)
+    R: torch.Tensor     # (B, nu, nu)  dt-scaled Hessian R
+    Rg: torch.Tensor    # (B, nu, nu)  R of the cost gradient
+    yrx: torch.Tensor   # (B, N, nx)
+    yru: torch.Tensor   # (B, N, nu)
+    yre: torch.Tensor   # (B, nx)
+    lbx: torch.Tensor   # (B, nx)      single-row absolute boxes
+    ubx: torch.Tensor
+    lbu: torch.Tensor   # (B, nu)
+    ubu: torch.Tensor
+
+
+def _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx, ubx,
+                lbu, ubu, R_grad) -> _Fused:
+    f32 = _f32
+    return _Fused(
+        xbar=f32(xbar), ubar=f32(ubar), x0=f32(x0), Qs=f32(Q), Qt=f32(Q_t),
+        R=f32(R), Rg=f32(R if R_grad is None else R_grad),
+        yrx=f32(yref_x), yru=f32(yref_u), yre=f32(yref_e),
+        lbx=_san(lbx, True), ubx=_san(ubx, False), lbu=_san(lbu, True),
+        ubu=_san(ubu, False))
+
+
+def _fused_qp(f: _Fused, A, Bm, c) -> QPData:
+    """`build_qp`'s delta-form QP from the fused inputs, as the kernel's
+    assembly computes it: q_k = Qs' (xbar_k - yref_k), q_N with the
+    unscaled Qt, r_k = Rg' (ubar_k - yref_u,k), delta bounds = sanitized
+    absolute box - iterate, dx0 = x0 - xbar_0."""
+    Bsz, N = f.ubar.shape[0], f.ubar.shape[1]
+    q = torch.cat([_mtv(f.Qs.unsqueeze(1), f.xbar[:, :N] - f.yrx),
+                   _mtv(f.Qt, f.xbar[:, N] - f.yre).unsqueeze(1)], 1)
+    r = _mtv(f.Rg.unsqueeze(1), f.ubar - f.yru)
+    return QPData(
+        A=A, B=Bm, c=c,
+        Q=torch.cat([f.Qs.unsqueeze(1).expand(Bsz, N, *f.Qs.shape[1:]),
+                     f.Qt.unsqueeze(1)], 1),
+        q=q, R=f.R.unsqueeze(1).expand(Bsz, N, *f.R.shape[1:]), r=r,
+        lbx=f.lbx.unsqueeze(1) - f.xbar, ubx=f.ubx.unsqueeze(1) - f.xbar,
+        lbu=f.lbu.unsqueeze(1) - f.ubar, ubu=f.ubu.unsqueeze(1) - f.ubar,
+        dx0=f.x0 - f.xbar[:, 0])
+
+
+def _tick_diag(f: _Fused, sol: QPSolution):
+    """(new xbar, new ubar, diag dict) of the fuse_cost mode from a delta
+    solution: step norms over every stage (stage 0 included) and the worst
+    box violation of the new iterate (a sanitized box never counts)."""
+    xn, un = f.xbar + sol.dx, f.ubar + sol.du
+    vio = torch.maximum(
+        torch.maximum(f.lbx.unsqueeze(1) - xn, xn - f.ubx.unsqueeze(1))
+        .amax((1, 2)),
+        torch.maximum(f.lbu.unsqueeze(1) - un, un - f.ubu.unsqueeze(1))
+        .amax((1, 2)))
+    diag = {"kkt_stat": sol.kkt_stat, "kkt_eq": sol.kkt_eq, "mu": sol.mu,
+            "step_norm_x": sol.dx.abs().amax((1, 2)),
+            "step_norm_u": sol.du.abs().amax((1, 2)),
+            "bound_viol": torch.clamp(vio, min=0.0)}
+    return xn, un, diag
+
+
+def batched_fused_tick_plain(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x,
+                             yref_u, yref_e, lbx, ubx, lbu, ubu,
+                             iters: int = 6, mu0: float = 1e-1,
+                             alpha_frac: float = 0.995, reg: float = 1e-6,
+                             R_grad=None):
+    """Eager PyTorch twin of the fuse_cost kernel: the kernel's assembly
+    on the host, `box_qp_solve_plain`, then the update and diagnostics.
+    Same arguments and result as `batched_fused_tick`."""
+    f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
+                    ubx, lbu, ubu, R_grad)
+    nx = f.xbar.shape[-1]
+    AB = _f32(AB)
+    qp = _fused_qp(f, AB[..., :nx], AB[..., nx:], _f32(c))
+    sol = box_qp_solve_plain(qp, iters=iters, mu0=mu0,
+                             alpha_frac=alpha_frac, reg=reg)
+    xn, un, diag = _tick_diag(f, sol)
+    return xn, un, diag, sol._replace(dx=xn, du=un)
+
+
+def _model_params(model, device):
+    """BlasterParams (float32) from `fused_dyn_statics`' model tuple
+    (family, mass, g, arm_x, arm_y, yaw_c, Jx, Jy, Jz)."""
+    def t(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return BlasterParams(mass=t(model[1]), gravity=t(model[2]),
+                         arm_length_x=t(model[3]), arm_length_y=t(model[4]),
+                         yaw_coefficient=t(model[5]), inertia=t(model[6:9]))
+
+
+def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
+                          yref_u, yref_e, lbx, ubx, lbu, ubu, model: tuple,
+                          dt: float, num_steps: int = 1, iters: int = 6,
+                          mu0: float = 1e-1, alpha_frac: float = 0.995,
+                          reg: float = 1e-6, R_grad=None,
+                          return_lin: bool = False):
+    """Eager PyTorch twin of the fuse_lin kernel: `fast_linearize`, the
+    kernel's assembly on the host and `box_qp_solve_plain`. Same arguments
+    and result as `fused_rti_solve`."""
+    _check_fused_rti(x0, model)
+    f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
+                    ubx, lbu, ubu, R_grad)
+    x_next, A, Bm = fast_linearize(
+        f.xbar, f.ubar, _f32(stage_params), _model_params(model, x0.device),
+        dt, num_steps, family=model[0])
+    c = x_next - f.xbar[:, 1:]
+    sol = box_qp_solve_plain(_fused_qp(f, A, Bm, c), iters=iters, mu0=mu0,
+                             alpha_frac=alpha_frac, reg=reg)
+    return (sol, (A, Bm, c)) if return_lin else sol
+
+
+def _check_fused_rti(x0, model):
+    if x0.ndim != 2 or x0.shape[0] != 1:
+        raise ValueError("fused_rti_solve is the B=1 latency path (got "
+                         f"batch {tuple(x0.shape[:-1])}); use "
+                         "batched_fused_tick or box_qp_solve for batched "
+                         "solves")
+    if model[0] != "blaster":
+        raise NotImplementedError(
+            f"the fused linearization runs the 'blaster' family only (got "
+            f"{model[0]!r}); the other rows-form families port with ROADMAP "
+            "queue 1 item 11")
+
+
 # ------------------------------- the kernel -------------------------------
 
 def _nvcc() -> str:
@@ -431,16 +580,82 @@ def build_library():
 @functools.cache
 def _library() -> ctypes.CDLL:
     so, _, _ = build_library()
-    lib = ctypes.CDLL(str(so))
+    return _bind(ctypes.CDLL(str(so)))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of the built library."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.box_qp_ipm_solve.argtypes = ([ptr] * 25 + [i32] * 3 + [f32] * 3
                                      + [ptr])
-    lib.box_qp_ipm_solve.restype = i32
-    lib.box_qp_ipm_workspace_floats.argtypes = [i32]
+    lib.box_qp_ipm_fused_cost.argtypes = ([ptr] * 29 + [i32] * 3
+                                          + [f32] * 3 + [ptr])
+    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 28 + [i32] * 4
+                                         + [f32] * 14 + [i32, ptr])
+    for fn in (lib.box_qp_ipm_solve, lib.box_qp_ipm_fused_cost,
+               lib.box_qp_ipm_fused_lin):
+        fn.restype = i32
+    lib.box_qp_ipm_workspace_floats.argtypes = [i32, i32]
     lib.box_qp_ipm_workspace_floats.restype = ctypes.c_longlong
+    lib.box_qp_ipm_lin_floats.argtypes = [i32]
+    lib.box_qp_ipm_lin_floats.restype = ctypes.c_longlong
     lib.box_qp_ipm_error_string.argtypes = [i32]
     lib.box_qp_ipm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _stream(dev: torch.device) -> int:
+    """The caller's current CUDA stream on `dev`, as a pointer value."""
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launched(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.box_qp_ipm_error_string(rc).decode())
+
+
+def _check_dims(nx: int, nu: int):
+    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
+        raise NotImplementedError(
+            f"the CUDA box-QP IPM is built for nx={KERNEL_NX}, "
+            f"nu={KERNEL_NU} (got {nx}, {nu}); other models port with "
+            "ROADMAP queue 1 item 11")
+
+
+def _check_shapes(tensors: NamedTuple, shapes: dict, dev):
+    for name, shape in shapes.items():
+        t = getattr(tensors, name)
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"field {name}: {tuple(t.shape)} on {t.device},"
+                             f" expected {shape} on {dev}")
+
+
+def _solve_outputs(lib, Bsz, N, nx, nu, mode, dev):
+    """Fresh output tensors of one launch: dx, du, diag, the slacks/duals
+    (slx sux llx lux, slu suu llu luu) and the workspace."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return (empty(Bsz, N + 1, nx), empty(Bsz, N, nu), empty(Bsz, 6),
+            [empty(Bsz, N, nx) for _ in range(4)],
+            [empty(Bsz, N, nu) for _ in range(4)],
+            empty(Bsz, int(lib.box_qp_ipm_workspace_floats(N, mode))))
+
+
+def _solution(dx, du, diag, sx, su) -> QPSolution:
+    return QPSolution(dx=dx, du=du, kkt_stat=diag[:, 0], kkt_eq=diag[:, 1],
+                      mu=diag[:, 2],
+                      lam_lx=sx[2], lam_ux=sx[3], lam_lu=su[2], lam_uu=su[3],
+                      s_lx=sx[0], s_ux=sx[1], s_lu=su[0], s_uu=su[1])
+
+
+def _fused_shapes(Bsz, N, nx, nu):
+    return dict(xbar=(Bsz, N + 1, nx), ubar=(Bsz, N, nu), x0=(Bsz, nx),
+                Qs=(Bsz, nx, nx), Qt=(Bsz, nx, nx), R=(Bsz, nu, nu),
+                Rg=(Bsz, nu, nu), yrx=(Bsz, N, nx), yru=(Bsz, N, nu),
+                yre=(Bsz, nx), lbx=(Bsz, nx), ubx=(Bsz, nx), lbu=(Bsz, nu),
+                ubu=(Bsz, nu))
 
 
 def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
@@ -448,47 +663,24 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
     p = _prep(data)
     Bsz, N, nx, nu = p.A.shape[0], p.A.shape[1], p.A.shape[-1], \
         p.Bm.shape[-1]
-    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
-        raise NotImplementedError(
-            f"the CUDA box-QP IPM is built for nx={KERNEL_NX}, "
-            f"nu={KERNEL_NU} (got {nx}, {nu}); other models port with "
-            "ROADMAP queue 1 item 11")
+    _check_dims(nx, nu)
     if Bsz == 0 or N < 1:
         raise ValueError(f"empty QP batch (B={Bsz}, N={N})")
     dev = p.A.device
-    expected = _Prepped(
+    _check_shapes(p, dict(
         A=(Bsz, N, nx, nx), Bm=(Bsz, N, nx, nu), c=(Bsz, N, nx),
         Qs=(Bsz, nx, nx), Qt=(Bsz, nx, nx), q=(Bsz, N + 1, nx),
         R=(Bsz, nu, nu), r=(Bsz, N, nu), lbx=(Bsz, N, nx), ubx=(Bsz, N, nx),
-        lbu=(Bsz, N, nu), ubu=(Bsz, N, nu), dx0=(Bsz, nx))
-    for name, t, shape in zip(_Prepped._fields, p, expected):
-        if t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"QP field {name}: {tuple(t.shape)} on "
-                             f"{t.device}, expected {shape} on {dev}")
+        lbu=(Bsz, N, nu), ubu=(Bsz, N, nu), dx0=(Bsz, nx)), dev)
     lib = _library()
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    dx, du, diag = empty(Bsz, N + 1, nx), empty(Bsz, N, nu), empty(Bsz, 6)
-    sx = [empty(Bsz, N, nx) for _ in range(4)]     # slx sux llx lux
-    su = [empty(Bsz, N, nu) for _ in range(4)]     # slu suu llu luu
-    work = empty(Bsz, int(lib.box_qp_ipm_workspace_floats(N)))
-    ins = list(p)
-    outs = [dx, du, diag, *sx, *su, work]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.box_qp_ipm_solve(
-            *[t.data_ptr() for t in ins + outs], Bsz, N, iters,
-            mu0, alpha_frac, reg, stream)
-    if rc != 0:
-        raise RuntimeError("box_qp_ipm launch failed: "
-                           + lib.box_qp_ipm_error_string(rc).decode())
+    dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu, PLAIN,
+                                                dev)
+    rc = lib.box_qp_ipm_solve(
+        *[t.data_ptr() for t in [*p, dx, du, diag, *sx, *su, work]],
+        Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
+    _launched(lib, rc, "box_qp_ipm")
     box_qp_solve.launches += 1
-    return QPSolution(dx=dx, du=du, kkt_stat=diag[:, 0], kkt_eq=diag[:, 1],
-                      mu=diag[:, 2],
-                      lam_lx=sx[2], lam_ux=sx[3], lam_lu=su[2], lam_uu=su[3],
-                      s_lx=sx[0], s_ux=sx[1], s_lu=su[0], s_uu=su[1])
+    return _solution(dx, du, diag, sx, su)
 
 
 def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
@@ -512,3 +704,168 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
 
 
 box_qp_solve.launches = 0
+
+
+def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg):
+    Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
+        f.ubar.shape[-1]
+    _check_dims(nx, nu)
+    if Bsz == 0 or N < 1:
+        raise ValueError(f"empty batch (B={Bsz}, N={N})")
+    dev = f.x0.device
+    _check_shapes(f, _fused_shapes(Bsz, N, nx, nu), dev)
+    if AB.device != dev or tuple(AB.shape) != (Bsz, N, nx, nx + nu) \
+            or tuple(c.shape) != (Bsz, N, nx) or c.device != dev:
+        raise ValueError(f"AB {tuple(AB.shape)} / c {tuple(c.shape)} do "
+                         f"not match B={Bsz}, N={N} on {dev}")
+    A, Bm = _f32(AB[..., :nx]), _f32(AB[..., nx:])
+    lib = _library()
+    xn, un, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
+                                                FUSE_COST, dev)
+    ins = [A, Bm, _f32(c), f.xbar, f.ubar, f.x0, f.Qs, f.Qt, f.R, f.Rg,
+           f.yrx, f.yru, f.yre, f.lbx, f.ubx, f.lbu, f.ubu]
+    rc = lib.box_qp_ipm_fused_cost(
+        *[t.data_ptr() for t in [*ins, xn, un, diag, *sx, *su, work]],
+        Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
+    _launched(lib, rc, "box_qp_ipm fuse_cost")
+    batched_fused_tick.launches += 1
+    dg = {"kkt_stat": diag[:, 0], "kkt_eq": diag[:, 1], "mu": diag[:, 2],
+          "step_norm_x": diag[:, 3], "step_norm_u": diag[:, 4],
+          "bound_viol": diag[:, 5]}
+    return xn, un, dg, _solution(xn, un, diag, sx, su)
+
+
+def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
+                       yref_e, lbx, ubx, lbu, ubu, iters: int = 6,
+                       mu0: float = 1e-1, alpha_frac: float = 0.995,
+                       reg: float = 1e-6, warm=None, R_grad=None):
+    """The batched RTI tick body with in-kernel QP assembly and iterate
+    update; the counterpart of `pallas_batched_fused_tick`.
+
+    Arguments (leading batch axis B everywhere; shared spec tensors may be
+    broadcast views): AB (B, N, nx, nx+nu) packed [A | B]; c (B, N, nx)
+    shooting defects; xbar (B, N+1, nx), ubar (B, N, nu), x0 (B, nx);
+    Q / R dt-scaled stage Hessians (B, nx, nx) / (B, nu, nu), Q_t the
+    unscaled terminal one; yref_x (B, N, nx), yref_u (B, N, nu),
+    yref_e (B, nx); lbx/ubx (B, nx), lbu/ubu (B, nu) single-row absolute
+    boxes (+-inf allowed); R_grad (B, nu, nu) the R of the cost gradient
+    when `qp_r_floor` makes it differ from the Hessian R.
+
+    Returns (new_xbar, new_ubar, diag dict with kkt_stat / kkt_eq / mu /
+    step_norm_x / step_norm_u / bound_viol per problem, QPSolution whose
+    dx/du ARE the updated absolute iterate). CUDA tensors run the kernel
+    (one launch, counted in `batched_fused_tick.launches`); CPU tensors the
+    plain twin.
+    """
+    if warm is not None:
+        raise NotImplementedError(
+            "slack/dual warm starts are not ported yet; ROADMAP queue 1 "
+            "item 9 and queue 2 K3 (warm-start kernel) port them")
+    dev = x0.device
+    if dev.type == "cuda":
+        f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
+                        lbx, ubx, lbu, ubu, R_grad)
+        return _fused_cost_kernel(AB, c, f, iters, mu0, alpha_frac, reg)
+    if dev.type == "cpu":
+        return batched_fused_tick_plain(
+            AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
+            ubx, lbu, ubu, iters=iters, mu0=mu0, alpha_frac=alpha_frac,
+            reg=reg, R_grad=R_grad)
+    raise ValueError(f"batched_fused_tick runs on cuda or cpu tensors, "
+                     f"not {dev.type}")
+
+
+batched_fused_tick.launches = 0
+
+
+def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
+                      mu0, alpha_frac, reg, return_lin):
+    Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
+        f.ubar.shape[-1]
+    _check_dims(nx, nu)
+    if N < 1 or num_steps < 1:
+        raise ValueError(f"empty horizon or substeps (N={N}, "
+                         f"num_steps={num_steps})")
+    dev = f.x0.device
+    _check_shapes(f, _fused_shapes(Bsz, N, nx, nu), dev)
+    sp = _f32(stage_params)
+    if sp.device != dev or sp.ndim != 3 or tuple(sp.shape[:2]) != (Bsz, N) \
+            or sp.shape[2] < 25:
+        raise ValueError(f"stage_params {tuple(sp.shape)} on {sp.device}: "
+                         f"expected ({Bsz}, {N}, >=25) on {dev}")
+    lib = _library()
+    dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
+                                                FUSE_LIN, dev)
+    lin = (torch.empty((Bsz, int(lib.box_qp_ipm_lin_floats(N))),
+                       dtype=torch.float32, device=dev)
+           if return_lin else None)
+    # the float32 roundings of the constants the Python linearizer uses
+    h = dt / num_steps
+    consts = [float(np.float32(v)) for v in (
+        1.0 / model[1], model[2], model[3], model[4], model[5], model[6],
+        model[7], model[8], h, 0.5 * h, h / 6.0)]
+    ins = [f.xbar, f.ubar, sp, f.x0, f.Qs, f.Qt, f.R, f.Rg, f.yrx, f.yru,
+           f.yre, f.lbx, f.ubx, f.lbu, f.ubu]
+    ptrs = [t.data_ptr() for t in [*ins, dx, du, diag, *sx, *su]]
+    rc = lib.box_qp_ipm_fused_lin(
+        *ptrs, None if lin is None else lin.data_ptr(), work.data_ptr(),
+        Bsz, N, sp.shape[2], iters, mu0, alpha_frac, reg, *consts,
+        num_steps, _stream(dev))
+    _launched(lib, rc, "box_qp_ipm fuse_lin")
+    fused_rti_solve.launches += 1
+    sol = _solution(dx, du, diag, sx, su)
+    if not return_lin:
+        return sol
+    nA, nB = N * nx * nx, N * nx * nu
+    return sol, (lin[:, :nA].view(Bsz, N, nx, nx),
+                 lin[:, nA:nA + nB].view(Bsz, N, nx, nu),
+                 lin[:, nA + nB:].view(Bsz, N, nx))
+
+
+def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
+                    yref_e, lbx, ubx, lbu, ubu, model: tuple, dt: float,
+                    num_steps: int = 1, iters: int = 6, mu0: float = 1e-1,
+                    alpha_frac: float = 0.995, reg: float = 1e-6, warm=None,
+                    soft=None, R_grad=None, return_lin: bool = False):
+    """The one-launch RTI QP solve: RK4 linearization (A, B, c of every
+    node), the cost gradients, delta bounds and dx0 all happen inside the
+    IPM kernel; the counterpart of `pallas_fused_rti_solve`.
+
+    Arguments (leading batch axis B == 1 everywhere): xbar (B, N+1, nx),
+    ubar (B, N, nu), stage_params (B, N, np) the linearization point and
+    the 25-dim POC parameters; x0 (B, nx); Q / R dt-scaled, Q_t unscaled;
+    yref_x (B, N, nx), yref_u (B, N, nu), yref_e (B, nx); lbx/ubx (B, nx),
+    lbu/ubu (B, nu) single-row absolute boxes (+-inf allowed); `model` the
+    tuple of `sqp/rti.py::fused_dyn_statics` (family "blaster" only), dt
+    and the RK4 substep count; R_grad as in `batched_fused_tick`.
+
+    Returns the delta-form QPSolution (and, with return_lin, the (A, B, c)
+    the linearization built). CUDA tensors run the kernel (one launch,
+    counted in `fused_rti_solve.launches`); CPU tensors the plain twin.
+    """
+    if soft is not None:
+        raise NotImplementedError(
+            "soft bounds are not ported yet; ROADMAP queue 1 item 10 and "
+            "queue 2 K4 (soft-bound kernel) port them")
+    if warm is not None:
+        raise NotImplementedError(
+            "slack/dual warm starts are not ported yet; ROADMAP queue 1 "
+            "item 9 and queue 2 K3 (warm-start kernel) port them")
+    _check_fused_rti(x0, model)
+    dev = x0.device
+    if dev.type == "cuda":
+        f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
+                        lbx, ubx, lbu, ubu, R_grad)
+        return _fused_lin_kernel(stage_params, f, model, dt, num_steps,
+                                 iters, mu0, alpha_frac, reg, return_lin)
+    if dev.type == "cpu":
+        return fused_rti_solve_plain(
+            xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
+            lbx, ubx, lbu, ubu, model, dt, num_steps=num_steps, iters=iters,
+            mu0=mu0, alpha_frac=alpha_frac, reg=reg, R_grad=R_grad,
+            return_lin=return_lin)
+    raise ValueError(f"fused_rti_solve runs on cuda or cpu tensors, "
+                     f"not {dev.type}")
+
+
+fused_rti_solve.launches = 0

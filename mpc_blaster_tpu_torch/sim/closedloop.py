@@ -1,9 +1,11 @@
 """Closed-loop NMPC simulation.
 
 Port of `mpc_blaster_tpu/sim/closedloop.py`, the cold, frozen-POC,
-`jac_refresh=1` branch. The JAX package runs the whole rollout as one
-`lax.scan`; here it is a Python loop of ticks whose tensors stay on the
-device of the spec (the QP solve is one kernel launch per tick on CUDA).
+`jac_refresh=1` branch, with `qp_backend="pallas"` (either linearizer) or
+the deployed one-launch tick `"pallas_fused"`. The JAX package runs the
+whole rollout as one `lax.scan`; here it is a Python loop of ticks whose
+tensors stay on the device of the spec (the QP solve is one kernel launch
+per tick on CUDA).
 The plant is the same RK4 model with its own stage parameters (T_blast
 pinned to 2.2*9.81, as the reference's simulation entry point sets it).
 """
@@ -17,9 +19,9 @@ from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, build_spec, total_cost
-from mpc_blaster_tpu_torch.sqp.rti import (RTIState, init_rti_state,
-                                           make_linearizer, not_ported,
-                                           rti_step)
+from mpc_blaster_tpu_torch.sqp.rti import (RTIState, fused_dyn_statics,
+                                           init_rti_state, make_linearizer,
+                                           not_ported, rti_step)
 
 
 class ClosedLoopResult(NamedTuple):
@@ -42,6 +44,17 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
     poc_mode="frozen" keeps the spec's stage parameters for the whole run
     (the reference computes its POC Jacobians once before the loop).
     """
+    # One substep count feeds both the forward map and the linearizer.
+    ctrl_substeps = 1
+    solver = ocp.solver
+    # qp_backend="pallas_fused" re-linearizes inside the kernel every tick,
+    # so Jacobian reuse is refused with it, as in the JAX package.
+    dyn = (fused_dyn_statics(ocp, ctrl_substeps)
+           if solver.qp_backend == "pallas_fused" else None)
+    if dyn is not None and jac_refresh > 1:
+        raise ValueError("jac_refresh>1 is not supported with "
+                         "qp_backend='pallas_fused' (the fused kernel "
+                         "re-linearizes in-kernel every tick)")
     if poc_mode in ("online", "online_stagewise"):
         raise not_ported(f"poc_mode={poc_mode!r}", "online")
     if poc_mode != "frozen":
@@ -52,13 +65,10 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
         raise not_ported("jac_refresh>1", "jac_refresh")
     device = spec.Q.device
     params = BlasterParams.from_config(ocp.model, dtype, device)
-    # One substep count feeds both the forward map and the linearizer.
-    ctrl_substeps = 1
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=ctrl_substeps)
     F_plant = discrete_dynamics(blaster_ode, ocp.dt,
                                 num_steps=plant_substeps)
-    solver = ocp.solver
-    make_linearizer(ocp, params, num_steps=ctrl_substeps)
+    lin = make_linearizer(ocp, params, num_steps=ctrl_substeps)
     x = torch.as_tensor(x0, dtype=dtype, device=device)
     if plant_params is None:
         # the plant uses the controller's stage-0 parameters with T_blast
@@ -70,7 +80,8 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
 
     xs, us, costs, stats, eqs = [x], [], [], [], []
     for _ in range(n_steps):
-        u0, state, diag = rti_step(spec, state, x, params, F, solver)
+        u0, state, diag = rti_step(spec, state, x, params, F, solver,
+                                   linearizer=lin, dyn_statics=dyn)
         x = F_plant(x, u0, plant_params, params)
         xs.append(x)
         us.append(u0)
@@ -125,7 +136,8 @@ def run_preset(preset: cfg.Preset, n_steps: Optional[int] = None,
 
     with_poc=True computes the POC Jacobians through the jet solver first,
     as the reference's simulation entry point does. The preset's solver
-    must select the ported backend (`qp_backend="pallas"`)."""
+    must select a ported backend (`qp_backend="pallas"` or
+    `"pallas_fused"`, e.g. `config.deployed_solver("safe")`)."""
     n = n_steps if n_steps is not None else preset.loop.n_steps
     if stage_params is None and (with_poc or poc_mode == "online"):
         stage_params = preset_stage_params(preset, dtype, device)

@@ -1,9 +1,18 @@
 """Gauss-Newton SQP-RTI: one linearize -> QP -> update per control tick.
 
-Port of `mpc_blaster_tpu/sqp/rti.py`, the slice with
-`qp_backend="pallas"` (the box-QP IPM kernel, `ops/box_qp_ipm.py`) and
-`lin_backend="jacfwd"` (`torch.func.jacfwd` + `vmap` over the shooting
-nodes). Everything else raises `NotImplementedError` naming the ROADMAP
+Port of `mpc_blaster_tpu/sqp/rti.py`, the cold ticks of two QP backends:
+
+  - `qp_backend="pallas"`: the host builds the QP (`build_qp`, with the
+    `lin_backend` linearizer: "jacfwd", `torch.func.jacfwd` + `vmap` over
+    the nodes, or "fused", `dynamics/fastlin.py`), then one launch of the
+    box-QP IPM kernel solves it (`ops/box_qp_ipm.py::box_qp_solve`);
+  - `qp_backend="pallas_fused"`, the deployed tick: linearization, QP
+    assembly and solve are ONE kernel launch
+    (`ops/box_qp_ipm.py::fused_rti_solve`), fed the static dynamics
+    constants of `fused_dyn_statics`.
+
+Everything else (the riccati and condensed backends, warm starts, soft
+bounds, Jacobian reuse) raises `NotImplementedError` naming the ROADMAP
 item that ports it; the port never switches a backend by itself.
 """
 from __future__ import annotations
@@ -24,17 +33,14 @@ from mpc_blaster_tpu_torch.qp.data import QPData
 _TODO = {
     "riccati": "queue 1 item 5 (torch-eager Riccati IPM, qp/ipm.py)",
     "condensed": "queue 1 item 12 (qp/condense.py)",
-    "pallas_fused": "queue 1 item 9 and queue 2 K6 (fuse_lin kernel)",
-    "fused": "queue 1 item 3 (dynamics/fastlin.py)",
     "warm": "queue 1 item 9 and queue 2 K3 (warm-start kernel)",
     "soft": "queue 1 item 10 and queue 2 K4 (soft-bound kernel)",
     "online": "queue 1 item 8 (online POC re-linearization)",
     "jac_refresh": "queue 1 item 12 (Jacobian-reuse ticks)",
     "batched_xla": "queue 1 item 7 (the general batched tick, with item "
                    "5's IPM)",
-    "batched_pallas_fused": "queue 1 item 7 and queue 2 K5 (fuse_cost "
-                            "kernel)",
 }
+QP_BACKENDS = ("pallas", "pallas_fused")
 
 
 def not_ported(what: str, key: str) -> NotImplementedError:
@@ -107,14 +113,59 @@ def _linearize_nodes(F, xbar, ubar, stage_params, params):
 
 def make_linearizer(ocp: cfg.OCPConfig, params: BlasterParams,
                     num_steps: int = 1):
-    """Resolve `solver.lin_backend`: None means the jacfwd path."""
+    """Resolve `solver.lin_backend` to a `linearizer` hook of `build_qp`:
+    None for the jacfwd path, the component-form closure for "fused"."""
     lb = ocp.solver.lin_backend
     if lb == "fused":
-        raise not_ported("lin_backend='fused'", "fused")
+        from mpc_blaster_tpu_torch.dynamics.fastlin import \
+            make_fused_linearizer
+        return make_fused_linearizer(ocp, params, num_steps)
     if lb != "jacfwd":
         raise ValueError(f"unknown lin_backend {lb!r} "
                          "(expected 'jacfwd' or 'fused')")
     return None
+
+
+def fused_dyn_statics(ocp: cfg.OCPConfig, num_steps: int = 1,
+                      family: str = "blaster") -> tuple:
+    """Dynamics constants of the one-launch tick
+    (`qp_backend="pallas_fused"`): ((family, mass, g, arm_x, arm_y, yaw_c,
+    Jx, Jy, Jz), dt, num_steps). The kernel takes them as runtime
+    arguments; `family` names the rows-form ODE of
+    `dynamics/fastlin.py::FAMILIES` (the kernel runs "blaster")."""
+    m = ocp.model
+    return ((family, float(m.mass), float(m.gravity),
+             float(m.arm_length_x), float(m.arm_length_y),
+             float(m.yaw_coefficient),
+             float(m.inertia_diag[0]), float(m.inertia_diag[1]),
+             float(m.inertia_diag[2])),
+            float(ocp.dt), int(num_steps))
+
+
+def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
+                    solver: cfg.SolverConfig, dyn_statics):
+    """One-launch RTI QP solve: linearization, cost gradients, delta bounds
+    and dx0 are all assembled inside the IPM kernel from the iterate and
+    the raw spec tensors. Returns the delta-form solution."""
+    from mpc_blaster_tpu_torch.ops.box_qp_ipm import fused_rti_solve
+    if dyn_statics is None:
+        raise ValueError(
+            "qp_backend='pallas_fused' needs static dynamics constants: "
+            "build ticks via make_rti_step/closed_loop, or pass "
+            "dyn_statics=fused_dyn_statics(ocp, num_steps)")
+    model, dt, nsteps = dyn_statics
+    dtw = spec.dt
+    Rh = qp_hessian_R(spec, solver)   # QP-only floor (gradient keeps R)
+    Rg = (dtw * spec.R)[None] if solver.qp_r_floor is not None else None
+    sol = fused_rti_solve(
+        state.xbar[None], state.ubar[None], spec.stage_params[None],
+        x0[None], (dtw * spec.Q)[None], spec.Q_t[None], (dtw * Rh)[None],
+        spec.yref_x[None], spec.yref_u[None], spec.yref_e[None],
+        spec.lbx[None], spec.ubx[None], spec.lbu[None], spec.ubu[None],
+        model=model, dt=dt, num_steps=nsteps, iters=solver.ipm_iters,
+        mu0=solver.ipm_mu0, alpha_frac=solver.ipm_alpha_frac,
+        reg=max(solver.ipm_reg, 1e-6), R_grad=Rg)
+    return type(sol)(*(None if a is None else a[0] for a in sol))
 
 
 def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
@@ -130,11 +181,18 @@ def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
 
 
 def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
-             params: BlasterParams, solver=None) -> QPData:
-    """Linearize dynamics (jacfwd) + cost around the iterate -> delta-form
-    QP. `solver` feeds the optional QP-only Hessian floor."""
+             params: BlasterParams, linearizer=None, solver=None) -> QPData:
+    """Linearize dynamics + cost around the iterate -> delta-form QP.
+    `linearizer`, when given, replaces the jacfwd linearization with a
+    `(xbar, ubar, stage_params) -> (x_next, A, B)` callable (the
+    component-form backend, `dynamics/fastlin.py`). `solver` feeds the
+    optional QP-only Hessian floor."""
     xbar, ubar = state.xbar, state.ubar
-    x_pred, A, B = _linearize_nodes(F, xbar, ubar, spec.stage_params, params)
+    if linearizer is not None:
+        x_pred, A, B = linearizer(xbar, ubar, spec.stage_params)
+    else:
+        x_pred, A, B = _linearize_nodes(F, xbar, ubar, spec.stage_params,
+                                        params)
     c = x_pred - xbar[1:]                       # shooting defects
 
     N = spec.horizon
@@ -155,7 +213,7 @@ def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
 
 
 def _check_backend(solver: cfg.SolverConfig):
-    if solver.qp_backend != "pallas":
+    if solver.qp_backend not in QP_BACKENDS:
         raise not_ported(f"qp_backend={solver.qp_backend!r}",
                          solver.qp_backend)
 
@@ -177,17 +235,31 @@ def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None):
     IPM kernel on a batch of one."""
     if warm is not None:
         raise not_ported("slack/dual warm starts", "warm")
-    _check_backend(solver)
+    if solver.qp_backend != "pallas":
+        # the JAX dispatch sends every backend but "condensed" and
+        # "pallas" (pallas_fused included) to the Riccati IPM
+        key = "condensed" if solver.qp_backend == "condensed" else "riccati"
+        raise not_ported(f"solve_qp_backend with qp_backend="
+                         f"{solver.qp_backend!r}", key)
     sol = solve_batched_qp(QPData(*(a[None] for a in qp)), solver)
     return type(sol)(*(None if a is None else a[0] for a in sol))
 
 
 def rti_step(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
-             params: BlasterParams, F, solver: cfg.SolverConfig
+             params: BlasterParams, F, solver: cfg.SolverConfig,
+             linearizer=None, dyn_statics=None
              ) -> Tuple[torch.Tensor, RTIState, RTIDiagnostics]:
-    """One real-time iteration. Returns (u0, updated iterate, diagnostics)."""
-    qp = build_qp(spec, state, x0, F, params, solver=solver)
-    sol = solve_qp_backend(qp, solver)
+    """One real-time iteration. Returns (u0, updated iterate, diagnostics).
+
+    With `solver.qp_backend == "pallas_fused"` the linearization runs
+    inside the IPM kernel (`linearizer` is unused; pass
+    `dyn_statics=fused_dyn_statics(ocp, num_steps)`)."""
+    if solver.qp_backend == "pallas_fused":
+        sol = _fused_qp_solve(spec, state, x0, solver, dyn_statics)
+    else:
+        qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
+                      solver=solver)
+        sol = solve_qp_backend(qp, solver)
     new_state = RTIState(xbar=state.xbar + sol.dx, ubar=state.ubar + sol.du)
     diag = RTIDiagnostics(
         qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
@@ -212,9 +284,12 @@ def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=num_steps)
     solver = ocp.solver
     _check_backend(solver)
-    make_linearizer(ocp, params, num_steps=num_steps)
+    lin = make_linearizer(ocp, params, num_steps=num_steps)
+    dyn = (fused_dyn_statics(ocp, num_steps)
+           if solver.qp_backend == "pallas_fused" else None)
 
     def step(spec: OCPSpec, state: RTIState, x0: torch.Tensor):
-        return rti_step(spec, state, x0, params, F, solver)
+        return rti_step(spec, state, x0, params, F, solver, linearizer=lin,
+                        dyn_statics=dyn)
 
     return step

@@ -99,6 +99,7 @@ PORT_MODULES = [
     "mpc_blaster_tpu_torch.convert",
     "mpc_blaster_tpu_torch.core.rotations", "mpc_blaster_tpu_torch.core.htm",
     "mpc_blaster_tpu_torch.dynamics.blaster",
+    "mpc_blaster_tpu_torch.dynamics.fastlin",
     "mpc_blaster_tpu_torch.dynamics.integrators",
     "mpc_blaster_tpu_torch.poc.jet", "mpc_blaster_tpu_torch.poc.solver",
     "mpc_blaster_tpu_torch.ocp.spec", "mpc_blaster_tpu_torch.qp.data",
@@ -133,7 +134,7 @@ def _refused(fn):
         fn()
 
 
-@pytest.mark.parametrize("backend", ["riccati", "condensed", "pallas_fused"])
+@pytest.mark.parametrize("backend", ["riccati", "condensed"])
 def test_out_of_slice_qp_backends_refused(backend):
     from mpc_blaster_tpu_torch.sqp.rti import make_rti_step
     pre = cfg.simulation_preset()
@@ -155,9 +156,6 @@ def test_out_of_slice_options_refused():
     ocp = pre.ocp
     spec = build_spec(ocp)
     x0 = torch.zeros(cfg.NX)
-    fused_lin = dataclasses.replace(ocp, solver=dataclasses.replace(
-        ocp.solver, lin_backend="fused"))
-    _refused(lambda: make_rti_step(fused_lin))
     _refused(lambda: closed_loop(spec, ocp, x0, 1, warm_start=True))
     _refused(lambda: closed_loop(spec, ocp, x0, 1, poc_mode="online"))
     _refused(lambda: closed_loop(spec, ocp, x0, 1, jac_refresh=2))
@@ -165,5 +163,4 @@ def test_out_of_slice_options_refused():
     _refused(lambda: rti_step_soft(spec, None, x0, None, None, ocp.solver,
                                    soft=object()))
     _refused(lambda: batched_rti_step(ocp))   # the JAX default, "xla"
-    for backend in ("xla", "pallas_fused"):
-        _refused(lambda: batched_rti_step(ocp, backend=backend))
+    _refused(lambda: batched_rti_step(ocp, backend="xla"))
