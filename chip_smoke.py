@@ -3,10 +3,11 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the box-QP IPM kernel (its plain, fuse_cost and fuse_lin modes)
-from `mpc_blaster_tpu_torch/csrc/` with nvcc, holds each mode against its
-plain PyTorch twin on the card, then drives the port's main paths, each
-with the launch counts set to 0 just before it and read just after:
+Builds the box-QP IPM kernel (its plain, fuse_cost and fuse_lin modes,
+each with the warm-start blend K3) from `mpc_blaster_tpu_torch/csrc/`
+with nvcc, holds each mode, cold and warm, against its plain PyTorch twin
+on the card, then drives the port's main paths, each with the launch
+counts set to 0 just before it and read just after:
 
   3. the batched RTI tick, backend "pallas" (N=20, B=1024, 10 ticks);
   4. the simulation preset's closed loop, backend "pallas" (N=60, frozen
@@ -17,7 +18,16 @@ with the launch counts set to 0 just before it and read just after:
   6. the fused closed loop, `qp_backend="pallas_fused"` (N=60, 100 ticks
      at 12 iterations, held to the golden; and under
      `deployed_solver("safe")`, 6 iterations): one fuse_lin launch per
-     tick.
+     tick;
+  7. the `deployed_solver("fastest")` closed loop (N=60, 100 ticks,
+     frozen POC) through `make_closed_loop(..., warm_start=True)`: the
+     guarded warm chain, two warm fuse_lin launches per tick (the tick and
+     the watchdog's redo, which returns at once unless the tick tripped);
+  8. the altitude-step stress of bench.py (N=20, 200 ticks from z=0.5):
+     "fastest", and the raw chain (4 iterations, warm_mode="full", no
+     shift) under the watchdog;
+  9. the presets' default `qp_backend="riccati"` (eager PyTorch, no kernel
+     of ours): 3 ticks of the simulation preset's loop at N=60.
 
 Every phase prints one line; any failure raises and the exit code is
 non-zero. Without a CUDA device it fails before printing any result; it
@@ -50,7 +60,26 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     the CPU stays within 3.4e-3 m). Under `deployed_solver("safe")` (6
     iterations) the JAX package's own float32 loop ends 0.1240 m from
     that 12-iteration golden (its Riccati IPM on the CPU), so the bound
-    there is 0.1240 + 5e-2 m.
+    there is 0.1240 + 5e-2 m; under "fastest" it ends 0.0111 m from it
+    (the port's twins on the CPU: 0.0198 m), bound 0.0111 + 5e-2 m;
+  - the altitude step: overshoot above z=3.5 within the JAX package's own
+    float32 run of the same chain (its Riccati IPM on the CPU: 0.0186 m
+    under "fastest", 0.0 m for the raw chain under the watchdog; the
+    port's twins on the CPU: 0.0186 m and 0.0139 m) + 5e-2 m, finite
+    states. Unguarded, the raw chain's failure is ~200 m;
+  - warm starts (K3): the blend itself pointwise (0 IPM iterations return
+    the blended initial slacks and duals; rtol 1e-5 / atol 1e-6) on valid,
+    invalid (valid=0) and NaN/+inf-poisoned problems; valid=0 problems
+    equal a cold launch bit for bit. The warm cases are the last ticks of
+    a 100-tick "fastest" chain (x0 spread by 1e-3 across a batch). Past
+    the blend, the clean valid problems are held to the cold tolerances
+    above at N=60 (the main path's shape, where the warm solve is well
+    conditioned: 7e-5 of du per 1e-6 relative change of the warm state
+    after one iteration, measured on the CPU). At N=8 and N=20 the same
+    change moves du by 0.4-1.1 after one iteration (f32 warm solves are
+    chaotic there; the JAX package's solvers differ from each other by as
+    much), so the kernel is held to the twin's own spread against a copy
+    of itself started 1e-6 away (compare_warm).
 """
 from __future__ import annotations
 
@@ -69,13 +98,19 @@ GOLDEN = REPO / "tests" / "golden" / "simulation_poc_100.npz"
 KERNEL_SOURCE = "mpc_blaster_tpu_torch/csrc/box_qp_ipm.cu"
 REPLACES = {"box_qp_ipm": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
             "box_qp_ipm_fuse_cost": "mpc_blaster_tpu/ops/pallas_ipm.py:1236",
-            "box_qp_ipm_fuse_lin": "mpc_blaster_tpu/ops/pallas_ipm.py:1163"}
+            "box_qp_ipm_fuse_lin": "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
+            "box_qp_ipm_warm": "mpc_blaster_tpu/ops/pallas_ipm.py:402"}
 FULL_ITERS = 12   # the simulation preset's ipm_iters
 SAFE_ITERS = 6    # deployed_solver("safe")
+FASTEST_ITERS = 3  # deployed_solver("fastest")
 BATCH = 1024      # the batched ticks' scenarios
 TICKS = 10        # chained batched ticks
 LOOP_TICKS = 100  # closed-loop ticks (the golden's length)
+ALT_TICKS = 200   # the altitude-step stress (bench.py)
+CHAIN_TICKS = 100  # the warm chain the warm-start cases are taken from
 SAFE_BOUND_M = 0.1240 + 5e-2
+FASTEST_BOUND_M = 0.0111 + 5e-2
+ALT_BOUND_M = {"fastest": 0.0186 + 5e-2, "raw_watchdog": 0.0 + 5e-2}
 
 
 def log(phase: str, **kv):
@@ -109,12 +144,19 @@ KERNEL_WRAPPERS: dict = {}   # the wrappers that hold the launch counts
 
 
 def counts() -> dict:
-    return {w: fn.launches for w, fn in KERNEL_WRAPPERS.items()}
+    """Launches per wrapper, and ("<wrapper>.warm") those with a warm
+    start (kernel K3)."""
+    out = {}
+    for w, fn in KERNEL_WRAPPERS.items():
+        out[w] = fn.launches
+        out[w + ".warm"] = fn.warm_launches
+    return out
 
 
 def reset_counts():
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        fn.warm_launches = 0
 
 
 @contextlib.contextmanager
@@ -375,6 +417,267 @@ def compare_fuse_lin(name, N, dev, K):
     return row
 
 
+def steady_chain(N: int, dev, keep: int):
+    """The states before the last `keep` ticks of a CHAIN_TICKS-tick
+    "fastest" warm chain (unguarded `rti_step_warm`, B=1, from the
+    preset's start on the ground, default stage parameters, the plant's
+    RK4): (ocp, spec, [(RTIState, x0, IpmWarmStart), ...])."""
+    from mpc_blaster_tpu_torch import config as cfg
+    from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams,
+                                                        blaster_ode)
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
+    from mpc_blaster_tpu_torch.sqp import rti as R
+    pre = simulation_ocp(N, solver=cfg.deployed_solver("fastest"))
+    ocp = pre.ocp
+    spec = build_spec(ocp, yref=pre.loop.yref, device=dev)
+    P = BlasterParams.from_config(ocp.model, device=dev)
+    F = discrete_dynamics(blaster_ode, ocp.dt)
+    dyn = R.fused_dyn_statics(ocp)
+    x = torch.as_tensor(pre.loop.x0, dtype=torch.float32, device=dev)
+    st = R.init_rti_state(ocp, x)
+    warm = IpmWarmStart.zeros(N, 17, 6, device=dev)
+    plant = spec.stage_params[0].clone()
+    plant[-1] = 2.2 * 9.81
+    tail = []
+    for t in range(CHAIN_TICKS):
+        if t >= CHAIN_TICKS - keep:
+            tail.append((st, x, warm))
+        u0, st, warm, _ = R.rti_step_warm(spec, st, warm, x, P, F,
+                                          ocp.solver, dyn_statics=dyn)
+        x = F(x, u0, plant, P)
+    return ocp, spec, tail
+
+
+def poison(w, j):
+    """NaN and +inf entries in problem j of a warm start (in place)."""
+    w.s_lu[j, :2] = float("nan")
+    w.lam_lx[j, 1, :3] = float("nan")
+    w.s_ux[j, 2, 0] = float("inf")
+    w.lam_uu[j, 0, 1] = float("inf")
+
+
+def warm_case(N: int, B: int, dev, seed: int):
+    """A batch of B warm-start cases from a steady "fastest" chain at N:
+    problem j takes the chain's state before tick (j mod 16) from the end
+    (x0 spread by N(0, 1e-3) past the first 16). Problems with j % 4 == 1
+    are invalid (valid=0), those with j % 7 == 2 poisoned with NaN/+inf.
+    Returns (ocp, spec rows and inputs dict, warm, masks dict)."""
+    from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
+    from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
+    from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
+    keep = min(B, 16)
+    ocp, spec, tail = steady_chain(N, dev, keep)
+    pick = [tail[j % keep] for j in range(B)]
+    xbar = torch.stack([p[0].xbar for p in pick])
+    ubar = torch.stack([p[0].ubar for p in pick])
+    x0 = torch.stack([p[1] for p in pick])
+    rng = np.random.default_rng(seed)
+    spread = rng.normal(0.0, 1e-3, x0.shape).astype(np.float32)
+    spread[:keep] = 0.0
+    x0 = x0 + torch.as_tensor(spread, device=dev)
+    warm = IpmWarmStart(*(torch.stack([p[2][i] for p in pick]).clone()
+                          for i in range(len(IpmWarmStart._fields))))
+    j = torch.arange(B, device=dev)
+    invalid = (j % 4 == 1) if B > 1 else torch.zeros(1, dtype=torch.bool,
+                                                      device=dev)
+    poisoned = (j % 7 == 2) & ~invalid
+    warm.valid[invalid] = 0.0
+    for k in poisoned.nonzero().flatten().tolist():
+        poison(warm, k)
+
+    def bc(a):
+        return a.expand(B, *a.shape)
+    args = (bc(spec.dt * spec.Q), bc(spec.Q_t), bc(spec.dt * spec.R),
+            bc(spec.yref_x), bc(spec.yref_u), bc(spec.yref_e),
+            bc(spec.lbx), bc(spec.ubx), bc(spec.lbu), bc(spec.ubu))
+    P = BlasterParams.from_config(ocp.model, device=dev)
+    xp, A, Bm = fast_linearize(xbar, ubar, spec.stage_params, P, ocp.dt)
+    inp = dict(xbar=xbar, ubar=ubar, x0=x0, args=args, A=A, Bm=Bm,
+               c=xp - xbar[:, 1:], sp=bc(spec.stage_params))
+    return ocp, inp, warm, dict(invalid=invalid, poisoned=poisoned,
+                                clean=~invalid & ~poisoned)
+
+
+def warm_runners(mode, ocp, inp, K):
+    """(kernel, twin) solve functions of one mode on a warm case:
+    f(iters, warm) -> delta-form QPSolution; and the case's QP."""
+    from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
+    xb, ub, x0, args = inp["xbar"], inp["ubar"], inp["x0"], inp["args"]
+    qp = K._fused_qp(K._fused_prep(xb, ub, x0, *args, None), inp["A"],
+                     inp["Bm"], inp["c"])
+    if mode == "plain":
+        return (lambda it, w: K.box_qp_solve(qp, iters=it, warm=w),
+                lambda it, w: K.box_qp_solve_plain(qp, iters=it, warm=w),
+                qp)
+    if mode == "fuse_cost":
+        fa = (torch.cat([inp["A"], inp["Bm"]], -1), inp["c"], xb, ub, x0,
+              *args)
+
+        def delta(sol):
+            return sol._replace(dx=sol.dx - xb, du=sol.du - ub)
+        return (lambda it, w: delta(K.batched_fused_tick(
+                    *fa, iters=it, warm=w)[3]),
+                lambda it, w: delta(K.batched_fused_tick_plain(
+                    *fa, iters=it, warm=w)[3]), qp)
+    model, dt, ns = fused_dyn_statics(ocp)
+    fa = (xb, ub, inp["sp"], x0, *args)
+    kw = dict(model=model, dt=dt, num_steps=ns)
+    return (lambda it, w: K.fused_rti_solve(*fa, iters=it, warm=w, **kw),
+            lambda it, w: K.fused_rti_solve_plain(*fa, iters=it, warm=w,
+                                                  **kw), qp)
+
+
+SLACK_DUALS = ("s_lx", "s_ux", "s_lu", "s_uu",
+               "lam_lx", "lam_ux", "lam_lu", "lam_uu")
+
+
+def warm_gaps(a, b, qp, sel, iters) -> torch.Tensor:
+    """Per selected problem, whether solutions a and b agree: pointwise
+    after one iteration (u0 atol 2e-3, dx/du atol 5e-3), on the QP
+    objective (1.2e-2 relative) and kkt_eq (rtol 0.2 / atol 1e-3) after
+    more."""
+    from torch.func import vmap
+    from mpc_blaster_tpu_torch.qp.data import qp_objective
+    if iters == 1:
+        u0 = (a.du[:, 0] - b.du[:, 0]).abs().amax(1)
+        du = (a.du - b.du).abs().amax((1, 2))
+        dx = (a.dx - b.dx).abs().amax((1, 2))
+        return ((u0 <= 2e-3) & (du <= 5e-3) & (dx <= 5e-3))[sel]
+    oa = vmap(qp_objective)(qp, a.dx, a.du)
+    ob = vmap(qp_objective)(qp, b.dx, b.du)
+    obj = (oa - ob).abs() <= 1.2e-2 * ob.abs().clamp(min=1.0)
+    eq = (a.kkt_eq - b.kkt_eq).abs() <= 1e-3 + 0.2 * b.kkt_eq.abs()
+    return (obj & eq)[sel]
+
+
+def compare_warm(name, mode, N, B, dev, K):
+    """Warm-start kernel (K3, in one mode) vs its plain twin; the report
+    row. fuse_lin (B=1) runs its clean, poisoned and invalid problems as
+    three launches.
+
+    Held everywhere: the blend pointwise (0 iterations), valid=0 bit for
+    bit the cold launch, finite iterates. Past the blend the clean valid
+    problems are held to the cold tolerances where the warm solve is
+    well conditioned (the main path's case, fuse_lin N=60: measured 7e-5
+    of du per 1e-6 relative change of the warm state after one
+    iteration); at N=8 and N=20 the chain's warm solves are chaotic in f32
+    (0.4-1.1 of du per 1e-6, measured on the CPU), so there the
+    kernel-vs-twin agreement is held to the twin's own against a copy of
+    itself started from the warm state moved by 1e-6 relative (the
+    within-tolerance fraction no more than 0.05 lower, on batches of at
+    least 64; reported for the others)."""
+    ocp, inp, warm, masks = warm_case(N, max(B, 3), dev, seed=N + B)
+    if mode == "fuse_lin":
+        parts = []
+        for k in (0, 2, 1):   # clean, poisoned, invalid
+            sl = slice(k, k + 1)
+            sub = dict(inp, xbar=inp["xbar"][sl], ubar=inp["ubar"][sl],
+                       x0=inp["x0"][sl], sp=inp["sp"][sl],
+                       args=tuple(a[sl] for a in inp["args"]),
+                       A=inp["A"][sl], Bm=inp["Bm"][sl], c=inp["c"][sl])
+            parts.append((sub, type(warm)(*(a[sl] for a in warm)),
+                          {m: v[sl] for m, v in masks.items()}))
+    else:
+        parts = [(inp, warm, masks)]
+    strict = mode == "fuse_lin" and N == 60
+    row = {"case": name, "mode": mode, "B": B, "N": N, "strict": strict}
+    errs = {"blend": 0.0, "1it": 0.0}
+    for inp_p, w, m in parts:
+        kern, plain, qp = warm_runners(mode, ocp, inp_p, K)
+        # the blend: 0 iterations return the blended initial slacks/duals
+        sk, sp = kern(0, w), plain(0, w)
+        torch.cuda.synchronize()
+        for f in SLACK_DUALS:
+            a, b = getattr(sk, f), getattr(sp, f)
+            err = (a - b).abs().max().item()
+            errs["blend"] = max(errs["blend"], err)
+            check(bool(torch.isclose(a, b, rtol=1e-5, atol=1e-6).all()),
+                  "warm blend", case=name, field=f, err=err)
+        cold_w = w._replace(valid=torch.zeros_like(w.valid))
+        moved = w._replace(**{f: getattr(w, f) * (1 + 1e-6)
+                              for f in SLACK_DUALS})
+        sel = m["clean"].nonzero().flatten()
+        for iters in (1, FASTEST_ITERS, FULL_ITERS):
+            a, c = kern(iters, w), kern(iters, None)
+            off = kern(iters, cold_w)
+            torch.cuda.synchronize()
+            p_, q_ = plain(iters, w), plain(iters, moved)
+            for f in ("dx", "du"):
+                check(bool(torch.isfinite(getattr(a, f)).all()), "finite",
+                      case=name, iters=iters, field=f)
+            # valid=0: the cold launch bit for bit (the watchdog's redo)
+            inv = m["invalid"]
+            same = all(torch.equal(getattr(off, f), getattr(c, f))
+                       and torch.equal(getattr(a, f)[inv],
+                                       getattr(c, f)[inv])
+                       for f in ("dx", "du", "s_lx", "lam_uu", "kkt_eq"))
+            check(same, "valid=0 is the cold launch", case=name, iters=iters)
+            if sel.numel() == 0:
+                continue
+            kt = warm_gaps(a, p_, qp, sel, iters).float().mean().item()
+            tt = warm_gaps(q_, p_, qp, sel, iters).float().mean().item()
+            row[f"within_frac_{iters}it"] = kt
+            row[f"twin_self_within_frac_{iters}it"] = tt
+            if iters == 1 and strict:
+                errs["1it"] = max(
+                    (a.du - p_.du).abs().max().item(),
+                    (a.dx - p_.dx).abs().max().item())
+            if strict:
+                check(kt == 1.0, "warm parity", case=name, iters=iters)
+            elif sel.numel() >= 64:
+                check(kt >= tt - 0.05, "warm parity within the twin's own "
+                      "spread", case=name, iters=iters, within=kt,
+                      twin_self=tt)
+        if inp_p is parts[0][0]:
+            w_ = w
+            row["kernel_ms_3it"] = cuda_ms(lambda: kern(FASTEST_ITERS, w_),
+                                           reps=10)
+            row["plain_ms_3it"] = cuda_ms(lambda: plain(FASTEST_ITERS, w_),
+                                          reps=1)
+            row["cold_kernel_ms_3it"] = cuda_ms(
+                lambda: kern(FASTEST_ITERS, None), reps=10)
+    row["blend_max_abs_err"] = errs["blend"]
+    row["max_abs_err_1it"] = errs["1it"]
+    return row
+
+
+def guarded_trips():
+    """Wrap the port's guarded warm tick so the last watchdog state of a
+    closed loop can be read back: (context manager, getter)."""
+    from mpc_blaster_tpu_torch.sqp import rti as R
+    seen = {}
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = R.rti_step_warm_guarded
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            seen["wd"] = out[3]
+            return out
+        R.rti_step_warm_guarded = wrapped
+        try:
+            yield
+        finally:
+            R.rti_step_warm_guarded = orig
+    return ctx, lambda: int(seen["wd"].trips) if "wd" in seen else -1
+
+
+def timed_warm_loop(ocp, spec, x0, n_ticks):
+    from mpc_blaster_tpu_torch.sim.closedloop import make_closed_loop
+    run = make_closed_loop(ocp, n_ticks, warm_start=True)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = run(spec, x0)
+    e1.record()
+    torch.cuda.synchronize()
+    return res, e0.elapsed_time(e1) / n_ticks
+
+
 def run_batched_ticks(step, spec, x0s, n_ticks, ocp):
     from mpc_blaster_tpu_torch.sqp.rti import init_rti_state
     states = init_rti_state(ocp, x0s)
@@ -466,6 +769,15 @@ def run(dev: torch.device) -> int:
                 for n, N in (("n8_b1", 8), ("n60_b1", 60))]
     for r in lin_rows:
         log("fuse_lin_vs_plain", **r)
+    warm_rows = [compare_warm(n, mode, N, B, dev, K) for n, mode, N, B in (
+        ("plain_n8_b3", "plain", 8, 3),
+        ("plain_n20_b1024", "plain", 20, BATCH),
+        ("fuse_cost_n8_b3", "fuse_cost", 8, 3),
+        ("fuse_cost_n20_b1024", "fuse_cost", 20, BATCH),
+        ("fuse_lin_n8_b1", "fuse_lin", 8, 1),
+        ("fuse_lin_n60_b1", "fuse_lin", 60, 1))]
+    for r in warm_rows:
+        log("warm_vs_plain", **r)
 
     # ---- the main paths, each counted on its own ----
     pre20 = simulation_ocp(20)
@@ -478,7 +790,7 @@ def run(dev: torch.device) -> int:
         reset_counts()
         out = fn()
         got = counts()
-        want = {w: expected.get(w, 0) for w in WRAPPERS}
+        want = {k: expected.get(k, 0) for k in got}
         check(got == want, f"{what} launches", got=got, want=want)
         return out, got
 
@@ -575,6 +887,74 @@ def run(dev: torch.device) -> int:
     log("fused_closed_loop_plain", N=60, ticks=2, iters=FULL_ITERS,
         ms_per_tick=pms)
 
+    # phase 7: deployed_solver("fastest"), N=60, 100 ticks, the guarded
+    # warm chain: the tick and the watchdog's redo, two warm launches
+    from mpc_blaster_tpu_torch.sim.closedloop import preset_stage_params
+    trips_ctx, trips = guarded_trips()
+    pre_f = simulation_ocp(60, solver=cfg.deployed_solver("fastest"))
+    spec_f = build_spec(pre_f.ocp, yref=pre_f.loop.yref,
+                        stage_params=preset_stage_params(pre_f, device=dev),
+                        device=dev)
+    x_start = torch.as_tensor(pre_f.loop.x0, dtype=torch.float32,
+                              device=dev)
+    two = {"fused_rti_solve": 2 * LOOP_TICKS,
+           "fused_rti_solve.warm": 2 * LOOP_TICKS}
+    with trips_ctx():
+        (res, ms), c7 = counted(two, "fastest closed loop", lambda:
+                                timed_warm_loop(pre_f.ocp, spec_f, x_start,
+                                                LOOP_TICKS))
+    xs, err = loop_checks("deployed_fastest", res, FASTEST_BOUND_M)
+    log("fastest_closed_loop", N=60, ticks=LOOP_TICKS, iters=FASTEST_ITERS,
+        launches=c7["fused_rti_solve"],
+        warm_launches=c7["fused_rti_solve.warm"], ms_per_tick=ms,
+        watchdog_trips=trips(), golden_max_pos_err_m=err,
+        bound_m=FASTEST_BOUND_M, final_z=float(xs[-1, 2]),
+        kkt_eq_max=res.kkt_eq.max().item())
+    warm_launches = c7["fused_rti_solve.warm"]
+
+    # phase 8: the altitude-step stress, N=20, 200 ticks from z=0.5
+    pre20f = simulation_ocp(20)
+    spec20f = build_spec(pre20f.ocp, yref=pre20f.loop.yref, device=dev)
+    x_alt = torch.zeros(17, device=dev)
+    x_alt[2] = 0.5
+    alt = {}
+    for chain, solver in (
+            ("fastest", cfg.deployed_solver("fastest")),
+            ("raw_watchdog", dataclasses.replace(
+                cfg.deployed_solver("fastest"), ipm_iters=4,
+                warm_mode="full", warm_shift=False))):
+        ocp_a = dataclasses.replace(pre20f.ocp, solver=solver)
+        two = {"fused_rti_solve": 2 * ALT_TICKS,
+               "fused_rti_solve.warm": 2 * ALT_TICKS}
+        with trips_ctx():
+            (res, ms), c8 = counted(two, f"altitude step {chain}", lambda:
+                                    timed_warm_loop(ocp_a, spec20f, x_alt,
+                                                    ALT_TICKS))
+        z = res.xs[:, 2].cpu().numpy()
+        over = float(max(z.max() - 3.5, 0.0))
+        finite = bool(torch.isfinite(res.xs).all())
+        check(finite and over <= ALT_BOUND_M[chain], "altitude step",
+              chain=chain, overshoot_m=over, bound_m=ALT_BOUND_M[chain],
+              finite=finite)
+        alt[chain] = over
+        warm_launches += c8["fused_rti_solve.warm"]
+        log("altitude_step", chain=chain, N=20, ticks=ALT_TICKS,
+            iters=solver.ipm_iters, launches=c8["fused_rti_solve"],
+            ms_per_tick=ms, overshoot_m=over, bound_m=ALT_BOUND_M[chain],
+            watchdog_trips=trips(), final_z=float(z[-1]),
+            kkt_eq_max=res.kkt_eq.max().item())
+
+    # phase 9: the presets' default qp_backend="riccati", eager PyTorch on
+    # the card (no kernel of ours), 3 ticks at N=60
+    pre_r = cfg.simulation_preset()
+    (res, ms), c9 = counted({}, "riccati closed loop",
+                            lambda: timed_closed_loop(pre_r, 3, dev))
+    check(bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all()),
+          "riccati closed-loop finite")
+    log("riccati_closed_loop", N=60, ticks=3,
+        qp_backend=pre_r.ocp.solver.qp_backend, ms_per_tick=ms,
+        final_z=float(res.xs[-1, 2]))
+
     if FAILURES:
         for f in FAILURES:
             log("FAILED", **f)
@@ -583,6 +963,7 @@ def run(dev: torch.device) -> int:
     main_row = next(r for r in rows if r["case"] == "n60_b1")
     cost_main = next(r for r in cost_rows if r["case"] == "n20_b1024")
     lin_main = next(r for r in lin_rows if r["case"] == "n60_b1")
+    warm_main = next(r for r in warm_rows if r["case"] == "fuse_lin_n60_b1")
 
     def entry(name, launches, rs, main, **extra):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -606,6 +987,18 @@ def run(dev: torch.device) -> int:
               prologue_max_abs_err=max(
                   max(r["prologue_max_abs_err"].values())
                   for r in lin_rows)),
+        {"name": "box_qp_ipm_warm", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES["box_qp_ipm_warm"], "launches": warm_launches,
+         "max_abs_err": max(max(r["blend_max_abs_err"], r["max_abs_err_1it"])
+                            for r in warm_rows),
+         "blend_max_abs_err": max(r["blend_max_abs_err"] for r in warm_rows),
+         "max_abs_err_1it_n60": warm_main["max_abs_err_1it"],
+         "ms": warm_main["kernel_ms_3it"],
+         "plain_ms": warm_main["plain_ms_3it"],
+         "cold_ms": warm_main["cold_kernel_ms_3it"],
+         "by_shape": {r["case"]: [r["kernel_ms_3it"], r["plain_ms_3it"]]
+                      for r in warm_rows},
+         "altitude_overshoot_m": alt},
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """State carried across between the JAX package and the port, as numpy.
 
 `*_from_numpy` turn the fields of a JAX container (an `OCPSpec`,
-`RTIState` or `QPData`, as numpy arrays, or a mapping of them) into the
-port's container on a device and dtype; `*_to_numpy` go the other way,
-returning a dict of numpy arrays keyed by field name. The parity tests
-use these so both sides compute from the same numbers.
+`RTIState`, `QPData`, `IpmWarmStart` or `WatchdogState`, as numpy arrays,
+or a mapping of them) into the port's container on a device and dtype;
+`*_to_numpy` go the other way, returning a dict of numpy arrays keyed by
+field name. The parity tests use these so both sides compute from the
+same numbers (and start a warm chain from the same warm state).
 """
 from __future__ import annotations
 
@@ -15,16 +16,19 @@ import torch
 
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.qp.data import QPData
-from mpc_blaster_tpu_torch.sqp.rti import RTIState
+from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
+from mpc_blaster_tpu_torch.sqp.rti import RTIState, WatchdogState
 
 
 def _fields(d) -> Mapping:
     return d._asdict() if hasattr(d, "_asdict") else d
 
 
-def _from_numpy(cls, d, device, dtype):
+def _from_numpy(cls, d, device, dtype, dtypes=None):
     f = _fields(d)
-    return cls(**{k: torch.as_tensor(np.array(f[k]), dtype=dtype,
+    dtypes = dtypes or {}
+    return cls(**{k: torch.as_tensor(np.array(f[k]),
+                                     dtype=dtypes.get(k, dtype),
                                      device=device) for k in cls._fields})
 
 
@@ -54,3 +58,22 @@ def qp_from_numpy(d, device=None, dtype=torch.float32) -> QPData:
 
 def qp_to_numpy(qp: QPData) -> dict:
     return _to_numpy(qp)
+
+
+def warm_from_numpy(d, device=None, dtype=torch.float32) -> IpmWarmStart:
+    return _from_numpy(IpmWarmStart, d, device, dtype)
+
+
+def warm_to_numpy(warm: IpmWarmStart) -> dict:
+    return _to_numpy(warm)
+
+
+def watchdog_from_numpy(d, device=None, dtype=torch.float32
+                        ) -> WatchdogState:
+    """`dtype` is the EMA's; the trip and hold counters are int32."""
+    return _from_numpy(WatchdogState, d, device, dtype,
+                       {"trips": torch.int32, "hold": torch.int32})
+
+
+def watchdog_to_numpy(wd: WatchdogState) -> dict:
+    return _to_numpy(wd)

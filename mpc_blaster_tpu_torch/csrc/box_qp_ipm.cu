@@ -17,6 +17,19 @@
 //              and c for every node inside the kernel; deltas out
 //              (pallas_fused_rti_solve, the one-launch B=1 tick).
 //
+// Every mode takes an optional slack/dual warm start (the Pallas kernel's
+// static `warm_on` variant, pallas_ipm.py:402-421, applied after the centred
+// init as at :580-586): per problem with valid > 0.5, each cold slack of a
+// finite bound is replaced by the previous tick's value clipped to
+// [1e-5, 1e20] and each dual by its value clipped to [0, LAM_MAX] and
+// floored at 1e-8, wherever the clipped value is finite (NaN falls back to
+// the cold value; +inf clips and is taken). The blend runs once per launch,
+// so it is a runtime switch (null warm pointers = cold solve, valid = 0
+// reproduces the cold solve bit for bit), not a template parameter. An
+// optional device flag `skip` makes every block return at once: the
+// divergence watchdog enqueues its cold redo every tick and lets the
+// device decide whether it runs (sqp/rti.py::rti_step_warm_guarded).
+//
 // The plain PyTorch twins are ops/box_qp_ipm.py::box_qp_solve_plain,
 // batched_fused_tick_plain and fused_rti_solve_plain (the prologue's twin is
 // dynamics/fastlin.py::fast_linearize); each follows the same operation
@@ -64,6 +77,7 @@ constexpr float SIGMA_MAX = 1e7f;
 constexpr float LAM_MAX = 1e7f;
 constexpr float EPS_S = 1e-9f;
 constexpr float DUAL_CLIP = 1e12f;
+constexpr float WARM_S_MIN = 1e-5f;  // S_MIN * 1e-2, the warm slack floor
 
 enum Mode : int { PLAIN = 0, FUSE_COST = 1, FUSE_LIN = 2 };
 
@@ -145,6 +159,12 @@ struct Inputs {  // problem-major float32
   const float* box[4];  // lbx, ubx (B, NX); lbu, ubu (B, NU); +-1e18 = inf
   const float* sp;      // (B, N, np) stage parameters (FUSE_LIN)
   int np;
+  // optional warm start (null = cold): valid (B,); slacks and duals of the
+  // groups lx, ux (B, N, NX) and lu, uu (B, N, NU)
+  const float* wvalid;
+  const float* ws[4];
+  const float* wl[4];
+  const unsigned char* skip;  // optional device flag: nonzero = do nothing
 };
 
 // Model constants of the FUSE_LIN prologue (runtime arguments). The RK4
@@ -420,6 +440,9 @@ struct Solver {
   const float* box[4];
   float *qf, *rf, *bd[4], *Aw, *Bw, *cw;
   int np;
+  // warm start of this problem (used only when warm_use)
+  const float *ws[4], *wl[4];
+  bool warm_use;
   // outputs (slacks/duals double as the iterate's state)
   float *dxb, *dub, *diag;
   float *s[4], *lam[4];
@@ -455,10 +478,13 @@ struct Solver {
     dxb = out.dx + b * n1 * NX;
     dub = out.du + b * n * NU;
     diag = out.diag + b * 6;
+    warm_use = in.wvalid != nullptr && in.wvalid[b] > 0.5f;
     for (int g = 0; g < 4; ++g) {
       const size_t w = g < 2 ? NX : NU;
       s[g] = out.s[g] + b * n * w;
       lam[g] = out.lam[g] + b * n * w;
+      ws[g] = warm_use ? in.ws[g] + b * n * w : nullptr;
+      wl[g] = warm_use ? in.wl[g] + b * n * w : nullptr;
     }
     float* w = out.work + b * workspace_floats(N, MODE);
     P = w;        w += n1 * NXX;
@@ -659,7 +685,8 @@ struct Solver {
   }
 
   // ---- phases -------------------------------------------------------------
-  // rollout (du = 0) with the 10%-inset clamp, centred slacks and duals
+  // rollout (du = 0) with the 10%-inset clamp, centred slacks and duals,
+  // then the warm blend over them
   __device__ void init() {
     if (t < NX) {
       if constexpr (MODE == PLAIN) {
@@ -688,9 +715,18 @@ struct Solver {
       const float v = V[vi];
       for (int g = gb; g < gb + 2; ++g) {
         const float b = bnd[g][idx], m = mask(g, b);
-        const float sv = m > 0.5f ? nmax(sgn(g) * (v - b), S_MIN) : BIG;
+        float sv = m > 0.5f ? nmax(sgn(g) * (v - b), S_MIN) : BIG;
+        float lv = m > 0.5f ? mu0 / sv : 0.f;
+        if (warm_use && m > 0.5f) {
+          // NaN-propagating clips: a NaN entry stays NaN and keeps the cold
+          // value; fminf/fmaxf would turn it into a bound and accept it
+          const float w = clipf(ws[g][idx], WARM_S_MIN, BIG);
+          const float wlv = nmax(clipf(wl[g][idx], 0.f, LAM_MAX), 1e-8f);
+          if (isfinite(w)) sv = w;
+          if (isfinite(wlv)) lv = wlv;
+        }
         s[g][idx] = sv;
-        lam[g][idx] = m > 0.5f ? mu0 / sv : 0.f;
+        lam[g][idx] = lv;
         cnt += m;
       }
     });
@@ -1073,9 +1109,27 @@ template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
                   float mu0, float alpha_frac, float reg) {
+  if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
   __shared__ Shared sh;
   Solver<MODE> solver(in, out, sh, N, mu0, reg);
   solver.run(iters, alpha_frac, md);
+}
+
+// The warm-start arguments every entry takes (wvalid null = cold solve).
+void set_warm(Inputs& in, const float* wvalid, const float* wslx,
+              const float* wsux, const float* wllx, const float* wlux,
+              const float* wslu, const float* wsuu, const float* wllu,
+              const float* wluu, const unsigned char* skip) {
+  in.wvalid = wvalid;
+  in.ws[0] = wslx;
+  in.ws[1] = wsux;
+  in.ws[2] = wslu;
+  in.ws[3] = wsuu;
+  in.wl[0] = wllx;
+  in.wl[1] = wlux;
+  in.wl[2] = wllu;
+  in.wl[3] = wluu;
+  in.skip = skip;
 }
 
 template <int MODE>
@@ -1083,6 +1137,13 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
            int N, int iters, float mu0, float alpha_frac, float reg,
            void* stream) {
   if (B <= 0 || N <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  if (in.wvalid != nullptr) {
+    for (int g = 0; g < 4; ++g) {
+      if (in.ws[g] == nullptr || in.wl[g] == nullptr) {
+        return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
   box_qp_ipm_kernel<MODE><<<B, THREADS, 0, (cudaStream_t)stream>>>(
       in, out, md, N, iters, mu0, alpha_frac, reg);
   return (int)cudaGetLastError();
@@ -1112,9 +1173,13 @@ extern "C" int box_qp_ipm_solve(
     float* dx, float* du, float* diag,
     float* slx, float* sux, float* llx, float* lux,
     float* slu, float* suu, float* llu, float* luu,
-    float* work, int B, int N, int iters, float mu0, float alpha_frac,
-    float reg, void* stream) {
+    float* work, const float* wvalid, const float* wslx, const float* wsux,
+    const float* wllx, const float* wlux, const float* wslu,
+    const float* wsuu, const float* wllu, const float* wluu,
+    const unsigned char* skip, int B, int N, int iters, float mu0,
+    float alpha_frac, float reg, void* stream) {
   Inputs in{A, Bm, c, Qs, Qt, q, R, r, lbx, ubx, lbu, ubu, dx0};
+  set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu}, work};
   return launch<PLAIN>(in, out, Model{}, B, N, iters, mu0, alpha_frac, reg,
                        stream);
@@ -1131,9 +1196,13 @@ extern "C" int box_qp_ipm_fused_cost(
     float* xnew, float* unew, float* diag,
     float* slx, float* sux, float* llx, float* lux,
     float* slu, float* suu, float* llu, float* luu,
-    float* work, int B, int N, int iters, float mu0, float alpha_frac,
-    float reg, void* stream) {
+    float* work, const float* wvalid, const float* wslx, const float* wsux,
+    const float* wllx, const float* wlux, const float* wslu,
+    const float* wsuu, const float* wllu, const float* wluu,
+    const unsigned char* skip, int B, int N, int iters, float mu0,
+    float alpha_frac, float reg, void* stream) {
   Inputs in{};
+  set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
   in.A = A;
   in.Bm = Bm;
   in.c = c;
@@ -1167,12 +1236,16 @@ extern "C" int box_qp_ipm_fused_lin(
     float* dx, float* du, float* diag,
     float* slx, float* sux, float* llx, float* lux,
     float* slu, float* suu, float* llu, float* luu,
-    float* lin, float* work, int B, int N, int np, int iters, float mu0,
-    float alpha_frac, float reg, float inv_m, float g, float lx, float ly,
-    float cy, float j1, float j2, float j3, float h, float h2, float h6,
-    int nsteps, void* stream) {
+    float* lin, float* work, const float* wvalid, const float* wslx,
+    const float* wsux, const float* wllx, const float* wlux,
+    const float* wslu, const float* wsuu, const float* wllu,
+    const float* wluu, const unsigned char* skip, int B, int N, int np,
+    int iters, float mu0, float alpha_frac, float reg, float inv_m, float g,
+    float lx, float ly, float cy, float j1, float j2, float j3, float h,
+    float h2, float h6, int nsteps, void* stream) {
   if (np < 25 || nsteps < 1) return (int)cudaErrorInvalidValue;
   Inputs in{};
+  set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
   in.Qs = Qs;
   in.Qt = Qt;
   in.R = R;

@@ -2,9 +2,9 @@
 its plain PyTorch twins and the launch wrappers.
 
 Replaces `mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel` in three modes
-(cold start, hard bounds, VMEM-resident), together with its in-kernel
-algebra (`_contractT*`, `_matvec`, `_chol_inverse_lanes`) and the host side
-of `_pallas_box_qp_solve`:
+(hard bounds, VMEM-resident), cold or warm-started (its `warm_on` variant),
+together with its in-kernel algebra (`_contractT*`, `_matvec`,
+`_chol_inverse_lanes`) and the host side of `_pallas_box_qp_solve`:
 
   - plain (`pallas_box_qp_solve`): `box_qp_solve`, twin
     `box_qp_solve_plain`. The host assembles the QP.
@@ -22,8 +22,19 @@ One call runs a whole Mehrotra predictor-corrector IPM (Gondzio-clipped
 targets, Riccati factorization and sweeps, fraction-to-boundary steps,
 best-merit tracking) for every problem of a batch. CUDA tensors go to the
 kernel in `csrc/box_qp_ipm.cu` (one launch, every IPM iteration inside
-it; counted in the wrapper's `launches`); CPU tensors go to the plain
-twin. Nothing falls back: an unsupported CUDA input raises. The CPU tests
+it; counted in the wrapper's `launches`, and in `warm_launches` when a
+warm start is given); CPU tensors go to the plain twin.
+
+Every wrapper takes `warm=`, an `qp/ipm.py::IpmWarmStart` with a leading
+batch axis (fields (B, N, nx|nu), valid (B,)): per problem with valid >
+0.5 the cold centred slacks and duals of the finite bounds are replaced by
+the warm ones, slacks clipped to [1e-5, 1e20], duals to [0, lam_max] and
+floored at 1e-8, wherever the clipped value is finite (kernel K3). valid =
+0 is the cold solve bit for bit. `box_qp_solve` and `fused_rti_solve` also
+take `skip=`, a one-element bool tensor on the device: when it holds True
+the launch returns at once and the outputs are undefined (the watchdog's
+redo, `sqp/rti.py::rti_step_warm_guarded`); the plain twins ignore it and
+always compute. Nothing falls back: an unsupported CUDA input raises. The CPU tests
 hold the twins against the Pallas kernel in interpret mode;
 `chip_smoke.py` holds the CUDA kernel against them on the card.
 
@@ -64,6 +75,10 @@ import torch
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
 from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
+# The 6x6 Huu inverse of the kernel's `chol_inverse`: one implementation,
+# shared with the Riccati IPM.
+from mpc_blaster_tpu_torch.qp.smallalg import \
+    chol_inverse as chol_inverse_plain
 
 # Kernel modes (the `Mode` template parameter of csrc/box_qp_ipm.cu).
 PLAIN, FUSE_COST, FUSE_LIN = 0, 1, 2
@@ -74,6 +89,9 @@ _MTHR = 5e17    # |bound| above this is treated as infinite (mask = 0)
 _S_MIN, _MU_MIN = 1e-3, 1e-7
 _SIGMA_MAX, _LAM_MAX, _EPS_S = 1e7, 1e7, 1e-9
 _DUAL_CLIP = 1e12
+_WARM_S_MIN = 1e-5   # _S_MIN * 1e-2, the warm slack floor
+_WARM_FIELDS = ("s_lx", "s_ux", "lam_lx", "lam_ux", "s_lu", "s_uu",
+                "lam_lu", "lam_uu")
 
 # Dimensions the CUDA kernel is instantiated for (the BLASTER model).
 KERNEL_NX, KERNEL_NU = 17, 6
@@ -149,48 +167,25 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def chol_inverse_plain(M: torch.Tensor) -> torch.Tensor:
-    """(B, n, n) SPD -> inverse, Jacobi-equilibrated and fail-safe.
-
-    The barrier-modified Huu mixes diagonal scales over ~14 orders of
-    magnitude, so it is scaled to unit diagonal first; a problem whose
-    matrix has a diagonal entry <= 0 or a Cholesky pivot <= 1e-10 gets
-    the ZERO matrix (its feedback gain collapses to 0 for that stage
-    instead of blowing the recursion up)."""
-    n = M.shape[-1]
-    d = torch.diagonal(M, dim1=-2, dim2=-1)
-    diag_ok = (d > 0.0).all(-1)
-    dscale = torch.sqrt(torch.clamp(d, min=1e-30))
-    outer = dscale.unsqueeze(-1) * dscale.unsqueeze(-2)
-    ent = M / outer
-    L = torch.zeros_like(M)
-    min_piv = None
-    for j in range(n):
-        s = ent[:, j, j] - (L[:, j, :j] * L[:, j, :j]).sum(-1)
-        min_piv = s if min_piv is None else torch.minimum(min_piv, s)
-        dj = torch.sqrt(torch.clamp(s, min=1e-12))
-        L[:, j, j] = dj
-        if j + 1 < n:
-            t = ent[:, j + 1:, j] - (L[:, j + 1:, :j]
-                                     * L[:, j, None, :j]).sum(-1)
-            L[:, j + 1:, j] = t * (1.0 / dj).unsqueeze(-1)
-    Li = torch.zeros_like(M)
-    for i in range(n):
-        Li[:, i, i] = 1.0 / L[:, i, i]
-        if i > 0:
-            s = (L[:, i, :i].unsqueeze(-1) * Li[:, :i, :i]).sum(-2)
-            Li[:, i, :i] = -s / L[:, i, i].unsqueeze(-1)
-    ok = diag_ok & (min_piv > 1e-10)
-    out = _mtm(Li, Li) / outer
-    return torch.where(ok[:, None, None], out, torch.zeros_like(out))
+def _warm_blend(S, LAM, masks, warm):
+    """The kernel's warm blend (K3) over the cold centred slacks S and
+    duals LAM (lists in group order lx, ux, lu, uu) of a batch."""
+    use = (_f32(warm.valid) > 0.5)[:, None, None]
+    for i, g in enumerate(("lx", "ux", "lu", "uu")):
+        ok = use & (masks[i] > 0.5)
+        w = torch.clamp(_f32(getattr(warm, "s_" + g)), _WARM_S_MIN, _BIG)
+        wl = torch.clamp(torch.clamp(_f32(getattr(warm, "lam_" + g)), 0.0,
+                                     _LAM_MAX), min=1e-8)
+        S[i] = torch.where(ok & torch.isfinite(w), w, S[i])
+        LAM[i] = torch.where(ok & torch.isfinite(wl), wl, LAM[i])
 
 
 def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
-                       alpha_frac: float = 0.995,
-                       reg: float = 1e-6) -> QPSolution:
+                       alpha_frac: float = 0.995, reg: float = 1e-6,
+                       warm=None, skip=None) -> QPSolution:
     """Eager PyTorch twin of the CUDA kernel. `data` fields carry a
     leading batch axis (B, ...); any device. Same arguments and result as
-    `box_qp_solve`."""
+    `box_qp_solve` (`skip` is ignored: the twin always computes)."""
     p = _prep(data)
     A, Bm, c, Qs, Qt, q, R, r = (p.A, p.Bm, p.c, p.Qs, p.Qt, p.q, p.R,
                                  p.r)
@@ -234,6 +229,8 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
         s, lam = init_pair(dx[:, 1:] if is_x else du, b, sgn, m)
         S.append(s)
         LAM.append(lam)
+    if warm is not None:
+        _warm_blend(S, LAM, [g[2] for g in groups], warm)
 
     n_ineq = torch.clamp(sum(m.sum((1, 2)) for _, _, m, _ in groups),
                          min=1.0)
@@ -473,7 +470,7 @@ def batched_fused_tick_plain(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x,
                              yref_u, yref_e, lbx, ubx, lbu, ubu,
                              iters: int = 6, mu0: float = 1e-1,
                              alpha_frac: float = 0.995, reg: float = 1e-6,
-                             R_grad=None):
+                             warm=None, R_grad=None):
     """Eager PyTorch twin of the fuse_cost kernel: the kernel's assembly
     on the host, `box_qp_solve_plain`, then the update and diagnostics.
     Same arguments and result as `batched_fused_tick`."""
@@ -483,7 +480,7 @@ def batched_fused_tick_plain(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x,
     AB = _f32(AB)
     qp = _fused_qp(f, AB[..., :nx], AB[..., nx:], _f32(c))
     sol = box_qp_solve_plain(qp, iters=iters, mu0=mu0,
-                             alpha_frac=alpha_frac, reg=reg)
+                             alpha_frac=alpha_frac, reg=reg, warm=warm)
     xn, un, diag = _tick_diag(f, sol)
     return xn, un, diag, sol._replace(dx=xn, du=un)
 
@@ -502,11 +499,12 @@ def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
                           yref_u, yref_e, lbx, ubx, lbu, ubu, model: tuple,
                           dt: float, num_steps: int = 1, iters: int = 6,
                           mu0: float = 1e-1, alpha_frac: float = 0.995,
-                          reg: float = 1e-6, R_grad=None,
-                          return_lin: bool = False):
+                          reg: float = 1e-6, warm=None, R_grad=None,
+                          return_lin: bool = False, skip=None):
     """Eager PyTorch twin of the fuse_lin kernel: `fast_linearize`, the
     kernel's assembly on the host and `box_qp_solve_plain`. Same arguments
-    and result as `fused_rti_solve`."""
+    and result as `fused_rti_solve` (`skip` is ignored: the twin always
+    computes)."""
     _check_fused_rti(x0, model)
     f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
                     ubx, lbu, ubu, R_grad)
@@ -515,7 +513,7 @@ def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
         dt, num_steps, family=model[0])
     c = x_next - f.xbar[:, 1:]
     sol = box_qp_solve_plain(_fused_qp(f, A, Bm, c), iters=iters, mu0=mu0,
-                             alpha_frac=alpha_frac, reg=reg)
+                             alpha_frac=alpha_frac, reg=reg, warm=warm)
     return (sol, (A, Bm, c)) if return_lin else sol
 
 
@@ -586,11 +584,13 @@ def _library() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of the built library."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.box_qp_ipm_solve.argtypes = ([ptr] * 25 + [i32] * 3 + [f32] * 3
+    # each entry ends its pointers with the warm start (valid + 8 fields)
+    # and the skip flag
+    lib.box_qp_ipm_solve.argtypes = ([ptr] * 35 + [i32] * 3 + [f32] * 3
                                      + [ptr])
-    lib.box_qp_ipm_fused_cost.argtypes = ([ptr] * 29 + [i32] * 3
+    lib.box_qp_ipm_fused_cost.argtypes = ([ptr] * 39 + [i32] * 3
                                           + [f32] * 3 + [ptr])
-    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 28 + [i32] * 4
+    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 38 + [i32] * 4
                                          + [f32] * 14 + [i32, ptr])
     for fn in (lib.box_qp_ipm_solve, lib.box_qp_ipm_fused_cost,
                lib.box_qp_ipm_fused_lin):
@@ -643,6 +643,41 @@ def _solve_outputs(lib, Bsz, N, nx, nu, mode, dev):
             empty(Bsz, int(lib.box_qp_ipm_workspace_floats(N, mode))))
 
 
+def _warm_args(warm, Bsz, N, nx, nu, dev) -> list:
+    """(valid, the eight warm fields) as contiguous float32 tensors for a
+    launch, shape-checked; nine Nones for a cold solve."""
+    if warm is None:
+        return [None] * 9
+    ts = [_f32(warm.valid)] + [_f32(getattr(warm, f)) for f in _WARM_FIELDS]
+    want = [(Bsz,)] + [(Bsz, N, nx)] * 4 + [(Bsz, N, nu)] * 4
+    for name, t, shape in zip(("valid",) + _WARM_FIELDS, ts, want):
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"warm.{name}: {tuple(t.shape)} on {t.device},"
+                             f" expected {shape} on {dev}")
+    return ts
+
+
+def _skip_arg(skip, dev):
+    """The launch's skip flag as a one-byte bool tensor on `dev` (or None)."""
+    if skip is None:
+        return None
+    t = skip.to(torch.bool).reshape(-1).contiguous()
+    if t.device != dev or t.numel() != 1:
+        raise ValueError(f"skip: {tuple(skip.shape)} on {skip.device}, "
+                         f"expected one element on {dev}")
+    return t
+
+
+def _ptrs(ts) -> list:
+    return [None if t is None else t.data_ptr() for t in ts]
+
+
+def _count(wrapper, warm):
+    wrapper.launches += 1
+    if warm is not None:
+        wrapper.warm_launches += 1
+
+
 def _solution(dx, du, diag, sx, su) -> QPSolution:
     return QPSolution(dx=dx, du=du, kkt_stat=diag[:, 0], kkt_eq=diag[:, 1],
                       mu=diag[:, 2],
@@ -659,7 +694,7 @@ def _fused_shapes(Bsz, N, nx, nu):
 
 
 def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
-                  reg: float) -> QPSolution:
+                  reg: float, warm, skip) -> QPSolution:
     p = _prep(data)
     Bsz, N, nx, nu = p.A.shape[0], p.A.shape[1], p.A.shape[-1], \
         p.Bm.shape[-1]
@@ -675,38 +710,44 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
     lib = _library()
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu, PLAIN,
                                                 dev)
+    # held until the launch is enqueued
+    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), _skip_arg(skip, dev)]
     rc = lib.box_qp_ipm_solve(
-        *[t.data_ptr() for t in [*p, dx, du, diag, *sx, *su, work]],
+        *_ptrs([*p, dx, du, diag, *sx, *su, work, *wa]),
         Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm")
-    box_qp_solve.launches += 1
+    _count(box_qp_solve, warm)
     return _solution(dx, du, diag, sx, su)
 
 
 def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
-                 alpha_frac: float = 0.995, reg: float = 1e-6) -> QPSolution:
+                 alpha_frac: float = 0.995, reg: float = 1e-6, warm=None,
+                 skip=None) -> QPSolution:
     """Batched box-QP IPM solve; the counterpart of `pallas_box_qp_solve`.
 
     `data` fields carry a leading batch axis (B, ...). Stage Hessians
     must be identical across stages 0..N-1 (Q[:, 0], R[:, 0] are used)
-    with a distinct terminal Q[:, N]; bounds may be +-inf. Tensors on a
-    CUDA device run the hand-written kernel (one launch; counted in
-    `box_qp_solve.launches`); tensors on the CPU run the plain twin.
+    with a distinct terminal Q[:, N]; bounds may be +-inf. `warm` and
+    `skip` as in the module docstring. Tensors on a CUDA device run the
+    hand-written kernel (one launch; counted in `box_qp_solve.launches`);
+    tensors on the CPU run the plain twin.
     """
     dev = data.A.device
     if dev.type == "cuda":
-        return _solve_kernel(data, iters, mu0, alpha_frac, reg)
+        return _solve_kernel(data, iters, mu0, alpha_frac, reg, warm, skip)
     if dev.type == "cpu":
         return box_qp_solve_plain(data, iters=iters, mu0=mu0,
-                                  alpha_frac=alpha_frac, reg=reg)
+                                  alpha_frac=alpha_frac, reg=reg, warm=warm)
     raise ValueError(f"box_qp_solve runs on cuda or cpu tensors, "
                      f"not {dev.type}")
 
 
 box_qp_solve.launches = 0
+box_qp_solve.warm_launches = 0
 
 
-def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg):
+def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
+                       warm):
     Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
         f.ubar.shape[-1]
     _check_dims(nx, nu)
@@ -724,11 +765,12 @@ def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg):
                                                 FUSE_COST, dev)
     ins = [A, Bm, _f32(c), f.xbar, f.ubar, f.x0, f.Qs, f.Qt, f.R, f.Rg,
            f.yrx, f.yru, f.yre, f.lbx, f.ubx, f.lbu, f.ubu]
+    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), None]
     rc = lib.box_qp_ipm_fused_cost(
-        *[t.data_ptr() for t in [*ins, xn, un, diag, *sx, *su, work]],
+        *_ptrs([*ins, xn, un, diag, *sx, *su, work, *wa]),
         Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_cost")
-    batched_fused_tick.launches += 1
+    _count(batched_fused_tick, warm)
     dg = {"kkt_stat": diag[:, 0], "kkt_eq": diag[:, 1], "mu": diag[:, 2],
           "step_norm_x": diag[:, 3], "step_norm_u": diag[:, 4],
           "bound_viol": diag[:, 5]}
@@ -749,7 +791,8 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
     unscaled terminal one; yref_x (B, N, nx), yref_u (B, N, nu),
     yref_e (B, nx); lbx/ubx (B, nx), lbu/ubu (B, nu) single-row absolute
     boxes (+-inf allowed); R_grad (B, nu, nu) the R of the cost gradient
-    when `qp_r_floor` makes it differ from the Hessian R.
+    when `qp_r_floor` makes it differ from the Hessian R; `warm` as in the
+    module docstring.
 
     Returns (new_xbar, new_ubar, diag dict with kkt_stat / kkt_eq / mu /
     step_norm_x / step_norm_u / bound_viol per problem, QPSolution whose
@@ -757,29 +800,27 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
     (one launch, counted in `batched_fused_tick.launches`); CPU tensors the
     plain twin.
     """
-    if warm is not None:
-        raise NotImplementedError(
-            "slack/dual warm starts are not ported yet; ROADMAP queue 1 "
-            "item 9 and queue 2 K3 (warm-start kernel) port them")
     dev = x0.device
     if dev.type == "cuda":
         f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
                         lbx, ubx, lbu, ubu, R_grad)
-        return _fused_cost_kernel(AB, c, f, iters, mu0, alpha_frac, reg)
+        return _fused_cost_kernel(AB, c, f, iters, mu0, alpha_frac, reg,
+                                  warm)
     if dev.type == "cpu":
         return batched_fused_tick_plain(
             AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
             ubx, lbu, ubu, iters=iters, mu0=mu0, alpha_frac=alpha_frac,
-            reg=reg, R_grad=R_grad)
+            reg=reg, warm=warm, R_grad=R_grad)
     raise ValueError(f"batched_fused_tick runs on cuda or cpu tensors, "
                      f"not {dev.type}")
 
 
 batched_fused_tick.launches = 0
+batched_fused_tick.warm_launches = 0
 
 
 def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
-                      mu0, alpha_frac, reg, return_lin):
+                      mu0, alpha_frac, reg, return_lin, warm, skip):
     Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
         f.ubar.shape[-1]
     _check_dims(nx, nu)
@@ -806,13 +847,13 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
         model[7], model[8], h, 0.5 * h, h / 6.0)]
     ins = [f.xbar, f.ubar, sp, f.x0, f.Qs, f.Qt, f.R, f.Rg, f.yrx, f.yru,
            f.yre, f.lbx, f.ubx, f.lbu, f.ubu]
-    ptrs = [t.data_ptr() for t in [*ins, dx, du, diag, *sx, *su]]
+    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), _skip_arg(skip, dev)]
     rc = lib.box_qp_ipm_fused_lin(
-        *ptrs, None if lin is None else lin.data_ptr(), work.data_ptr(),
+        *_ptrs([*ins, dx, du, diag, *sx, *su, lin, work, *wa]),
         Bsz, N, sp.shape[2], iters, mu0, alpha_frac, reg, *consts,
         num_steps, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_lin")
-    fused_rti_solve.launches += 1
+    _count(fused_rti_solve, warm)
     sol = _solution(dx, du, diag, sx, su)
     if not return_lin:
         return sol
@@ -826,7 +867,8 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
                     yref_e, lbx, ubx, lbu, ubu, model: tuple, dt: float,
                     num_steps: int = 1, iters: int = 6, mu0: float = 1e-1,
                     alpha_frac: float = 0.995, reg: float = 1e-6, warm=None,
-                    soft=None, R_grad=None, return_lin: bool = False):
+                    soft=None, R_grad=None, return_lin: bool = False,
+                    skip=None):
     """The one-launch RTI QP solve: RK4 linearization (A, B, c of every
     node), the cost gradients, delta bounds and dx0 all happen inside the
     IPM kernel; the counterpart of `pallas_fused_rti_solve`.
@@ -837,7 +879,8 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
     yref_x (B, N, nx), yref_u (B, N, nu), yref_e (B, nx); lbx/ubx (B, nx),
     lbu/ubu (B, nu) single-row absolute boxes (+-inf allowed); `model` the
     tuple of `sqp/rti.py::fused_dyn_statics` (family "blaster" only), dt
-    and the RK4 substep count; R_grad as in `batched_fused_tick`.
+    and the RK4 substep count; R_grad as in `batched_fused_tick`; `warm`
+    and `skip` as in the module docstring.
 
     Returns the delta-form QPSolution (and, with return_lin, the (A, B, c)
     the linearization built). CUDA tensors run the kernel (one launch,
@@ -847,25 +890,23 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
         raise NotImplementedError(
             "soft bounds are not ported yet; ROADMAP queue 1 item 10 and "
             "queue 2 K4 (soft-bound kernel) port them")
-    if warm is not None:
-        raise NotImplementedError(
-            "slack/dual warm starts are not ported yet; ROADMAP queue 1 "
-            "item 9 and queue 2 K3 (warm-start kernel) port them")
     _check_fused_rti(x0, model)
     dev = x0.device
     if dev.type == "cuda":
         f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
                         lbx, ubx, lbu, ubu, R_grad)
         return _fused_lin_kernel(stage_params, f, model, dt, num_steps,
-                                 iters, mu0, alpha_frac, reg, return_lin)
+                                 iters, mu0, alpha_frac, reg, return_lin,
+                                 warm, skip)
     if dev.type == "cpu":
         return fused_rti_solve_plain(
             xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
             lbx, ubx, lbu, ubu, model, dt, num_steps=num_steps, iters=iters,
-            mu0=mu0, alpha_frac=alpha_frac, reg=reg, R_grad=R_grad,
-            return_lin=return_lin)
+            mu0=mu0, alpha_frac=alpha_frac, reg=reg, warm=warm,
+            R_grad=R_grad, return_lin=return_lin)
     raise ValueError(f"fused_rti_solve runs on cuda or cpu tensors, "
                      f"not {dev.type}")
 
 
 fused_rti_solve.launches = 0
+fused_rti_solve.warm_launches = 0

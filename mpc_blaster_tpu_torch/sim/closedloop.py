@@ -1,11 +1,15 @@
 """Closed-loop NMPC simulation.
 
-Port of `mpc_blaster_tpu/sim/closedloop.py`, the cold, frozen-POC,
-`jac_refresh=1` branch, with `qp_backend="pallas"` (either linearizer) or
-the deployed one-launch tick `"pallas_fused"`. The JAX package runs the
-whole rollout as one `lax.scan`; here it is a Python loop of ticks whose
-tensors stay on the device of the spec (the QP solve is one kernel launch
-per tick on CUDA).
+Port of `mpc_blaster_tpu/sim/closedloop.py`, the frozen-POC,
+`jac_refresh=1` branches: cold ticks, warm-started ticks, and warm ticks
+under the divergence watchdog (`solver.warm_watchdog`, the chain behind
+`config.deployed_solver("fastest")`), on the `"riccati"` (the presets'
+default), `"pallas"` or deployed one-launch `"pallas_fused"` QP backend.
+The JAX package runs the whole rollout as one `lax.scan`; here it is a
+Python loop of ticks whose tensors stay on the device of the spec (on
+CUDA the kernel backends' QP solve is one kernel launch per tick; the
+guarded chain adds the redo launch, which returns at once unless the tick
+tripped).
 The plant is the same RK4 model with its own stage parameters (T_blast
 pinned to 2.2*9.81, as the reference's simulation entry point sets it).
 """
@@ -19,9 +23,10 @@ from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, build_spec, total_cost
+from mpc_blaster_tpu_torch.sqp import rti as R
 from mpc_blaster_tpu_torch.sqp.rti import (RTIState, fused_dyn_statics,
                                            init_rti_state, make_linearizer,
-                                           not_ported, rti_step)
+                                           not_ported)
 
 
 class ClosedLoopResult(NamedTuple):
@@ -43,6 +48,11 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
 
     poc_mode="frozen" keeps the spec's stage parameters for the whole run
     (the reference computes its POC Jacobians once before the loop).
+    warm_start=True carries IPM slack/dual warm starts between ticks
+    (`rti_step_warm`), under the watchdog when `solver.warm_watchdog`
+    (`rti_step_warm_guarded`); pair it with a reduced `solver.ipm_iters`
+    and `solver.warm_shift=True` (raw unshifted chains degrade on
+    transients).
     """
     # One substep count feeds both the forward map and the linearizer.
     ctrl_substeps = 1
@@ -59,8 +69,10 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
         raise not_ported(f"poc_mode={poc_mode!r}", "online")
     if poc_mode != "frozen":
         raise ValueError(f"unknown poc_mode {poc_mode!r}")
-    if warm_start:
-        raise not_ported("warm_start=True", "warm")
+    if warm_start and solver.warm_watchdog and jac_refresh > 1:
+        raise ValueError("warm_watchdog does not compose with "
+                         "jac_refresh>1 (the guarded tick has no "
+                         "jac-reuse variant); use jac_refresh=1")
     if jac_refresh > 1:
         raise not_ported("jac_refresh>1", "jac_refresh")
     device = spec.Q.device
@@ -77,11 +89,26 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
         plant_params[-1] = 2.2 * 9.81
     plant_params = torch.as_tensor(plant_params, dtype=dtype, device=device)
     state = rti0 if rti0 is not None else init_rti_state(ocp, x, dtype)
+    guarded = warm_start and solver.warm_watchdog
+    if warm_start:
+        warm = R.IpmWarmStart.zeros(spec.horizon, x.shape[-1],
+                                    state.ubar.shape[-1], dtype, device)
+        wd = R.WatchdogState.init(dtype, device)
+    kw = dict(linearizer=lin, dyn_statics=dyn)
 
     xs, us, costs, stats, eqs = [x], [], [], [], []
     for _ in range(n_steps):
-        u0, state, diag = rti_step(spec, state, x, params, F, solver,
-                                   linearizer=lin, dyn_statics=dyn)
+        # the tick functions are looked up per call, so a caller can wrap
+        # them (chip_smoke.py reads the watchdog's trips this way)
+        if guarded:
+            u0, state, warm, wd, diag = R.rti_step_warm_guarded(
+                spec, state, warm, wd, x, params, F, solver, **kw)
+        elif warm_start:
+            u0, state, warm, diag = R.rti_step_warm(
+                spec, state, warm, x, params, F, solver, **kw)
+        else:
+            u0, state, diag = R.rti_step(spec, state, x, params, F, solver,
+                                         **kw)
         x = F_plant(x, u0, plant_params, params)
         xs.append(x)
         us.append(u0)
@@ -135,9 +162,9 @@ def run_preset(preset: cfg.Preset, n_steps: Optional[int] = None,
     """Reproduce a reference entry point end to end on `device`.
 
     with_poc=True computes the POC Jacobians through the jet solver first,
-    as the reference's simulation entry point does. The preset's solver
-    must select a ported backend (`qp_backend="pallas"` or
-    `"pallas_fused"`, e.g. `config.deployed_solver("safe")`)."""
+    as the reference's simulation entry point does. Cold ticks, as in the
+    JAX package: a warm loop is `make_closed_loop(ocp, n,
+    warm_start=True)`."""
     n = n_steps if n_steps is not None else preset.loop.n_steps
     if stage_params is None and (with_poc or poc_mode == "online"):
         stage_params = preset_stage_params(preset, dtype, device)

@@ -1,7 +1,9 @@
 """Gauss-Newton SQP-RTI: one linearize -> QP -> update per control tick.
 
-Port of `mpc_blaster_tpu/sqp/rti.py`, the cold ticks of two QP backends:
+Port of `mpc_blaster_tpu/sqp/rti.py`, the ticks of three QP backends:
 
+  - `qp_backend="riccati"` (the presets' default): the host builds the QP
+    and the eager Riccati IPM of `qp/ipm.py` solves it;
   - `qp_backend="pallas"`: the host builds the QP (`build_qp`, with the
     `lin_backend` linearizer: "jacfwd", `torch.func.jacfwd` + `vmap` over
     the nodes, or "fused", `dynamics/fastlin.py`), then one launch of the
@@ -11,13 +13,17 @@ Port of `mpc_blaster_tpu/sqp/rti.py`, the cold ticks of two QP backends:
     (`ops/box_qp_ipm.py::fused_rti_solve`), fed the static dynamics
     constants of `fused_dyn_statics`.
 
-Everything else (the riccati and condensed backends, warm starts, soft
-bounds, Jacobian reuse) raises `NotImplementedError` naming the ROADMAP
-item that ports it; the port never switches a backend by itself.
+Each runs cold (`rti_step`) or with slack/dual warm starts carried between
+ticks (`rti_step_warm`, kernel K3 on the two kernel backends), optionally
+under the online divergence watchdog (`rti_step_warm_guarded`, the chain
+behind `config.deployed_solver("fastest")`). Everything else (the
+condensed backend, soft bounds, Jacobian reuse) raises
+`NotImplementedError` naming the ROADMAP item that ports it; the port
+never switches a backend by itself.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import vmap
@@ -28,19 +34,20 @@ from mpc_blaster_tpu_torch.dynamics.integrators import (discrete_dynamics,
                                                         discrete_jacobians)
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.qp.data import QPData
+from mpc_blaster_tpu_torch.qp.ipm import (IpmWarmStart, box_qp_solve,
+                                          warm_start_from,
+                                          warm_start_recenter)
 
 # What ports each option outside the slice (ROADMAP.md, queue 1 / 2).
 _TODO = {
-    "riccati": "queue 1 item 5 (torch-eager Riccati IPM, qp/ipm.py)",
     "condensed": "queue 1 item 12 (qp/condense.py)",
-    "warm": "queue 1 item 9 and queue 2 K3 (warm-start kernel)",
     "soft": "queue 1 item 10 and queue 2 K4 (soft-bound kernel)",
     "online": "queue 1 item 8 (online POC re-linearization)",
     "jac_refresh": "queue 1 item 12 (Jacobian-reuse ticks)",
-    "batched_xla": "queue 1 item 7 (the general batched tick, with item "
-                   "5's IPM)",
+    "batched_xla": "queue 1 item 7 (the general batched tick on the "
+                   "Riccati IPM)",
 }
-QP_BACKENDS = ("pallas", "pallas_fused")
+QP_BACKENDS = ("riccati", "pallas", "pallas_fused")
 
 
 def not_ported(what: str, key: str) -> NotImplementedError:
@@ -142,11 +149,22 @@ def fused_dyn_statics(ocp: cfg.OCPConfig, num_steps: int = 1,
             float(ocp.dt), int(num_steps))
 
 
+def _batch1(t):
+    """A single problem's container as a batch of one (or None)."""
+    return None if t is None else type(t)(*(a[None] for a in t))
+
+
+def _unbatch1(sol):
+    return type(sol)(*(None if a is None else a[0] for a in sol))
+
+
 def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
-                    solver: cfg.SolverConfig, dyn_statics):
+                    solver: cfg.SolverConfig, dyn_statics,
+                    warm: Optional[IpmWarmStart] = None, skip=None):
     """One-launch RTI QP solve: linearization, cost gradients, delta bounds
     and dx0 are all assembled inside the IPM kernel from the iterate and
-    the raw spec tensors. Returns the delta-form solution."""
+    the raw spec tensors; `warm` blends a slack/dual warm start (K3).
+    Returns the delta-form solution."""
     from mpc_blaster_tpu_torch.ops.box_qp_ipm import fused_rti_solve
     if dyn_statics is None:
         raise ValueError(
@@ -164,8 +182,9 @@ def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
         spec.lbx[None], spec.ubx[None], spec.lbu[None], spec.ubu[None],
         model=model, dt=dt, num_steps=nsteps, iters=solver.ipm_iters,
         mu0=solver.ipm_mu0, alpha_frac=solver.ipm_alpha_frac,
-        reg=max(solver.ipm_reg, 1e-6), R_grad=Rg)
-    return type(sol)(*(None if a is None else a[0] for a in sol))
+        reg=max(solver.ipm_reg, 1e-6), warm=_batch1(warm), R_grad=Rg,
+        skip=skip)
+    return _unbatch1(sol)
 
 
 def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
@@ -218,31 +237,35 @@ def _check_backend(solver: cfg.SolverConfig):
                          solver.qp_backend)
 
 
-def solve_batched_qp(qp: QPData, solver: cfg.SolverConfig):
+def solve_batched_qp(qp: QPData, solver: cfg.SolverConfig, warm=None,
+                     skip=None):
     """Solve a batch of QPs (leading axis) with the box-QP IPM kernel and
     the solver's IPM settings (the regularization floored at 1e-6, as the
     Pallas path always passes it)."""
     # Looked up per call: chip_smoke.py times the plain twin on the same
     # ticks by swapping it in for the wrapper.
-    from mpc_blaster_tpu_torch.ops.box_qp_ipm import box_qp_solve
-    return box_qp_solve(qp, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
-                        alpha_frac=solver.ipm_alpha_frac,
-                        reg=max(solver.ipm_reg, 1e-6))
+    from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+    return K.box_qp_solve(qp, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
+                          alpha_frac=solver.ipm_alpha_frac,
+                          reg=max(solver.ipm_reg, 1e-6), warm=warm,
+                          skip=skip)
 
 
-def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None):
+def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None,
+                     skip=None):
     """Solve one QP with the configured backend: "pallas" runs the box-QP
-    IPM kernel on a batch of one."""
-    if warm is not None:
-        raise not_ported("slack/dual warm starts", "warm")
-    if solver.qp_backend != "pallas":
-        # the JAX dispatch sends every backend but "condensed" and
-        # "pallas" (pallas_fused included) to the Riccati IPM
-        key = "condensed" if solver.qp_backend == "condensed" else "riccati"
-        raise not_ported(f"solve_qp_backend with qp_backend="
-                         f"{solver.qp_backend!r}", key)
-    sol = solve_batched_qp(QPData(*(a[None] for a in qp)), solver)
-    return type(sol)(*(None if a is None else a[0] for a in sol))
+    IPM kernel on a batch of one; every other backend but "condensed"
+    (pallas_fused included, as in the JAX dispatch) the Riccati IPM with
+    `solver.riccati`. `warm` (an IpmWarmStart) is honoured by both;
+    `skip` (see `ops/box_qp_ipm.py`) only by the kernel."""
+    if solver.qp_backend == "condensed":
+        raise not_ported("qp_backend='condensed'", "condensed")
+    if solver.qp_backend == "pallas":
+        return _unbatch1(solve_batched_qp(_batch1(qp), solver,
+                                          warm=_batch1(warm), skip=skip))
+    return box_qp_solve(qp, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
+                        alpha_frac=solver.ipm_alpha_frac, reg=solver.ipm_reg,
+                        riccati=solver.riccati, warm=warm)
 
 
 def rti_step(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
@@ -254,12 +277,25 @@ def rti_step(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
     With `solver.qp_backend == "pallas_fused"` the linearization runs
     inside the IPM kernel (`linearizer` is unused; pass
     `dyn_statics=fused_dyn_statics(ocp, num_steps)`)."""
+    sol = _solve_tick(spec, state, x0, params, F, solver, linearizer,
+                      dyn_statics)
+    new_state, diag = _update(spec, state, sol)
+    return new_state.ubar[0], new_state, diag
+
+
+def _solve_tick(spec, state, x0, params, F, solver, linearizer, dyn_statics,
+                warm=None, skip=None):
+    """The tick's QP solve on the configured backend (delta form)."""
     if solver.qp_backend == "pallas_fused":
-        sol = _fused_qp_solve(spec, state, x0, solver, dyn_statics)
-    else:
-        qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
-                      solver=solver)
-        sol = solve_qp_backend(qp, solver)
+        return _fused_qp_solve(spec, state, x0, solver, dyn_statics,
+                               warm=warm, skip=skip)
+    qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
+                  solver=solver)
+    return solve_qp_backend(qp, solver, warm=warm, skip=skip)
+
+
+def _update(spec, state, sol):
+    """(new iterate, diagnostics) of a tick from its delta solution."""
     new_state = RTIState(xbar=state.xbar + sol.dx, ubar=state.ubar + sol.du)
     diag = RTIDiagnostics(
         qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
@@ -267,7 +303,125 @@ def rti_step(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
         step_norm_u=sol.du.abs().amax(),
         bound_viol=_bound_violation(spec, new_state),
     )
-    return new_state.ubar[0], new_state, diag
+    return new_state, diag
+
+
+def rti_step_warm(spec: OCPSpec, state: RTIState, warm: IpmWarmStart,
+                  x0: torch.Tensor, params: BlasterParams, F,
+                  solver: cfg.SolverConfig, linearizer=None,
+                  dyn_statics=None, skip=None):
+    """RTI tick with slack/dual warm starting (HPIPM warm_start=1 analog).
+
+    Returns (u0, new_state, warm_out, diag). Pass `warm_out` into the next
+    tick; seed the first with `IpmWarmStart.zeros(...)` (valid=0 -> cold).
+    The carried slacks/duals are conditioned per `solver.warm_mode`
+    ("full", "primal", "centrality"; `qp/ipm.py::warm_start_recenter`)
+    and, with `solver.warm_shift`, time-shifted together with the
+    iterate. `skip` (a device bool) lets the kernel backends skip the
+    solve on the device; the results are then undefined (the watchdog's
+    redo)."""
+    sol = _solve_tick(spec, state, x0, params, F, solver, linearizer,
+                      dyn_statics, warm=warm, skip=skip)
+    new_state, diag = _update(spec, state, sol)
+    u0 = new_state.ubar[0]
+    warm_out = warm_start_from(sol, shift=solver.warm_shift)
+    if solver.warm_mode != "full":
+        warm_out = warm_start_recenter(warm_out, mu0=solver.ipm_mu0,
+                                       mode=solver.warm_mode)
+    if solver.warm_shift:
+        new_state = shift_state(new_state)
+    return u0, new_state, warm_out, diag
+
+
+def shift_state(state: RTIState) -> RTIState:
+    """Shift the iterate one stage forward (classic RTI warm start)."""
+    return RTIState(
+        xbar=torch.cat([state.xbar[1:], state.xbar[-1:]], 0),
+        ubar=torch.cat([state.ubar[1:], state.ubar[-1:]], 0))
+
+
+class WatchdogState(NamedTuple):
+    """Running health state of `rti_step_warm_guarded`: an EMA of the
+    accepted ticks' QP equality residual, the number of warm->cold
+    downgrades, and the remaining ticks of the cold hold. Tensors on the
+    loop's device, so the guard never waits for the host."""
+
+    ema_eq: torch.Tensor  # scalar EMA of accepted qp_kkt_eq
+    trips: torch.Tensor   # int32
+    hold: torch.Tensor    # int32
+
+    @staticmethod
+    def init(dtype=torch.float32, device=None) -> "WatchdogState":
+        return WatchdogState(
+            ema_eq=torch.zeros((), dtype=dtype, device=device),
+            trips=torch.zeros((), dtype=torch.int32, device=device),
+            hold=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _select(pred, a, b):
+    """`a` where `pred` else `b`, through nested tuples of tensors."""
+    if isinstance(a, tuple):
+        out = (_select(pred, x, y) for x, y in zip(a, b))
+        return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
+    return torch.where(pred, a, b)
+
+
+def rti_step_warm_guarded(spec: OCPSpec, state: RTIState,
+                          warm: IpmWarmStart, wd: WatchdogState,
+                          x0: torch.Tensor, params: BlasterParams, F,
+                          solver: cfg.SolverConfig, linearizer=None,
+                          dyn_statics=None, jump: float = 30.0,
+                          floor: float = 0.5, ema_rate: float = 0.9,
+                          viol_cap: float = 0.25, hold_ticks: int = 10):
+    """`rti_step_warm` under the online divergence watchdog.
+
+    A tick trips when u0 or the QP equality residual is nonfinite, the
+    residual jumps above max(jump * EMA(accepted residual), floor), or the
+    new iterate violates its box by more than `viol_cap`. A tripped tick
+    is recomputed COLD (warm valid=0) from the carried iterate sanitized
+    (nonfinite xbar rows -> x0, ubar box-clipped), and the chain then stays
+    cold for hold_ticks + 2 * (earlier trips) ticks; the EMA reseeds from
+    the accepted solve.
+
+    The JAX package branches with `lax.cond`; here the decision stays on
+    the device: the redo is always enqueued, with `skip = not bad`, so the
+    kernel backends return at once on an accepted tick (one short launch)
+    and the results are selected with `torch.where`. No host sync per
+    tick. The eager Riccati backend and the plain twins always compute the
+    redo. Returns (u0, new_state, warm_out, wd_out, diag), diag of the
+    ACCEPTED solve.
+    """
+    force_cold = wd.hold > 0
+    warm_in = warm._replace(valid=torch.where(
+        force_cold, torch.zeros_like(warm.valid), warm.valid))
+    keep = rti_step_warm(spec, state, warm_in, x0, params, F, solver,
+                         linearizer=linearizer, dyn_statics=dyn_statics)
+    u0, _, _, diag1 = keep
+    thresh = torch.clamp(jump * wd.ema_eq, min=floor)
+    bad = (~torch.isfinite(u0).all() | ~torch.isfinite(diag1.qp_kkt_eq)
+           | (diag1.qp_kkt_eq > thresh) | (diag1.bound_viol > viol_cap))
+
+    warm_cold = warm._replace(valid=torch.zeros_like(warm.valid))
+    x0_safe = torch.where(torch.isfinite(x0), x0, torch.zeros_like(x0))
+    xb = torch.where(torch.isfinite(state.xbar), state.xbar, x0_safe)
+    ub = torch.where(torch.isfinite(state.ubar), state.ubar,
+                     torch.zeros_like(state.ubar))
+    ub = torch.minimum(torch.maximum(ub, spec.lbu), spec.ubu)
+    redo = rti_step_warm(spec, RTIState(xbar=xb, ubar=ub), warm_cold, x0,
+                         params, F, solver, linearizer=linearizer,
+                         dyn_statics=dyn_statics, skip=~bad)
+    u0g, stg, warmg, diagg = _select(bad, redo, keep)
+
+    eq_acc = diagg.qp_kkt_eq
+    ema_new = torch.where(bad | (wd.ema_eq <= 0.0), eq_acc,
+                          ema_rate * wd.ema_eq + (1.0 - ema_rate) * eq_acc)
+    # escalating hold: each trip lengthens the cold period by 2 ticks
+    hold_new = torch.where(bad, (hold_ticks + 2 * wd.trips).to(torch.int32),
+                           torch.clamp(wd.hold - 1, min=0))
+    wd_new = WatchdogState(ema_eq=ema_new.to(wd.ema_eq.dtype),
+                           trips=wd.trips + bad.to(torch.int32),
+                           hold=hold_new)
+    return u0g, stg, warmg, wd_new, diagg
 
 
 def rti_step_soft(spec: OCPSpec, state: RTIState, x0: torch.Tensor,

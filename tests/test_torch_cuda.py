@@ -1,7 +1,9 @@
 """The CUDA box-QP IPM kernel against its plain twins, on an NVIDIA GPU:
 the plain mode (`box_qp_solve`), the fuse_cost mode (`batched_fused_tick`)
 and the fuse_lin mode (`fused_rti_solve`), whose linearization prologue is
-also held pointwise against `dynamics/fastlin.py::fast_linearize`.
+also held pointwise against `dynamics/fastlin.py::fast_linearize`; and
+each mode's warm-start blend (K3) with its valid=0, NaN and skip
+semantics.
 
 Needs the card (marker `cuda`; skipped without one) and imports no JAX, so
 it also runs where only the port's dependencies are installed:
@@ -174,3 +176,94 @@ def test_fuse_lin_kernel_matches_plain_on_gpu(cuda_device, iters):
         op = vmap(qp_objective)(qp, spl.dx, spl.du)
         assert ((ok - op).abs() / op.abs().clamp(min=1.0) < 1.2e-2).all()
     torch.testing.assert_close(sk.kkt_eq, spl.kkt_eq, rtol=0.2, atol=1e-3)
+
+
+def _warm_from(sol, B):
+    """The "fastest" chain's warm start from a solve (shifted, primal
+    re-centred), with problem 1 invalid and problem 2 poisoned by NaN and
+    +inf entries."""
+    from mpc_blaster_tpu_torch.qp.ipm import (warm_start_from,
+                                              warm_start_recenter)
+    w = warm_start_recenter(warm_start_from(sol, shift=True), mode="primal")
+    w = w._replace(**{f: getattr(w, f).clone() for f in w._fields})
+    if B > 1:
+        w.valid[1] = 0.0
+    j = B - 1
+    w.s_lu[j, :2] = float("nan")
+    w.lam_lx[j, 1, :3] = float("nan")
+    w.s_ux[j, 2, 0] = float("inf")
+    w.lam_uu[j, 0, 1] = float("inf")
+    return w
+
+
+def _warm_calls(dev, mode):
+    """(kernel call, plain twin call) of one mode on the test inputs, each
+    taking (iters, warm, skip)."""
+    if mode == "plain":
+        qp = _blaster_qps(dev)
+        return (lambda it, w=None, skip=None: K.box_qp_solve(
+                    qp, iters=it, warm=w, skip=skip),
+                lambda it, w=None: K.box_qp_solve_plain(qp, iters=it,
+                                                        warm=w))
+    from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
+    B = 1 if mode == "fuse_lin" else 3
+    ocp, spec, xbar, ubar, x0, args = _fused_inputs(dev, B=B)
+    if mode == "fuse_cost":
+        P = BlasterParams.from_config(ocp.model, device=dev)
+        xp, A, Bm = fast_linearize(xbar, ubar, spec.stage_params, P, ocp.dt)
+        fa = (torch.cat([A, Bm], -1), xp - xbar[:, 1:], xbar, ubar, x0,
+              *args)
+        return (lambda it, w=None, skip=None: K.batched_fused_tick(
+                    *fa, iters=it, warm=w)[3],
+                lambda it, w=None: K.batched_fused_tick_plain(
+                    *fa, iters=it, warm=w)[3])
+    model, dt, nsteps = fused_dyn_statics(ocp)
+    fa = (xbar, ubar, spec.stage_params[None], x0, *args)
+    kw = dict(model=model, dt=dt, num_steps=nsteps)
+    return (lambda it, w=None, skip=None: K.fused_rti_solve(
+                *fa, iters=it, warm=w, skip=skip, **kw),
+            lambda it, w=None: K.fused_rti_solve_plain(*fa, iters=it,
+                                                       warm=w, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "fuse_cost", "fuse_lin"])
+def test_warm_kernel_matches_plain_on_gpu(cuda_device, mode):
+    """K3: with 0 IPM iterations the kernel returns its blended initial
+    slacks and duals, held pointwise against the twin (rtol 1e-5 / atol
+    1e-6) on valid, invalid and NaN/+inf-poisoned problems; valid=0 is the
+    cold launch bit for bit; no output shares storage with a warm input;
+    a launch with skip=True is counted and returns."""
+    kern, plain = _warm_calls(cuda_device, mode)
+    prev = kern(3)
+    B = prev.du.shape[0]
+    w = _warm_from(prev, B)
+    sk, sp = kern(0, w), plain(0, w)
+    torch.cuda.synchronize()
+    for f in ("s_lx", "s_ux", "s_lu", "s_uu",
+              "lam_lx", "lam_ux", "lam_lu", "lam_uu"):
+        torch.testing.assert_close(getattr(sk, f), getattr(sp, f),
+                                   rtol=1e-5, atol=1e-6, msg=f)
+    ins = {t.untyped_storage().data_ptr() for t in w}
+    for f, t in sk._asdict().items():
+        if isinstance(t, torch.Tensor):
+            assert t.untyped_storage().data_ptr() not in ins, f
+    for it in (1, 6):
+        a, c = kern(it, w), kern(it)
+        torch.cuda.synchronize()
+        assert torch.isfinite(a.du).all() and torch.isfinite(a.dx).all()
+        off = kern(it, w._replace(valid=torch.zeros_like(w.valid)))
+        for f in ("dx", "du", "s_lx", "lam_uu", "kkt_eq"):
+            assert torch.equal(getattr(off, f), getattr(c, f)), f
+        if B > 1:
+            assert torch.equal(a.du[1], c.du[1])
+    if mode != "fuse_cost":
+        launches = getattr(K, "box_qp_solve" if mode == "plain"
+                           else "fused_rti_solve")
+        n1 = launches.launches
+        kern(3, w, skip=torch.tensor(True, device=cuda_device))
+        torch.cuda.synchronize()
+        assert launches.launches == n1 + 1
+        a = kern(3, w, skip=torch.tensor(False, device=cuda_device))
+        b = kern(3, w)
+        assert torch.equal(a.du, b.du) and torch.equal(a.s_lu, b.s_lu)

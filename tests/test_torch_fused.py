@@ -298,10 +298,10 @@ def test_fused_wrappers_run_plain_twins_on_cpu():
 
 
 def test_fused_refusals():
-    """B != 1 on the one-launch tick, missing dynamics statics, the
-    "fastest" profile, families other than "blaster" on the fused
-    kernel, warm starts and soft bounds, and Jacobian reuse with the
-    fused tick."""
+    """B != 1 on the one-launch tick, missing dynamics statics, families
+    other than "blaster" on the fused kernel, soft bounds, and Jacobian
+    reuse with the fused tick; the deployed profiles, "fastest" included,
+    are the JAX package's."""
     from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
     from mpc_blaster_tpu_torch.sim.closedloop import closed_loop
     ocp = _ocp()
@@ -320,15 +320,16 @@ def test_fused_refusals():
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"
                                                       " 11"):
             K.fused_rti_solve(*one, model=(fam,) + model[1:], dt=dt)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K3"):
-        K.fused_rti_solve(*one, model=model, dt=dt, warm=object())
+    # a warm start must carry the launch's batch axis (valid (B,))
+    with pytest.raises(ValueError, match="warm.valid"):
+        K._warm_args(trti.IpmWarmStart.zeros(8, 17, 6), 1, 8, 17, 6,
+                     x0.device)
     with pytest.raises(NotImplementedError, match="ROADMAP.*K4"):
         K.fused_rti_solve(*one, model=model, dt=dt, soft=object())
     with pytest.raises(ValueError, match="dyn_statics"):
         trti.rti_step(ts, _first(st), x0[0], BlasterParams.from_config(
             ocp.model), None, ocp.solver)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K3"):
-        cfg.deployed_solver("fastest")
+    assert cfg.deployed_solver("fastest") == jcfg.deployed_solver("fastest")
     for profile, iters in (("safe", 6), ("fast", 4)):
         sv = cfg.deployed_solver(profile)
         assert (sv.qp_backend, sv.lin_backend, sv.ipm_iters) == \
