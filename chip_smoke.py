@@ -4,10 +4,11 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the box-QP IPM kernel (its plain, fuse_cost and fuse_lin modes,
-each with the warm-start blend K3) from `mpc_blaster_tpu_torch/csrc/`
-with nvcc, holds each mode, cold and warm, against its plain PyTorch twin
-on the card, then drives the port's main paths, each with the launch
-counts set to 0 just before it and read just after:
+each with the warm-start blend K3, and the soft-bound instantiations K4 of
+the plain and fuse_lin modes) from `mpc_blaster_tpu_torch/csrc/` with
+nvcc, holds each mode, cold, warm and soft, against its plain PyTorch twin
+on the card (phases 2 and 2b), then drives the port's main paths, each
+with the launch counts set to 0 just before it and read just after:
 
   3. the batched RTI tick, backend "pallas" (N=20, B=1024, 10 ticks);
   4. the simulation preset's closed loop, backend "pallas" (N=60, frozen
@@ -27,12 +28,24 @@ counts set to 0 just before it and read just after:
      "fastest", and the raw chain (4 iterations, warm_mode="full", no
      shift) under the watchdog;
   9. the presets' default `qp_backend="riccati"` (eager PyTorch, no kernel
-     of ours): 3 ticks of the simulation preset's loop at N=60.
+     of ours): 3 ticks of the simulation preset's loop at N=60;
+ 10. the soft-bounded closed loop (`rti_step_soft` + the plant's RK4, the
+     simulation preset at N=60, 100 ticks from x0[0]=2.4 outside the
+     +-1.5 m box, soft state bounds Zl=1e3, zl=1e2, 6 IPM iterations):
+     "pallas_fused" (one soft fuse_lin launch per tick) and "pallas" with
+     the fused linearizer (one soft plain launch per tick);
+ 11. the batched "xla" tick (the Riccati IPM on the batch, eager PyTorch):
+     2 ticks at N=20, B=1024.
 
 Every phase prints one line; any failure raises and the exit code is
 non-zero. Without a CUDA device it fails before printing any result; it
 never falls back to the CPU. The last two lines are the kernel report and
-the device record, each one JSON object.
+the device record, each one JSON object. Each kernel entry carries its
+bound: the larger of the FLOPs of the launch over the card's 67 TFLOP/s
+float32 rate and its bytes (each input read once, each output written
+once) over 3.35 TB/s, both counted from the launch's shapes
+(`launch_work`); `library_ms` is null: no single PyTorch call solves a
+box-constrained OCP-QP.
 
 Tolerances (kernel vs plain twin, both float32 on the card):
   - one IPM iteration, pointwise: u0 atol 2e-3, dx/du (or the new xbar/
@@ -67,6 +80,27 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     under "fastest", 0.0 m for the raw chain under the watchdog; the
     port's twins on the CPU: 0.0186 m and 0.0139 m) + 5e-2 m, finite
     states. Unguarded, the raw chain's failure is ~200 m;
+  - soft bounds (K4), the out-of-box QPs of tests/test_pallas_ipm.py
+    (dx0 pushed 2.2 past the x box, soft position bounds Zl=1e3, zl=1e2):
+    an all-hard SoftBounds through the soft instantiation equals the hard
+    kernel after one iteration bit for bit (or within 1e-6 relative where
+    nvcc contracts a multiply-add differently in the two instantiations;
+    the twins are bit-exact, tests/test_torch_soft.py); the soft kernel
+    against its twin after one iteration pointwise as above; after the
+    full budget the penalized objective within 2e-3 relative + 1e-3 and
+    the peak upper-x violation within rtol 0.2 (+ 1e-3)
+    (tests/test_pallas_ipm.py), on every problem, or at B=1024 on at least
+    95% of them and within 5e-2 relative on all (the batch rule above). The
+    plain mode at N=60 B=1 (phase 10's shape) adds the twin's own spread,
+    capped at 2e-3 relative, to the objective tolerance at 12 iterations,
+    which do not converge that QP (the twin moves its objective by 2.2e-3
+    relative when dx0 moves by 1e-6 relative), and holds the converged
+    24-iteration solve to the tolerance alone (compare_soft);
+  - the soft closed loops: finite, the first tick's stage-1 upper-x
+    violation above 0.5 m, the final distance to the reference within the
+    JAX package's own float32 run of the same chain (its `qp/soft.py` on
+    the CPU: SOFT_JAX) + 5e-2 m, back inside the +-1.5 m box if that run
+    is, and the peak stage-1 violation within 0.05 m of that run's;
   - warm starts (K3): the blend itself pointwise (0 IPM iterations return
     the blended initial slacks and duals; rtol 1e-5 / atol 1e-6) on valid,
     invalid (valid=0) and NaN/+inf-poisoned problems; valid=0 problems
@@ -99,7 +133,8 @@ KERNEL_SOURCE = "mpc_blaster_tpu_torch/csrc/box_qp_ipm.cu"
 REPLACES = {"box_qp_ipm": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
             "box_qp_ipm_fuse_cost": "mpc_blaster_tpu/ops/pallas_ipm.py:1236",
             "box_qp_ipm_fuse_lin": "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
-            "box_qp_ipm_warm": "mpc_blaster_tpu/ops/pallas_ipm.py:402"}
+            "box_qp_ipm_warm": "mpc_blaster_tpu/ops/pallas_ipm.py:402",
+            "box_qp_ipm_soft": "mpc_blaster_tpu/ops/pallas_ipm.py:249"}
 FULL_ITERS = 12   # the simulation preset's ipm_iters
 SAFE_ITERS = 6    # deployed_solver("safe")
 FASTEST_ITERS = 3  # deployed_solver("fastest")
@@ -111,6 +146,108 @@ CHAIN_TICKS = 100  # the warm chain the warm-start cases are taken from
 SAFE_BOUND_M = 0.1240 + 5e-2
 FASTEST_BOUND_M = 0.0111 + 5e-2
 ALT_BOUND_M = {"fastest": 0.0186 + 5e-2, "raw_watchdog": 0.0 + 5e-2}
+# The JAX package's own float32 run of phase 10's soft chain on the CPU
+# (qp_backend="riccati"; tests/test_torch_soft.py::
+# test_chip_smoke_soft_loop_bounds_are_jax_run computes it)
+SOFT_JAX = {"final_dist_m": 0.0420, "inside_box": True,
+            "peak_stage1_viol_m": 0.9805}
+
+
+# The card's peaks (NVIDIA's H100 SXM data sheet): float32 outside the
+# tensor cores and HBM3 bandwidth.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+# Floating-point operations the solve needs, counted by hand from
+# csrc/box_qp_ipm.cu: +, -, *, / and a min, max or compare count one, a
+# clip two, a transcendental one; sign flips and selects count none. Each
+# value the algorithm needs is counted once, where it is first needed,
+# however often the kernel recomputes it.
+#
+# The BLASTER ODE (`ode_rows`) at one point: 150 for the values, 2 more for
+# tan's derivative factor 1 + tan^2; 233 for one tangent column (a product
+# of two dual numbers 3, with a constant 1, a quotient 3, a trig 1: its
+# cosine or sine is the value part's). RK4 (`rk4_rows`) adds 13 per state
+# and per column. The value part runs once per node, the tangent part once
+# per (node, column) pair.
+RK4_VALUE = 4 * (150 + 2) + 13 * 17
+RK4_TANGENT = 4 * 233 + 13 * 17
+# Per bound entry (one side of a row) and IPM iteration: the barrier weight
+# and its pair cap 3, the slack residual 2, the predictor's gradient term 2,
+# directions 6 (s*lam from the complementarity sum), step ratios 6 and
+# mu_aff term 6, the corrector's target 4, gradient term 5 (sig*r reused),
+# directions 7 and ratios 8, the update 8 (the primal step shared by the
+# row's two entries), the complementarity sum at the new iterate 2.
+ENTRY_ITER = 3 + 2 + 2 + 6 + 6 + 6 + 4 + 5 + 7 + 8 + 8 + 2
+# The same, more, per soft entry: the eliminated weight 6, the residual's
+# -t 1, the predictor's right-hand side 6, directions (dt, dgam) 9, ratios
+# 6, mu_aff term 6, the corrector's target 4, right-hand side 9,
+# directions 10, ratios 8, the (t, gam) update 7, and at the new iterate
+# t*gam 2 and the merit's |z + Z t - lam - gam| 8.
+SOFT_ITER = 6 + 1 + 6 + 9 + 6 + 6 + 4 + 9 + 10 + 8 + 7 + 8
+# At the start: per entry the initial slack and dual 10 and their
+# complementarity 2; per soft entry the (t, gam) start 5 and as at the end
+# of an iteration 8.
+ENTRY_INIT, SOFT_INIT = 10 + 2, 5 + 8
+
+
+def launch_work(mode: str, N: int, B: int, iters: int, soft_rows: int = 0,
+                warm: bool = False, nsteps: int = 1) -> tuple:
+    """(FLOPs, bytes) of one box-QP IPM launch, counted from its shapes.
+
+    FLOPs: per problem, what the solve needs (the counts above): every
+    matrix product at 2 FLOPs per multiply-add (the factorization's P'A,
+    P'B, B'PB, B'PA, A'PA, Hux'Z and Hinv'Hux, the two sweeps' and the KKT
+    pass's matrix-vector products; the right-hand side reuses the KKT
+    pass's Q x + q and R u + r), the 6x6 Cholesky inverse at 500, the
+    elementwise terms of the bound rows, and the FUSE_LIN prologue's RK4.
+    `soft_rows` counts the soft entries of one problem. Every bound of the
+    main path is finite and every iteration runs, so the count does not
+    depend on the data. Bytes: each input read once and each output written
+    once (float32); the workspace is scratch and not counted."""
+    nx, nu, n = 17, 6, N
+    e = 2 * (nx + nu)                          # bound entries per stage
+    fac = (4 * nx ** 3 + 6 * nx ** 2 * nu + 4 * nu ** 2 * nx + 4 * nx ** 2
+           + nu ** 2 + 2 * nu + nx + 500)
+    sweep = 6 * nx ** 2 + 8 * nx * nu + 2 * nu ** 2 + 5 * nx + 2 * nu
+    kkt = 6 * nx ** 2 + 4 * nx * nu + 2 * nu ** 2 + 5 * nx + 3 * nu
+    per_it = n * (fac + 2 * sweep + kkt + ENTRY_ITER * e) \
+        + SOFT_ITER * soft_rows
+    flops = (n * (2 * nx ** 2 + nx) + n * kkt + ENTRY_INIT * n * e
+             + SOFT_INIT * soft_rows                         # init + seed
+             + iters * per_it + n * kkt)                     # final KKT
+    if mode != "plain":                        # cost and bound assembly
+        flops += 2 * (n + 1) * nx ** 2 + 2 * n * nu ** 2 + 2 * n * (nx + nu)
+    if mode == "fuse_lin":                     # RK4 on duals + the defect
+        flops += n * nsteps * (RK4_VALUE + (nx + nu) * RK4_TANGENT) + n * nx
+    floats_in = 2 * nx * nx + nu * nu + nx     # Qs, Qt, R, x0 / dx0
+    if mode == "fuse_lin":
+        floats_in += (n + 1) * nx + n * nu + n * 25 + nu * nu \
+            + n * (nx + nu) + nx + 2 * (nx + nu)
+    else:
+        floats_in += n * (nx * nx + nx * nu + nx)     # A, B, c
+        if mode == "plain":
+            floats_in += (n + 1) * nx + n * nu + 2 * n * (nx + nu)
+        else:
+            floats_in += (n + 1) * nx + n * nu + nu * nu \
+                + n * (nx + nu) + nx + 2 * (nx + nu)
+    if soft_rows:
+        floats_in += 4 * n * (nx + nu)         # Z, z of the four groups
+    if warm:
+        floats_in += 1 + 4 * n * (nx + nu)
+    floats_out = (n + 1) * nx + n * nu + 6 + 4 * n * (nx + nu)
+    return float(B * flops), float(4 * B * (floats_in + floats_out))
+
+
+def launch_bound(mode, N, B, iters, **kw) -> dict:
+    """The least time the card could take for one launch, and what sets
+    it."""
+    flops, nbytes = launch_work(mode, N, B, iters, **kw)
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def log(phase: str, **kv):
@@ -144,12 +281,13 @@ KERNEL_WRAPPERS: dict = {}   # the wrappers that hold the launch counts
 
 
 def counts() -> dict:
-    """Launches per wrapper, and ("<wrapper>.warm") those with a warm
-    start (kernel K3)."""
+    """Launches per wrapper, and ("<wrapper>.warm", "<wrapper>.soft") those
+    with a warm start (kernel K3) and with soft bounds (kernel K4)."""
     out = {}
     for w, fn in KERNEL_WRAPPERS.items():
         out[w] = fn.launches
         out[w + ".warm"] = fn.warm_launches
+        out[w + ".soft"] = fn.soft_launches
     return out
 
 
@@ -157,6 +295,7 @@ def reset_counts():
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
         fn.warm_launches = 0
+        fn.soft_launches = 0
 
 
 @contextlib.contextmanager
@@ -643,6 +782,136 @@ def compare_warm(name, mode, N, B, dev, K):
     return row
 
 
+def soft_specs(N: int, dev, idx=(0, 1, 2)):
+    """(soft position bounds Zl=1e3, zl=1e2 on the components `idx` (None:
+    every state), the all-hard SoftBounds) at horizon N."""
+    from mpc_blaster_tpu_torch.qp.soft import SoftBounds, SoftPenalty
+    soft = SoftBounds.state_bounds(N, 17, 6, Zl=1e3, zl=1e2, idx=idx,
+                                   device=dev)
+    hard = SoftBounds(*(SoftPenalty.hard((N, w), device=dev)
+                        for w in (17, 17, 6, 6)))
+    return soft, hard
+
+
+def soft_runners(mode, N, B, dev, K):
+    """(kernel, twin, QP) of one soft mode on the out-of-box QPs: f(iters,
+    soft) -> delta-form QPSolution. dx0 is pushed 2.2 past the x box
+    (tests/test_pallas_ipm.py:303-329)."""
+    if mode == "plain":
+        qp = blaster_qps(N, B, dev)
+        qp = qp._replace(dx0=qp.dx0.clone())
+        qp.dx0[:, 0] += 2.2
+        return (lambda it, s: K.box_qp_solve(qp, iters=it, soft=s),
+                lambda it, s: K.box_qp_solve_plain(qp, iters=it, soft=s),
+                qp)
+    from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
+    ocp, sp, xbar, ubar, x0, args, (A, Bm, c) = fused_case(N, B, dev, N + 3)
+    x0 = x0.clone()
+    x0[:, 0] += 2.2
+    model, dt, ns = fused_dyn_statics(ocp)
+    fa = (xbar, ubar, sp, x0, *args)
+    kw = dict(model=model, dt=dt, num_steps=ns)
+    qp = K._fused_qp(K._fused_prep(xbar, ubar, x0, *args, None), A, Bm, c)
+    return (lambda it, s: K.fused_rti_solve(*fa, iters=it, soft=s, **kw),
+            lambda it, s: K.fused_rti_solve_plain(*fa, iters=it, soft=s,
+                                                  **kw), qp)
+
+
+def compare_soft(name, mode, N, B, dev, K, spread_rule=False):
+    """Soft-bound kernel (K4, in one mode) vs its plain twin, and its
+    all-hard case vs the hard kernel; the report row.
+
+    spread_rule: the full-budget objective is held within the tolerance
+    plus the twin's own spread (the largest objective change of the twin
+    when dx0 moves by +-1e-6 or +-1e-7 relative), the spread capped at the
+    tolerance's 2e-3 relative, and a converged solve (24 iterations) to the
+    tolerance alone. For the plain mode at the main
+    path's N=60, where 12 iterations do not converge the out-of-box QP (the
+    twin's mu is in the row; measured on the CPU: mu ~315, the objective
+    still falls 1.8% by 16 iterations and is steady from there) and the
+    twin's own spread (in the row) reaches the tolerance."""
+    from mpc_blaster_tpu_torch.qp.soft import soft_qp_objective
+    kern, plain, qp = soft_runners(mode, N, B, dev, K)
+    soft, hard = soft_specs(N, dev)
+    row = {"case": name, "mode": mode, "B": B, "N": N}
+    wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
+    # the sentinel: all-hard through the soft instantiation = hard kernel
+    n0 = wrapper.soft_launches
+    a, b = kern(1, None), kern(1, hard)
+    torch.cuda.synchronize()
+    check(wrapper.soft_launches == n0 + 1, "soft launch counted", case=name)
+    fields = ("dx", "du", "s_lx", "s_ux", "s_lu", "s_uu", "lam_lx",
+              "lam_ux", "lam_lu", "lam_uu", "kkt_eq", "kkt_stat", "mu")
+    exact = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+    rel = max(((getattr(a, f) - getattr(b, f)).abs()
+               / getattr(a, f).abs().clamp(min=1e-30)).max().item()
+              for f in fields)
+    row["all_hard_bit_exact"] = exact
+    row["all_hard_max_rel_err"] = rel
+    check(exact or rel <= 1e-6, "all-hard soft kernel is the hard kernel",
+          case=name, max_rel_err=rel)
+    for iters in (1, FULL_ITERS) + ((2 * FULL_ITERS,) if spread_rule
+                                    else ()):
+        sk, sp = kern(iters, soft), plain(iters, soft)
+        torch.cuda.synchronize()
+        for f in ("dx", "du", "kkt_eq", "mu"):
+            check(bool(torch.isfinite(getattr(sk, f)).all()), "finite",
+                  case=name, iters=iters, field=f)
+        row[f"plain_mu_{iters}it"] = sp.mu.max().item()
+        if iters == 1:
+            u0 = (sk.du[:, 0] - sp.du[:, 0]).abs().max().item()
+            err = max((sk.dx - sp.dx).abs().max().item(),
+                      (sk.du - sp.du).abs().max().item())
+            check(u0 <= 2e-3 and err <= 5e-3, "one-iteration parity",
+                  case=name, u0_err=u0, max_abs_err=err)
+            row["max_abs_err_1it"] = err
+            continue
+        ok = soft_qp_objective(qp, soft, sk.dx, sk.du)      # per problem
+        op = soft_qp_objective(qp, soft, sp.dx, sp.du)
+        obj = (ok - op).abs() / op.abs().clamp(min=1.0)
+        vk = (sk.dx[:, 1:, 0] - qp.ubx[:, 1:, 0]).clamp(min=0).amax(1)
+        vp = (sp.dx[:, 1:, 0] - qp.ubx[:, 1:, 0]).clamp(min=0).amax(1)
+        tol = 2e-3 * op.abs() + 1e-3
+        sfx = "" if iters == FULL_ITERS else f"_{iters}it"
+        if spread_rule and iters == FULL_ITERS:
+            spread = torch.zeros_like(op)
+            for eps in (1e-6, -1e-6, 1e-7, -1e-7):
+                moved = K.box_qp_solve_plain(qp._replace(
+                    dx0=qp.dx0 * (1 + eps)), iters=iters, soft=soft)
+                spread = torch.maximum(spread, (soft_qp_objective(
+                    qp, soft, moved.dx, moved.du) - op).abs())
+            row["twin_self_spread_rel"] = (spread / op.abs()).max().item()
+            tol = tol + torch.minimum(spread, 2e-3 * op.abs())
+        good = ((ok - op).abs() <= tol) \
+            & ((vk - vp).abs() <= 0.2 * vp + 1e-3)
+        frac = good.float().mean().item()
+        row.update({"obj_rel_err" + sfx: obj.max().item(),
+                    "within_frac" + sfx: frac,
+                    "obj_err_over_tol" + sfx: ((ok - op).abs() / tol)
+                    .max().item(),
+                    "peak_viol_kernel" + sfx: vk.max().item(),
+                    "peak_viol_plain" + sfx: vp.max().item()})
+        if B > 3:
+            ok_all = frac >= 0.95 and ((ok - op).abs()
+                                       <= 5e-2 * op.abs()).all().item()
+        else:
+            ok_all = frac == 1.0
+        check(ok_all and vp.max().item() > 1e-2, "soft full-budget parity",
+              case=name, iters=iters, within=frac,
+              obj_rel_err=obj.max().item())
+    for iters in (SAFE_ITERS, FULL_ITERS):
+        sfx = "" if iters == SAFE_ITERS else f"_{iters}it"
+        row["kernel_ms" + sfx] = cuda_ms(lambda: kern(iters, soft), reps=10)
+        row["hard_kernel_ms" + sfx] = cuda_ms(lambda: kern(iters, None),
+                                              reps=10)
+        row["plain_ms" + sfx] = cuda_ms(lambda: plain(iters, soft), reps=1)
+    # every soft row of this spec has a finite bound (the preset's box)
+    rows_soft = int(sum(p.soft.sum() for p in soft).item())
+    row["bound"] = launch_bound(mode, N, B, SAFE_ITERS,
+                                soft_rows=rows_soft)
+    return row
+
+
 def guarded_trips():
     """Wrap the port's guarded warm tick so the last watchdog state of a
     closed loop can be read back: (context manager, getter)."""
@@ -702,6 +971,54 @@ def timed_closed_loop(pre, n_ticks, dev):
     e1.record()
     torch.cuda.synchronize()
     return res, e0.elapsed_time(e1) / n_ticks
+
+
+def soft_loop_case(dev):
+    """Phase 10's start: the simulation preset at its N=60 with yref z=2,
+    x0[0]=2.4 (0.9 m outside the x box), z=2, and soft state bounds on
+    every state, Zl=1e3, zl=1e2 (bench.py's soft rows): (preset, spec, x0,
+    soft)."""
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    pre = simulation_ocp(60)
+    yref = np.zeros(23)
+    yref[2] = 2.0
+    spec = build_spec(pre.ocp, yref=yref, device=dev)
+    x0 = torch.zeros(17, device=dev)
+    x0[0], x0[2] = 2.4, 2.0
+    soft, _ = soft_specs(60, dev, idx=None)
+    return pre, spec, x0, soft
+
+
+def soft_closed_loop(ocp, spec, x0, soft, n_ticks, dev):
+    """`n_ticks` of `rti_step_soft` and the plant's RK4 (stage parameters
+    of stage 0, as bench.py's soft rows), all on the device; returns the
+    states, the stage-1 violations (upper x, and the worst of any state
+    bound) per tick, and ms/tick."""
+    from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams,
+                                                        blaster_ode)
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.sqp import rti as R
+    P = BlasterParams.from_config(ocp.model, device=dev)
+    F = discrete_dynamics(blaster_ode, ocp.dt)
+    lin = R.make_linearizer(ocp, P)
+    dyn = R.fused_dyn_statics(ocp)
+    st, x = R.init_rti_state(ocp, x0), x0
+    xs, tux, v1 = [], [], []
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n_ticks):
+        u0, st, _, res = R.rti_step_soft(spec, st, x, P, F, ocp.solver, soft,
+                                         linearizer=lin, dyn_statics=dyn)
+        x = F(x, u0, spec.stage_params[0], P)
+        xs.append(x)
+        tux.append(res.t_ux[0, 0])
+        v1.append(torch.maximum(res.t_ux[0].max(), res.t_lx[0].max()))
+    e1.record()
+    torch.cuda.synchronize()
+    return (torch.stack(xs).cpu().numpy(), torch.stack(tux).cpu().numpy(),
+            torch.stack(v1).cpu().numpy(), e0.elapsed_time(e1) / n_ticks)
 
 
 def loop_checks(name, res, bound):
@@ -778,6 +1095,16 @@ def run(dev: torch.device) -> int:
         ("fuse_lin_n60_b1", "fuse_lin", 60, 1))]
     for r in warm_rows:
         log("warm_vs_plain", **r)
+    # ---- phase 2b: the soft-bound kernel (K4) vs its plain twin ----
+    soft_rows = [compare_soft(n, mode, N, B, dev, K, spread_rule=sr)
+                 for n, mode, N, B, sr in (
+                     ("plain_n8_b3", "plain", 8, 3, False),
+                     ("plain_n20_b1024", "plain", 20, BATCH, False),
+                     ("plain_n60_b1", "plain", 60, 1, True),
+                     ("fuse_lin_n8_b1", "fuse_lin", 8, 1, False),
+                     ("fuse_lin_n60_b1", "fuse_lin", 60, 1, False))]
+    for r in soft_rows:
+        log("soft_vs_plain", **r)
 
     # ---- the main paths, each counted on its own ----
     pre20 = simulation_ocp(20)
@@ -955,6 +1282,72 @@ def run(dev: torch.device) -> int:
         qp_backend=pre_r.ocp.solver.qp_backend, ms_per_tick=ms,
         final_z=float(res.xs[-1, 2]))
 
+    # phase 10: the soft closed loop, N=60, 100 ticks from outside the box,
+    # "pallas_fused" and "pallas" (fused linearizer), 6 IPM iterations
+    from mpc_blaster_tpu_torch.sqp import rti as R
+    from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams,
+                                                        blaster_ode)
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    pre_s, spec_s, x_out, soft_s = soft_loop_case(dev)
+    # why the soft tick exists: the hard one-launch tick from the same
+    # start faces an infeasible QP (logged only)
+    ocp_h = dataclasses.replace(pre_s.ocp, solver=cfg.deployed_solver(
+        "safe"))
+    _, _, dg_h = R.rti_step(
+        spec_s, R.init_rti_state(ocp_h, x_out), x_out,
+        BlasterParams.from_config(ocp_h.model, device=dev),
+        discrete_dynamics(blaster_ode, ocp_h.dt), ocp_h.solver,
+        dyn_statics=R.fused_dyn_statics(ocp_h))
+    soft_loop = {}
+    for name, solver, wrapper in (
+            ("pallas_fused", cfg.deployed_solver("safe"), "fused_rti_solve"),
+            ("pallas", dataclasses.replace(
+                pre_s.ocp.solver, qp_backend="pallas", lin_backend="fused",
+                ipm_iters=SAFE_ITERS), "box_qp_solve")):
+        ocp_s = dataclasses.replace(pre_s.ocp, solver=solver)
+        (xs, tux, v1, ms), c10 = counted(
+            {wrapper: LOOP_TICKS, wrapper + ".soft": LOOP_TICKS},
+            f"soft closed loop {name}",
+            lambda: soft_closed_loop(ocp_s, spec_s, x_out, soft_s,
+                                     LOOP_TICKS, dev))
+        finite = bool(np.isfinite(xs).all() and np.isfinite(v1).all())
+        dist = float(np.linalg.norm(xs[-1, :3] - np.array([0.0, 0.0, 2.0])))
+        inside = bool(np.all(np.abs(xs[-1, :2]) <= 1.5))
+        peak = float(v1.max())
+        check(finite and float(tux[0]) > 0.5, "soft loop finite, first "
+              "tick violates", case=name, t_ux_first=float(tux[0]))
+        check(dist <= SOFT_JAX["final_dist_m"] + 5e-2
+              and (inside or not SOFT_JAX["inside_box"])
+              and abs(peak - SOFT_JAX["peak_stage1_viol_m"]) <= 0.05,
+              "soft loop vs the JAX run", case=name, final_dist_m=dist,
+              inside_box=inside, peak_stage1_viol_m=peak, jax=SOFT_JAX)
+        soft_loop[name] = {"launches": c10[wrapper],
+                           "soft_launches": c10[wrapper + ".soft"],
+                           "ms_per_tick": ms}
+        log("soft_closed_loop", case=name, N=60, ticks=LOOP_TICKS,
+            iters=SAFE_ITERS, launches=c10[wrapper],
+            soft_launches=c10[wrapper + ".soft"], ms_per_tick=ms,
+            t_ux_first_m=float(tux[0]), final_dist_m=dist,
+            inside_box=inside, peak_stage1_viol_m=peak,
+            final_x=xs[-1, :3].tolist(), jax=SOFT_JAX,
+            hard_tick_kkt_eq=float(dg_h.qp_kkt_eq))
+
+    # phase 11: the batched "xla" tick (the Riccati IPM on the batch, eager
+    # PyTorch, no kernel of ours), N=20, B=1024, 2 ticks
+    pre_x = cfg.simulation_preset()
+    ocp_x = dataclasses.replace(pre_x.ocp, N=20, Tf=pre_x.ocp.Tf / 3.0)
+    spec_x = build_spec(ocp_x, yref=pre_x.loop.yref, device=dev)
+    xstep = batched_rti_step(ocp_x, device=dev)
+    (u0s, states, diag, xla_ms), _ = counted(
+        {}, "batched xla tick",
+        lambda: run_batched_ticks(xstep, spec_x, x0s, 2, ocp_x))
+    check(bool(torch.isfinite(u0s).all() & torch.isfinite(states.xbar).all()
+               & torch.isfinite(diag.qp_kkt_eq).all()), "batched xla finite")
+    log("batched_xla_tick", N=20, B=BATCH, ticks=2,
+        qp_backend=ocp_x.solver.qp_backend, ms_per_tick=xla_ms,
+        solves_per_s=BATCH * 1000.0 / xla_ms,
+        kkt_eq_max=diag.qp_kkt_eq.max().item())
+
     if FAILURES:
         for f in FAILURES:
             log("FAILED", **f)
@@ -965,23 +1358,34 @@ def run(dev: torch.device) -> int:
     lin_main = next(r for r in lin_rows if r["case"] == "n60_b1")
     warm_main = next(r for r in warm_rows if r["case"] == "fuse_lin_n60_b1")
 
-    def entry(name, launches, rs, main, **extra):
+    soft_main = next(r for r in soft_rows if r["case"] == "fuse_lin_n60_b1")
+
+    def bound_keys(b):
+        """The bound of the entry's timed launch (library_ms: no single
+        PyTorch call solves a box-constrained OCP-QP)."""
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None, "flops": b["flops"], "bytes": b["bytes"]}
+
+    def entry(name, launches, rs, main, b, **extra):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": REPLACES[name], "launches": launches,
                 "max_abs_err": max(r["max_abs_err_1it"] for r in rs),
                 "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+                **bound_keys(b),
                 "by_shape": {r["case"]: [r["kernel_ms"], r["plain_ms"]]
                              for r in rs}, **extra}
 
     report = {"kernels": [
         entry("box_qp_ipm", c3["box_qp_solve"] + c4["box_qp_solve"], rows,
-              main_row,
+              main_row, launch_bound("plain", 60, 1, FULL_ITERS),
               max_obj_rel_err=max(r["obj_rel_err"] for r in rows)),
         entry("box_qp_ipm_fuse_cost", fused_launches, cost_rows, cost_main,
+              launch_bound("fuse_cost", 20, BATCH, FULL_ITERS),
               ms_6it=cost_main["kernel_ms_6it"],
               plain_ms_6it=cost_main["plain_ms_6it"],
               tick_ms={str(k): v for k, v in fused_tick_ms.items()}),
         entry("box_qp_ipm_fuse_lin", lin_launches, lin_rows, lin_main,
+              launch_bound("fuse_lin", 60, 1, FULL_ITERS),
               ms_6it=lin_main["kernel_ms_6it"],
               plain_ms_6it=lin_main["plain_ms_6it"],
               prologue_max_abs_err=max(
@@ -995,10 +1399,26 @@ def run(dev: torch.device) -> int:
          "max_abs_err_1it_n60": warm_main["max_abs_err_1it"],
          "ms": warm_main["kernel_ms_3it"],
          "plain_ms": warm_main["plain_ms_3it"],
+         **bound_keys(launch_bound("fuse_lin", 60, 1, FASTEST_ITERS,
+                                  warm=True)),
          "cold_ms": warm_main["cold_kernel_ms_3it"],
          "by_shape": {r["case"]: [r["kernel_ms_3it"], r["plain_ms_3it"]]
                       for r in warm_rows},
          "altitude_overshoot_m": alt},
+        {"name": "box_qp_ipm_soft", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES["box_qp_ipm_soft"],
+         "launches": sum(v["soft_launches"] for v in soft_loop.values()),
+         "max_abs_err": max(r["max_abs_err_1it"] for r in soft_rows),
+         "ms": soft_main["kernel_ms"], "plain_ms": soft_main["plain_ms"],
+         **bound_keys(soft_main["bound"]),
+         "hard_ms": soft_main["hard_kernel_ms"],
+         "ms_12it": soft_main["kernel_ms_12it"],
+         "all_hard_bit_exact": all(r["all_hard_bit_exact"]
+                                   for r in soft_rows),
+         "by_shape": {r["case"]: [r["kernel_ms"], r["plain_ms"],
+                                  r["hard_kernel_ms"]] for r in soft_rows},
+         "loop_ms_per_tick": {k: v["ms_per_tick"]
+                              for k, v in soft_loop.items()}},
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

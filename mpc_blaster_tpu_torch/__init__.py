@@ -5,13 +5,15 @@ The JAX package beside it stays the reference; every module here keeps
 its counterpart's name and subpackage so a reader finds one from the
 other. Plain tensor code is eager PyTorch; the TPU kernel on the slice's
 path (the Pallas box-QP IPM, `mpc_blaster_tpu/ops/pallas_ipm.py`, in its
-plain, fuse_cost and fuse_lin modes, cold or warm-started) is a
-hand-written CUDA C++ kernel for sm_90a (`csrc/box_qp_ipm.cu`, wrapped by
-`ops/box_qp_ipm.py`).
+plain, fuse_cost and fuse_lin modes, cold or warm-started, and soft-bounded
+in the plain and fuse_lin modes) is a hand-written CUDA C++ kernel for
+sm_90a (`csrc/box_qp_ipm.cu`, wrapped by `ops/box_qp_ipm.py`).
 
-Ported so far (the RTI ticks and closed loop, cold or warm-started, on the
-presets' default `qp_backend="riccati"`, on `"pallas"` and on the deployed
-one-launch `"pallas_fused"`, with the divergence watchdog):
+Ported so far (the RTI ticks and closed loop, cold, warm-started or
+soft-bounded, on the presets' default `qp_backend="riccati"`, on `"pallas"`
+and on the deployed one-launch `"pallas_fused"`, with the divergence
+watchdog; the batched ticks on the "xla", "pallas" and "pallas_fused"
+backends):
 
   - ``core``      rotations, nozzle homogeneous-transform chain
   - ``dynamics``  the 17-state BLASTER ODE, RK4, jacfwd sensitivities,
@@ -19,17 +21,21 @@ one-launch `"pallas_fused"`, with the divergence watchdog):
   - ``poc``       water-jet point-of-contact solve + Jacobians
   - ``ocp``       OCP specification and cost
   - ``qp``        QP data containers, the small-matrix algebra, the Riccati
-                  recursion and the Riccati IPM with its warm starts
+                  recursion, the Riccati IPM with its warm starts, and the
+                  soft-bounded IPM (`soft`)
   - ``ops``       the box-QP IPM kernel's three modes (each with the
-                  warm-start blend), their plain twins and launch wrappers
-  - ``sqp``       the SQP-RTI ticks: cold, warm, warm under the watchdog
+                  warm-start blend; plain and fuse_lin with soft bounds),
+                  their plain twins and launch wrappers
+  - ``sqp``       the SQP-RTI ticks: cold, warm, warm under the watchdog,
+                  soft-bounded
   - ``sim``       the closed loop (frozen-POC branches)
   - ``parallel``  the batched ticks on one device
   - ``convert``   numpy <-> port containers (state shared with the JAX side)
 
 Options outside that slice raise `NotImplementedError` naming the
-ROADMAP item that ports them. Presets are `mpc_blaster_tpu.config`,
-re-exported (numpy + dataclasses only; it imports no JAX).
+ROADMAP item that ports them. Presets are the port's own copy of
+`mpc_blaster_tpu.config` (`config.py`): the port imports nothing of the
+JAX package.
 
 float32 matrix products run in full float32: TF32 (10-bit mantissa) is
 switched off at import, the Hopper form of the reduced-precision matmul

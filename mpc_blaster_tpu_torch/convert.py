@@ -1,11 +1,13 @@
 """State carried across between the JAX package and the port, as numpy.
 
 `*_from_numpy` turn the fields of a JAX container (an `OCPSpec`,
-`RTIState`, `QPData`, `IpmWarmStart` or `WatchdogState`, as numpy arrays,
-or a mapping of them) into the port's container on a device and dtype;
-`*_to_numpy` go the other way, returning a dict of numpy arrays keyed by
-field name. The parity tests use these so both sides compute from the
-same numbers (and start a warm chain from the same warm state).
+`RTIState`, `QPData`, `IpmWarmStart`, `WatchdogState` or `SoftBounds`, as
+numpy arrays, or a mapping of them) into the port's container on a device
+and dtype; `*_to_numpy` go the other way, returning a dict of numpy arrays
+keyed by field name (for `SoftBounds` a dict of such dicts, one per
+`SoftPenalty`). The parity tests use these so both sides compute from the
+same numbers (and start a warm chain from the same warm state, a soft
+tick from the same penalties).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.qp.data import QPData
 from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
+from mpc_blaster_tpu_torch.qp.soft import SoftBounds, SoftPenalty
 from mpc_blaster_tpu_torch.sqp.rti import RTIState, WatchdogState
 
 
@@ -77,3 +80,15 @@ def watchdog_from_numpy(d, device=None, dtype=torch.float32
 
 def watchdog_to_numpy(wd: WatchdogState) -> dict:
     return _to_numpy(wd)
+
+
+def soft_from_numpy(d, device=None, dtype=torch.float32) -> SoftBounds:
+    """`dtype` is the penalties'; the `soft` masks are bool."""
+    f = _fields(d)
+    return SoftBounds(**{g: _from_numpy(SoftPenalty, f[g], device, dtype,
+                                        {"soft": torch.bool})
+                         for g in SoftBounds._fields})
+
+
+def soft_to_numpy(soft: SoftBounds) -> dict:
+    return {g: _to_numpy(p) for g, p in soft._asdict().items()}

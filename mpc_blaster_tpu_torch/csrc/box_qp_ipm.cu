@@ -1,7 +1,7 @@
 // Batched box-constrained OCP-QP interior-point solve for Hopper (sm_90a).
 //
 // Replaces mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel in three of its
-// modes (cold start, hard bounds, resident), with the in-kernel algebra of
+// modes (resident), hard or soft-bounded, with the in-kernel algebra of
 // that file (_contractT, _contractT_vec, _matvec, _chol_inverse_lanes). One
 // launch runs the whole Mehrotra predictor-corrector solve -- init, every IPM
 // iteration, best-merit tracking and the final KKT sweep -- for a batch of
@@ -29,6 +29,28 @@
 // optional device flag `skip` makes every block return at once: the
 // divergence watchdog enqueues its cold redo every tick and lets the
 // device decide whether it runs (sqp/rti.py::rti_step_warm_guarded).
+//
+// SOFT bounds (kernel K4, the Pallas kernel's static `soft` flag,
+// pallas_ipm.py:249-257 and :457-1034; the acados ns>0 analog of
+// qp/soft.py) are the second template parameter, instantiated for PLAIN and
+// FUSE_LIN only (the Pallas fuse_cost tick has no soft form), so the hard
+// instantiations compile exactly as before. Each bound row gains a
+// violation pair (t, gam) with penalty z t + Z/2 t^2, eliminated row by
+// row: the factorization takes sig_eff = sig_s (Z + sig_t) / (Z + sig_s +
+// sig_t) with sig_s capped at SIGMA_MAX first and the pair sum capped again;
+// the right-hand side gains -sig_s w / den; dt and dgam are recovered after
+// each solve; t gam joins the complementarity sum and the pair count,
+// |z + Z t - lam - gam| the best-iterate merit, t and gam the
+// fraction-to-boundary ratios. Only hard rows are inset by the init clamp;
+// soft rows start at t = max(-gap, 0) + 0.1, gam = mu0 / t. The host marks
+// hard and infinite rows with the sentinel Z = 1e18, z = 0, and the kernel
+// reads a row as soft where its bound is finite and Z < 5e17. A hard row
+// takes sig_s itself, never the formula: with the sentinel the formula
+// rounds to sig_s only within one ulp in float32 (measured with numpy:
+// fl(fl(x 1e18) / 1e18) != x for about a tenth of all x), and on a hard row
+// Z t overflows to inf, so every soft term is selected per row, never
+// multiplied by a 0/1 mask. Soft and warm starts do not combine (null
+// warm pointers when the penalty pointers are set).
 //
 // The plain PyTorch twins are ops/box_qp_ipm.py::box_qp_solve_plain,
 // batched_fused_tick_plain and fused_rti_solve_plain (the prologue's twin is
@@ -123,13 +145,14 @@ __host__ __device__ size_t lin_floats(int N) {
   return (size_t)N * (NXX + NX * NU + NX);
 }
 
-__host__ __device__ size_t workspace_floats(int N, int mode) {
+__host__ __device__ size_t workspace_floats(int N, int mode, bool soft) {
   const size_t n = N, n1 = N + 1;
   size_t w = n1 * (NXX + 4 * NX)                  // P, dx, ddx, ddxa, qr
              + n * (NU * NX + NU * NU + 5 * NU + NX);  // Z, Hinv, kff, du,
                                                        // ddu, ddua, rr, req
   if (mode != PLAIN) w += n1 * NX + 2 * n * NX + 3 * n * NU;  // q, r, bounds
   if (mode == FUSE_LIN) w += lin_floats(N);
+  if (soft) w += 4 * n * (NX + NU);  // t, gam of the four groups
   return w;
 }
 
@@ -165,6 +188,10 @@ struct Inputs {  // problem-major float32
   const float* ws[4];
   const float* wl[4];
   const unsigned char* skip;  // optional device flag: nonzero = do nothing
+  // SOFT: penalty rows Z, z of the groups lx, ux (B, N, NX), lu, uu
+  // (B, N, NU); hard and infinite rows carry Z = 1e18, z = 0
+  const float* Zp[4];
+  const float* zp[4];
 };
 
 // Model constants of the FUSE_LIN prologue (runtime arguments). The RK4
@@ -256,12 +283,17 @@ __device__ void chol_inverse(const float* M, float* out) {
   }
 }
 
-__device__ __forceinline__ float clamp_into(float v, float lb, float ub) {
-  const bool ml = lb > -MTHR, mu = ub < MTHR;
+// The same inset with explicit masks: the soft init insets hard rows only.
+__device__ __forceinline__ float clamp_masked(float v, float lb, float ub,
+                                              bool ml, bool mu) {
   const float w = (ml && mu) ? ub - lb : 1.f;
   const float lo = ml ? lb + 0.1f * w : -BIG;
   const float hi = mu ? ub - 0.1f * w : BIG;
   return clipf(v, lo, nmax(hi, lo));
+}
+
+__device__ __forceinline__ float clamp_into(float v, float lb, float ub) {
+  return clamp_masked(v, lb, ub, lb > -MTHR, ub < MTHR);
 }
 
 // ---- forward-mode dual numbers (value, tangent) ---------------------------
@@ -429,9 +461,20 @@ __device__ __forceinline__ void rk4_rows(T* X, const T* U, const float* P,
 template __device__ void rk4_rows<float>(float*, const float*, const float*,
                                          const Model&);
 
+// The soft rows of one problem: penalty rows and the violation pairs (in
+// the workspace). Empty unless SOFT, so the hard instantiations carry no
+// extra state (the Solver is the empty base's only user).
+template <bool SOFT>
+struct SoftRows {};
+template <>
+struct SoftRows<true> {
+  const float *Zg[4], *zg[4];
+  float *tv[4], *gv[4];
+};
+
 // One problem's solve, run by one thread block.
-template <int MODE>
-struct Solver {
+template <int MODE, bool SOFT>
+struct Solver : SoftRows<SOFT> {
   // inputs of this problem
   const float *A, *Bm, *c, *Qs, *Qt, *q, *R, *r, *dx0;
   const float* bnd[4];  // lbx, ubx, lbu, ubu (delta form)
@@ -486,7 +529,7 @@ struct Solver {
       ws[g] = warm_use ? in.ws[g] + b * n * w : nullptr;
       wl[g] = warm_use ? in.wl[g] + b * n * w : nullptr;
     }
-    float* w = out.work + b * workspace_floats(N, MODE);
+    float* w = out.work + b * workspace_floats(N, MODE, SOFT);
     P = w;        w += n1 * NXX;
     dx = w;       w += n1 * NX;
     ddx = w;      w += n1 * NX;
@@ -500,6 +543,15 @@ struct Solver {
     ddua = w;     w += n * NU;
     rr = w;       w += n * NU;
     req = w;      w += n * NX;
+    if constexpr (SOFT) {
+      for (int g = 0; g < 4; ++g) {
+        const size_t wd = g < 2 ? NX : NU;
+        this->Zg[g] = in.Zp[g] + b * n * wd;
+        this->zg[g] = in.zp[g] + b * n * wd;
+        this->tv[g] = w;  w += n * wd;
+        this->gv[g] = w;  w += n * wd;
+      }
+    }
     if constexpr (MODE != PLAIN) {
       xbar = in.xbar + b * n1 * NX;
       ubar = in.ubar + b * n * NU;
@@ -655,8 +707,13 @@ struct Solver {
   __device__ static float mask(int g, float b) {
     return (g & 1) ? (b < MTHR ? 1.f : 0.f) : (b > -MTHR ? 1.f : 0.f);
   }
-  // slack residual s - sgn (v - b)
+  // slack residual s - sgn (v - b) (- t on a soft row)
   __device__ float rs(int g, int idx, float v) const {
+    if constexpr (SOFT) {
+      if (srow(g, idx)) {
+        return s[g][idx] - (sgn(g) * (v - bnd[g][idx]) + this->tv[g][idx]);
+      }
+    }
     return s[g][idx] - sgn(g) * (v - bnd[g][idx]);
   }
   __device__ float sig(int g, int idx) const {
@@ -684,7 +741,91 @@ struct Solver {
     return dv < 0.f ? (-tau * v) / dv : BIG;
   }
 
+  // ---- soft rows (SOFT only) ---------------------------------------------
+  // A row is soft where its bound is finite and its Z is not the sentinel.
+  __device__ bool srow(int g, int idx) const {
+    if constexpr (SOFT) {
+      return mask(g, bnd[g][idx]) > 0.5f && this->Zg[g][idx] < MTHR;
+    }
+    return false;
+  }
+  // the eliminated pair's denominator Z + sig_s + sig_t and RHS scalar
+  // w = -r_t + (Ts/s - lam) + (Tt/t - gam) + sig_s r_s of a soft row
+  __device__ void soft_terms(int g, int idx, float r, float Ts, float Tt,
+                             float& den, float& w) const {
+    const float ss = sig(g, idx), sv = s[g][idx], lv = lam[g][idx];
+    const float tt = this->tv[g][idx], gg = this->gv[g][idx], Z = this->Zg[g][idx];
+    den = (Z + ss) + gg / tt;
+    const float r_t = ((this->zg[g][idx] + Z * tt) - lv) - gg;
+    w = ((-r_t + (Ts / sv - lv)) + (Tt / tt - gg)) + ss * r;
+  }
+  // Newton directions (ds, dl, dt, dg) of one bound entry for primal
+  // direction dd under the targets (Ts, Tt); dt = dg = 0 on a hard row,
+  // where ds and dl are `dirs`'
+  __device__ void sdirs(int g, int idx, float v, float dd, float Ts,
+                        float Tt, float& ds, float& dl, float& dt,
+                        float& dg) const {
+    const float m = mask(g, bnd[g][idx]);
+    const float sv = s[g][idx], lv = lam[g][idx];
+    const float r = rs(g, idx, v);
+    float dv = sgn(g) * dd;
+    dt = 0.f;
+    dg = 0.f;
+    if (srow(g, idx)) {
+      float den, w;
+      soft_terms(g, idx, r, Ts, Tt, den, w);
+      const float tt = this->tv[g][idx], gg = this->gv[g][idx];
+      dt = (w - sig(g, idx) * dv) / den;
+      dg = clipf(((Tt - tt * gg) - gg * dt) / tt, -DUAL_CLIP, DUAL_CLIP);
+      dv = dv + dt;
+    }
+    ds = m * (dv - r);
+    dl = m * clipf((Ts - sv * lv - lv * ds) / sv, -DUAL_CLIP, DUAL_CLIP);
+  }
+  // the corrector's targets (Ts, Tt) from the affine directions in
+  // ddxa/ddua (0 in the predictor)
+  __device__ void stargets(bool cor, int g, int idx, float v, float dda,
+                           float& Ts, float& Tt) const {
+    Ts = 0.f;
+    Tt = 0.f;
+    if (!cor) return;
+    float ds, dl, dt, dg;
+    sdirs(g, idx, v, dda, 0.f, 0.f, ds, dl, dt, dg);
+    Ts = clipf(mu_t - ds * dl, 0.05f * mu_t, 20.f * mu_t);
+    Tt = clipf(mu_t - dt * dg, 0.05f * mu_t, 20.f * mu_t);
+  }
+  // max |z + Z t - lam - gam| over the soft rows (soft stationarity)
+  __device__ float soft_rt_max() const {
+    float acc = 0.f;
+    for_rows([&](int gb, int idx, int) {
+      for (int g = gb; g < gb + 2; ++g) {
+        if (srow(g, idx)) {
+          const float r_t = ((this->zg[g][idx] + this->Zg[g][idx] * this->tv[g][idx])
+                             - lam[g][idx]) - this->gv[g][idx];
+          acc = nmax(acc, fabsf(r_t));
+        }
+      }
+    });
+    return block_reduce(acc, sh.red, OpMax());
+  }
+  // the best-iterate merit: stat + eq (+ soft stationarity) + mean comp
+  __device__ float merit(float st, float eq) const {
+    if constexpr (SOFT) return st + eq + soft_rt_max() + comp_sum() / n_ineq;
+    return st + eq + comp_sum() / n_ineq;
+  }
+
   // ---- phases -------------------------------------------------------------
+  // the init's 10% inset of bound row idx of groups (gb, gb+1); SOFT insets
+  // the hard rows only
+  __device__ float clamp_init(float v, int gb, int idx) const {
+    const float lb = bnd[gb][idx], ub = bnd[gb + 1][idx];
+    if constexpr (SOFT) {
+      return clamp_masked(v, lb, ub, lb > -MTHR && !srow(gb, idx),
+                          ub < MTHR && !srow(gb + 1, idx));
+    }
+    return clamp_into(v, lb, ub);
+  }
+
   // rollout (du = 0) with the 10%-inset clamp, centred slacks and duals,
   // then the warm blend over them
   __device__ void init() {
@@ -704,18 +845,28 @@ struct Solver {
         for (int j = 1; j < NX; ++j) a += Ar[j] * x[j];
         a += c[k * NX + t];
         const int idx = k * NX + t;
-        dx[(k + 1) * NX + t] = clamp_into(a, bnd[0][idx], bnd[1][idx]);
+        dx[(k + 1) * NX + t] = clamp_init(a, 0, idx);
       }
       __syncthreads();
     }
     float cnt = 0.f;
     for_rows([&](int gb, int idx, int vi) {
       float* V = gb ? du : dx;
-      if (gb) V[vi] = clamp_into(0.f, bnd[2][idx], bnd[3][idx]);
+      if (gb) V[vi] = clamp_init(0.f, 2, idx);
       const float v = V[vi];
       for (int g = gb; g < gb + 2; ++g) {
         const float b = bnd[g][idx], m = mask(g, b);
-        float sv = m > 0.5f ? nmax(sgn(g) * (v - b), S_MIN) : BIG;
+        float gap = sgn(g) * (v - b);
+        if constexpr (SOFT) {
+          // violation pair: O(1) offset on a soft row, inert on a hard one
+          const bool sr = srow(g, idx);
+          const float tt = sr ? nmax(-gap, 0.f) + 0.1f : BIG;
+          this->tv[g][idx] = tt;
+          this->gv[g][idx] = sr ? mu0 / tt : 0.f;
+          if (sr) gap = gap + tt;
+          cnt += sr ? 1.f : 0.f;
+        }
+        float sv = m > 0.5f ? nmax(gap, S_MIN) : BIG;
         float lv = m > 0.5f ? mu0 / sv : 0.f;
         if (warm_use && m > 0.5f) {
           // NaN-propagating clips: a NaN entry stays NaN and keeps the cold
@@ -739,6 +890,9 @@ struct Solver {
     for_rows([&](int gb, int idx, int) {
       for (int g = gb; g < gb + 2; ++g) {
         acc += mask(g, bnd[g][idx]) * s[g][idx] * lam[g][idx];
+        if constexpr (SOFT) {
+          if (srow(g, idx)) acc += this->tv[g][idx] * this->gv[g][idx];
+        }
       }
     });
     return block_reduce(acc, sh.red, OpSum());
@@ -803,8 +957,21 @@ struct Solver {
     eq_out = block_reduce(eq, sh.red, OpMax());
   }
 
+  // the factorization's weight of one entry: sig_s, or the eliminated
+  // sig_eff on a soft row
+  __device__ float sig_fac(int g, int idx) const {
+    const float ss = sig(g, idx);
+    if constexpr (SOFT) {
+      if (srow(g, idx)) {
+        const float Z = this->Zg[g][idx], st = this->gv[g][idx] / this->tv[g][idx];
+        return ss * (Z + st) / ((Z + ss) + st);
+      }
+    }
+    return ss;
+  }
+
   __device__ float sig_pair(int gb, int idx) const {
-    return nmin(sig(gb, idx) + sig(gb + 1, idx), SIGMA_MAX);
+    return nmin(sig_fac(gb, idx) + sig_fac(gb + 1, idx), SIGMA_MAX);
   }
 
   // backward Riccati factorization: P (N+1 stack), Z = Hinv Hux, Hinv
@@ -902,12 +1069,25 @@ struct Solver {
       const float v = V[vi];
       float bsum = 0.f;
       for (int g = gb; g < gb + 2; ++g) {
-        const float T = target(cor, g, idx, v, DA[vi]);
-        const float sv = s[g][idx];
-        const float b = clipf(T / sv, -SIGMA_MAX, SIGMA_MAX)
-                        + sig(g, idx) * rs(g, idx, v);
-        const float gv = (-sgn(g) * mask(g, bnd[g][idx])) * b;
-        bsum = (g == gb) ? gv : bsum + gv;
+        float b;
+        if constexpr (SOFT) {
+          float Ts, Tt;
+          stargets(cor, g, idx, v, DA[vi], Ts, Tt);
+          const float r = rs(g, idx, v), ss = sig(g, idx);
+          b = clipf(Ts / s[g][idx], -SIGMA_MAX, SIGMA_MAX) + ss * r;
+          if (srow(g, idx)) {
+            float den, w;
+            soft_terms(g, idx, r, Ts, Tt, den, w);
+            b = b - (ss * w) / den;
+          }
+        } else {
+          const float T = target(cor, g, idx, v, DA[vi]);
+          const float sv = s[g][idx];
+          b = clipf(T / sv, -SIGMA_MAX, SIGMA_MAX)
+              + sig(g, idx) * rs(g, idx, v);
+        }
+        const float gvl = (-sgn(g) * mask(g, bnd[g][idx])) * b;
+        bsum = (g == gb) ? gvl : bsum + gvl;
       }
       if (gb == 0) {
         const int k = idx / NX, i = idx - k * NX;
@@ -1002,7 +1182,17 @@ struct Solver {
       const float da = (gb ? ddua : ddxa)[vi];
       for (int g = gb; g < gb + 2; ++g) {
         float ds, dl;
-        dirs(g, idx, v, d, target(cor, g, idx, v, da), ds, dl);
+        if constexpr (SOFT) {
+          float Ts, Tt, dt, dg;
+          stargets(cor, g, idx, v, da, Ts, Tt);
+          sdirs(g, idx, v, d, Ts, Tt, ds, dl, dt, dg);
+          if (srow(g, idx)) {
+            ap = nmin(ap, ratio(this->tv[g][idx], dt, tau));
+            ad = nmin(ad, ratio(this->gv[g][idx], dg, tau));
+          }
+        } else {
+          dirs(g, idx, v, d, target(cor, g, idx, v, da), ds, dl);
+        }
         ap = nmin(ap, ratio(s[g][idx], ds, tau));
         ad = nmin(ad, ratio(lam[g][idx], dl, tau));
       }
@@ -1019,7 +1209,15 @@ struct Solver {
       const float da = (gb ? ddua : ddxa)[vi];
       for (int g = gb; g < gb + 2; ++g) {
         float ds, dl;
-        dirs(g, idx, v, da, 0.f, ds, dl);
+        if constexpr (SOFT) {
+          float dt, dg;
+          sdirs(g, idx, v, da, 0.f, 0.f, ds, dl, dt, dg);
+          if (srow(g, idx)) {
+            acc += (this->tv[g][idx] + ap * dt) * (this->gv[g][idx] + ad * dg);
+          }
+        } else {
+          dirs(g, idx, v, da, 0.f, ds, dl);
+        }
         acc += mask(g, bnd[g][idx]) * (s[g][idx] + ap * ds)
                * (lam[g][idx] + ad * dl);
       }
@@ -1034,13 +1232,25 @@ struct Solver {
       const float d = (gb ? ddu : ddx)[vi];
       const float da = (gb ? ddua : ddxa)[vi];
       const float v = V[vi];
-      float ds[2], dl[2];
+      float ds[2], dl[2], dt[2], dg[2];
       for (int h = 0; h < 2; ++h) {
         const int g = gb + h;
-        dirs(g, idx, v, d, target(true, g, idx, v, da), ds[h], dl[h]);
+        if constexpr (SOFT) {
+          float Ts, Tt;
+          stargets(true, g, idx, v, da, Ts, Tt);
+          sdirs(g, idx, v, d, Ts, Tt, ds[h], dl[h], dt[h], dg[h]);
+        } else {
+          dirs(g, idx, v, d, target(true, g, idx, v, da), ds[h], dl[h]);
+        }
       }
       for (int h = 0; h < 2; ++h) {
         const int g = gb + h;
+        if constexpr (SOFT) {
+          if (srow(g, idx)) {
+            this->tv[g][idx] = nmax(this->tv[g][idx] + ap * dt[h], EPS_S);
+            this->gv[g][idx] = clipf(this->gv[g][idx] + ad * dg[h], 0.f, LAM_MAX);
+          }
+        }
         s[g][idx] = nmax(s[g][idx] + ap * ds[h], EPS_S);
         lam[g][idx] = clipf(lam[g][idx] + ad * dl[h], 0.f, LAM_MAX);
       }
@@ -1063,7 +1273,7 @@ struct Solver {
     float st, eq;
     kkt(st, eq);
     copy(dxb, dx, dub, du);
-    float best = st + eq + comp_sum() / n_ineq;
+    float best = merit(st, eq);
     for (int it = 0; it < iters; ++it) {
       const float mu_cur = comp_sum() / n_ineq;
       factorize();
@@ -1082,10 +1292,10 @@ struct Solver {
       alphas(true, alpha_frac, ddx, ddu, ap, ad);
       update(ap, ad);
       kkt(st, eq);
-      const float merit = st + eq + comp_sum() / n_ineq;
-      if (merit < best) {  // uniform across the block
+      const float m = merit(st, eq);
+      if (m < best) {  // uniform across the block
         copy(dxb, dx, dub, du);
-        best = merit;
+        best = m;
       }
     }
     // final diagnostics on the returned (best) iterate, last-iterate duals
@@ -1105,13 +1315,13 @@ struct Solver {
   }
 };
 
-template <int MODE>
+template <int MODE, bool SOFT>
 __global__ void __launch_bounds__(THREADS)
 box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
                   float mu0, float alpha_frac, float reg) {
   if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
   __shared__ Shared sh;
-  Solver<MODE> solver(in, out, sh, N, mu0, reg);
+  Solver<MODE, SOFT> solver(in, out, sh, N, mu0, reg);
   solver.run(iters, alpha_frac, md);
 }
 
@@ -1132,11 +1342,29 @@ void set_warm(Inputs& in, const float* wvalid, const float* wslx,
   in.skip = skip;
 }
 
-template <int MODE>
+// The soft penalty arguments of the plain and fuse_lin entries (Zlx null =
+// a hard solve).
+void set_soft(Inputs& in, const float* Zlx, const float* zlx,
+              const float* Zux, const float* zux, const float* Zlu,
+              const float* zlu, const float* Zuu, const float* zuu) {
+  in.Zp[0] = Zlx;
+  in.zp[0] = zlx;
+  in.Zp[1] = Zux;
+  in.zp[1] = zux;
+  in.Zp[2] = Zlu;
+  in.zp[2] = zlu;
+  in.Zp[3] = Zuu;
+  in.zp[3] = zuu;
+}
+
+template <int MODE, bool SOFT>
 int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
            int N, int iters, float mu0, float alpha_frac, float reg,
            void* stream) {
   if (B <= 0 || N <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  if (SOFT && in.wvalid != nullptr) {
+    return (int)cudaErrorInvalidValue;  // soft takes no warm start
+  }
   if (in.wvalid != nullptr) {
     for (int g = 0; g < 4; ++g) {
       if (in.ws[g] == nullptr || in.wl[g] == nullptr) {
@@ -1144,15 +1372,23 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
       }
     }
   }
-  box_qp_ipm_kernel<MODE><<<B, THREADS, 0, (cudaStream_t)stream>>>(
+  if (SOFT) {
+    for (int g = 0; g < 4; ++g) {
+      if (in.Zp[g] == nullptr || in.zp[g] == nullptr) {
+        return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
+  box_qp_ipm_kernel<MODE, SOFT><<<B, THREADS, 0, (cudaStream_t)stream>>>(
       in, out, md, N, iters, mu0, alpha_frac, reg);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" long long box_qp_ipm_workspace_floats(int N, int mode) {
-  return (long long)workspace_floats(N, mode);
+extern "C" long long box_qp_ipm_workspace_floats(int N, int mode,
+                                                int soft) {
+  return (long long)workspace_floats(N, mode, soft != 0);
 }
 
 extern "C" long long box_qp_ipm_lin_floats(int N) {
@@ -1164,7 +1400,7 @@ extern "C" const char* box_qp_ipm_error_string(int err) {
 }
 
 // PLAIN: one launch solves the whole batch: grid = B blocks of THREADS
-// threads.
+// threads. Non-null penalty rows (Zlx ...) select the soft instantiation.
 extern "C" int box_qp_ipm_solve(
     const float* A, const float* Bm, const float* c, const float* Qs,
     const float* Qt, const float* q, const float* R, const float* r,
@@ -1176,13 +1412,20 @@ extern "C" int box_qp_ipm_solve(
     float* work, const float* wvalid, const float* wslx, const float* wsux,
     const float* wllx, const float* wlux, const float* wslu,
     const float* wsuu, const float* wllu, const float* wluu,
-    const unsigned char* skip, int B, int N, int iters, float mu0,
+    const unsigned char* skip, const float* Zlx, const float* zlx,
+    const float* Zux, const float* zux, const float* Zlu, const float* zlu,
+    const float* Zuu, const float* zuu, int B, int N, int iters, float mu0,
     float alpha_frac, float reg, void* stream) {
   Inputs in{A, Bm, c, Qs, Qt, q, R, r, lbx, ubx, lbu, ubu, dx0};
   set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
+  set_soft(in, Zlx, zlx, Zux, zux, Zlu, zlu, Zuu, zuu);
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu}, work};
-  return launch<PLAIN>(in, out, Model{}, B, N, iters, mu0, alpha_frac, reg,
-                       stream);
+  if (Zlx != nullptr) {
+    return launch<PLAIN, true>(in, out, Model{}, B, N, iters, mu0,
+                               alpha_frac, reg, stream);
+  }
+  return launch<PLAIN, false>(in, out, Model{}, B, N, iters, mu0, alpha_frac,
+                              reg, stream);
 }
 
 // FUSE_COST (the batched fused tick): xnew/unew receive the updated
@@ -1222,12 +1465,13 @@ extern "C" int box_qp_ipm_fused_cost(
   in.box[3] = ubu;
   Outputs out{xnew, unew, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
               work};
-  return launch<FUSE_COST>(in, out, Model{}, B, N, iters, mu0, alpha_frac,
-                           reg, stream);
+  return launch<FUSE_COST, false>(in, out, Model{}, B, N, iters, mu0,
+                                  alpha_frac, reg, stream);
 }
 
 // FUSE_LIN (the one-launch RTI tick): dx/du receive deltas; `lin`, when not
 // null, receives the A, B and c the prologue built (B, lin_floats(N)).
+// Non-null penalty rows (Zlx ...) select the soft instantiation.
 extern "C" int box_qp_ipm_fused_lin(
     const float* xbar, const float* ubar, const float* sp, const float* x0,
     const float* Qs, const float* Qt, const float* R, const float* Rg,
@@ -1239,7 +1483,10 @@ extern "C" int box_qp_ipm_fused_lin(
     float* lin, float* work, const float* wvalid, const float* wslx,
     const float* wsux, const float* wllx, const float* wlux,
     const float* wslu, const float* wsuu, const float* wllu,
-    const float* wluu, const unsigned char* skip, int B, int N, int np,
+    const float* wluu, const unsigned char* skip, const float* Zlx,
+    const float* zlx, const float* Zux, const float* zux, const float* Zlu,
+    const float* zlu, const float* Zuu, const float* zuu, int B, int N,
+    int np,
     int iters, float mu0, float alpha_frac, float reg, float inv_m, float g,
     float lx, float ly, float cy, float j1, float j2, float j3, float h,
     float h2, float h6, int nsteps, void* stream) {
@@ -1262,9 +1509,14 @@ extern "C" int box_qp_ipm_fused_lin(
   in.box[3] = ubu;
   in.sp = sp;
   in.np = np;
+  set_soft(in, Zlx, zlx, Zux, zux, Zlu, zlu, Zuu, zuu);
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
               work, lin};
   const Model md{inv_m, g, lx, ly, cy, j1, j2, j3, h, h2, h6, nsteps};
-  return launch<FUSE_LIN>(in, out, md, B, N, iters, mu0, alpha_frac, reg,
-                          stream);
+  if (Zlx != nullptr) {
+    return launch<FUSE_LIN, true>(in, out, md, B, N, iters, mu0, alpha_frac,
+                                  reg, stream);
+  }
+  return launch<FUSE_LIN, false>(in, out, md, B, N, iters, mu0, alpha_frac,
+                                 reg, stream);
 }

@@ -2,9 +2,10 @@
 its plain PyTorch twins and the launch wrappers.
 
 Replaces `mpc_blaster_tpu/ops/pallas_ipm.py::_ipm_kernel` in three modes
-(hard bounds, VMEM-resident), cold or warm-started (its `warm_on` variant),
-together with its in-kernel algebra (`_contractT*`, `_matvec`,
-`_chol_inverse_lanes`) and the host side of `_pallas_box_qp_solve`:
+(VMEM-resident), cold or warm-started (its `warm_on` variant), hard or
+soft-bounded (its `soft` variant, plain and fuse_lin modes), together with
+its in-kernel algebra (`_contractT*`, `_matvec`, `_chol_inverse_lanes`)
+and the host side of `_pallas_box_qp_solve`:
 
   - plain (`pallas_box_qp_solve`): `box_qp_solve`, twin
     `box_qp_solve_plain`. The host assembles the QP.
@@ -34,7 +35,14 @@ floored at 1e-8, wherever the clipped value is finite (kernel K3). valid =
 take `skip=`, a one-element bool tensor on the device: when it holds True
 the launch returns at once and the outputs are undefined (the watchdog's
 redo, `sqp/rti.py::rti_step_warm_guarded`); the plain twins ignore it and
-always compute. Nothing falls back: an unsupported CUDA input raises. The CPU tests
+always compute. `box_qp_solve` and `fused_rti_solve` take `soft=`, a
+`qp/soft.py::SoftBounds` with fields (N, nx|nu) (broadcast over the batch)
+or (B, N, nx|nu): each soft bound row gains a violation pair eliminated
+inside the kernel (kernel K4; counted in `soft_launches` too). The host
+sanitises the penalties as the Pallas host does (`pen_in`): rows that are
+hard or whose bound is infinite carry Z = 1e18, z = 0. Soft and warm do
+not combine (ValueError, as in the JAX package). Nothing falls back: an
+unsupported CUDA input raises. The CPU tests
 hold the twins against the Pallas kernel in interpret mode;
 `chip_smoke.py` holds the CUDA kernel against them on the card.
 
@@ -180,13 +188,50 @@ def _warm_blend(S, LAM, masks, warm):
         LAM[i] = torch.where(ok & torch.isfinite(wl), wl, LAM[i])
 
 
+def _soft_rows(soft, bounds):
+    """The kernel's penalty rows (the Pallas host's `pen_in`): per group
+    (Z, z), float32 (B, N, w), from the group's raw (B, N, w) bounds. Hard
+    rows and rows with an infinite bound carry the sentinel Z = 1e18 and
+    z = 0. Unbatched (N, w) fields broadcast over B. None for a hard
+    solve."""
+    if soft is None:
+        return None
+    out = []
+    for pen, b in zip((soft.lx, soft.ux, soft.lu, soft.uu), bounds):
+        Z, z, sm = (a.to(b.device).expand(b.shape)
+                    for a in (pen.Z, pen.z, pen.soft))
+        smask = sm.to(torch.bool) & torch.isfinite(b)
+        out.append((_f32(torch.where(smask, Z.to(torch.float32), _BIGB)),
+                    _f32(torch.where(smask, z.to(torch.float32), 0.0))))
+    return out
+
+
+def _qp_bounds(data: QPData) -> tuple:
+    """The four bound groups of a QP (state bounds of stages 1..N)."""
+    return data.lbx[:, 1:], data.ubx[:, 1:], data.lbu, data.ubu
+
+
+def _check_soft_warm(soft, warm):
+    if soft is not None and warm is not None:
+        raise ValueError("soft bounds do not support slack/dual warm "
+                         "starts (violation pairs are not carried)")
+
+
 def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
                        alpha_frac: float = 0.995, reg: float = 1e-6,
-                       warm=None, skip=None) -> QPSolution:
+                       warm=None, skip=None, soft=None) -> QPSolution:
     """Eager PyTorch twin of the CUDA kernel. `data` fields carry a
     leading batch axis (B, ...); any device. Same arguments and result as
     `box_qp_solve` (`skip` is ignored: the twin always computes)."""
-    p = _prep(data)
+    _check_soft_warm(soft, warm)
+    return _solve_plain(_prep(data), iters, mu0, alpha_frac, reg, warm,
+                        _soft_rows(soft, _qp_bounds(data)))
+
+
+def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
+                 ) -> QPSolution:
+    """The twin's solve on prepared inputs; `pens` are the soft penalty
+    rows of `_soft_rows` (None: a hard solve)."""
     A, Bm, c, Qs, Qt, q, R, r = (p.A, p.Bm, p.c, p.Qs, p.Qt, p.q, p.R,
                                  p.r)
     Bsz, N, nx, nu = A.shape[0], A.shape[1], A.shape[-1], Bm.shape[-1]
@@ -201,6 +246,16 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
     muu = (p.ubu < _MTHR).float()
     groups = ((p.lbx, 1.0, mlx, True), (p.ubx, -1.0, mux, True),
               (p.lbu, 1.0, mlu, False), (p.ubu, -1.0, muu, False))
+    soft = pens is not None
+    if soft:
+        # soft rows (K4): a finite bound with a non-sentinel penalty; the
+        # (t, gam) violation pair of every group, inert (BIG, 0) on the
+        # hard rows
+        SM = [(g[2] > 0.5) & (pens[i][0] < _MTHR)
+              for i, g in enumerate(groups)]
+        hard = [g[2] * (~SM[i]).float() for i, g in enumerate(groups)]
+    else:
+        hard = [g[2] for g in groups]
 
     def clamp_into(v, lb, ub, ml, mu_):
         both = (ml > 0.5) & (mu_ > 0.5)
@@ -209,35 +264,54 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
         hi = torch.where(mu_ > 0.5, ub - 0.1 * w, big)
         return _clip(v, lo, torch.maximum(hi, lo))
 
-    # ---- initial point: rollout (du = 0) with the 10%-inset clamp,
-    # centred slacks and duals ----
+    # ---- initial point: rollout (du = 0) with the 10%-inset clamp (hard
+    # rows only: a soft row may start outside its box), centred slacks and
+    # duals ----
     xs = [p.dx0]
     for k in range(N):
         nxt = _mv(A[:, k], xs[-1]) + c[:, k]
-        xs.append(clamp_into(nxt, p.lbx[:, k], p.ubx[:, k], mlx[:, k],
-                             mux[:, k]))
+        xs.append(clamp_into(nxt, p.lbx[:, k], p.ubx[:, k], hard[0][:, k],
+                             hard[1][:, k]))
     dx = torch.stack(xs, 1)
-    du = clamp_into(torch.zeros_like(p.lbu), p.lbu, p.ubu, mlu, muu)
+    du = clamp_into(torch.zeros_like(p.lbu), p.lbu, p.ubu, hard[2], hard[3])
 
-    def init_pair(v, b, sgn, m):
-        s = torch.where(m > 0.5, torch.clamp(sgn * (v - b), min=_S_MIN), big)
-        lam = torch.where(m > 0.5, mu0 / s, torch.zeros_like(s))
-        return s, lam
-
-    S, LAM = [], []
-    for b, sgn, m, is_x in groups:
-        s, lam = init_pair(dx[:, 1:] if is_x else du, b, sgn, m)
+    S, LAM, TV, GV = [], [], [], []
+    for i, (b, sgn, m, is_x) in enumerate(groups):
+        v = dx[:, 1:] if is_x else du
+        gap = sgn * (v - b)
+        if soft:
+            t = torch.where(SM[i], torch.clamp(-gap, min=0.0) + 0.1, big)
+            TV.append(t)
+            GV.append(torch.where(SM[i], mu0 / t, torch.zeros_like(t)))
+            gap = torch.where(SM[i], gap + t, gap)
+        s = torch.where(m > 0.5, torch.clamp(gap, min=_S_MIN), big)
         S.append(s)
-        LAM.append(lam)
+        LAM.append(torch.where(m > 0.5, mu0 / s, torch.zeros_like(s)))
     if warm is not None:
         _warm_blend(S, LAM, [g[2] for g in groups], warm)
 
-    n_ineq = torch.clamp(sum(m.sum((1, 2)) for _, _, m, _ in groups),
-                         min=1.0)
+    n_ineq = sum(m.sum((1, 2)) for _, _, m, _ in groups)
+    if soft:
+        n_ineq = n_ineq + sum(sm.float().sum((1, 2)) for sm in SM)
+    n_ineq = torch.clamp(n_ineq, min=1.0)
 
     def comp_sum():
-        return sum((m * S[i] * LAM[i]).sum((1, 2))
-                   for i, (_, _, m, _) in enumerate(groups))
+        acc = sum((m * S[i] * LAM[i]).sum((1, 2))
+                  for i, (_, _, m, _) in enumerate(groups))
+        if soft:
+            acc = acc + sum(torch.where(SM[i], TV[i] * GV[i], 0.0)
+                            .sum((1, 2)) for i in range(4))
+        return acc
+
+    def soft_rt_max():
+        """max |z + Z t - lam - gam| over the soft rows (0 when hard)."""
+        out = torch.zeros(Bsz, dtype=torch.float32, device=dev)
+        if soft:
+            for i in range(4):
+                rt = torch.where(SM[i], ((pens[i][1] + pens[i][0] * TV[i])
+                                         - LAM[i]) - GV[i], 0.0)
+                out = torch.maximum(out, rt.abs().amax((1, 2)))
+        return out
 
     def kkt(dx, du):
         """(stat, eq, req): stationarity estimate, shooting residual max
@@ -259,29 +333,78 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
         stat = torch.clamp(su.abs().amax((1, 2)), min=0.0)
         return stat, eq, req
 
+    def merit(st, eq):
+        if soft:
+            return st + eq + soft_rt_max() + comp_sum() / n_ineq
+        return st + eq + comp_sum() / n_ineq
+
     def g_rs(i, dx, du):
         b, sgn, _, is_x = groups[i]
         v = dx[:, 1:] if is_x else du
-        return S[i] - sgn * (v - b)
+        gap = sgn * (v - b)
+        if soft:
+            gap = torch.where(SM[i], gap + TV[i], gap)
+        return S[i] - gap
 
     def g_sig(i):
         m = groups[i][2]
         return torch.clamp(m * LAM[i] / S[i], max=_SIGMA_MAX)
 
+    def g_soft(i, Ts, Tt, rs):
+        """(den, w) of the eliminated violation pair of group i: the
+        barrier denominator Z + sig_s + sig_t and the right-hand-side
+        scalar w for the targets (Ts, Tt); read on the soft rows only."""
+        ss, t, gam = g_sig(i), TV[i], GV[i]
+        Z, z = pens[i]
+        den = (Z + ss) + gam / t
+        r_t = ((z + Z * t) - LAM[i]) - gam
+        w = ((-r_t + (Ts / S[i] - LAM[i])) + (Tt / t - gam)) + ss * rs
+        return den, w
+
+    def g_fac(i):
+        """The factorization's barrier weight: sig_s, or on soft rows the
+        eliminated sig_s (Z + sig_t) / (Z + sig_s + sig_t). The hard rows
+        take sig_s itself: with the Z = 1e18 sentinel the formula rounds
+        to sig_s only to within one ulp in float32."""
+        ss = g_sig(i)
+        if not soft:
+            return ss
+        Z, t, gam = pens[i][0], TV[i], GV[i]
+        st = gam / t
+        return torch.where(SM[i], ss * (Z + st) / ((Z + ss) + st), ss)
+
     def dirs(i, T, ddx, ddu, dx, du):
-        """(ds, dlam) of group i for the Newton directions ddx/ddu."""
+        """(ds, dlam, dt, dgam) of group i for the Newton directions
+        ddx/ddu and the group's targets T = (Ts, Tt); dt, dgam are None
+        for a hard solve."""
         _, sgn, m, is_x = groups[i]
         dv = sgn * (ddx[:, 1:] if is_x else ddu)
-        ds = m * (dv - g_rs(i, dx, du))
-        dlam = m * torch.clamp((T - S[i] * LAM[i] - LAM[i] * ds) / S[i],
+        rs = g_rs(i, dx, du)
+        Ts, Tt = T
+        dt = dgam = None
+        if soft:
+            den, w = g_soft(i, Ts, Tt, rs)
+            t, gam = TV[i], GV[i]
+            dt = torch.where(SM[i], (w - g_sig(i) * dv) / den, 0.0)
+            dgam = torch.where(SM[i], torch.clamp(
+                ((Tt - t * gam) - gam * dt) / t, -_DUAL_CLIP, _DUAL_CLIP),
+                0.0)
+            dv = torch.where(SM[i], dv + dt, dv)
+        ds = m * (dv - rs)
+        dlam = m * torch.clamp((Ts - S[i] * LAM[i] - LAM[i] * ds) / S[i],
                                -_DUAL_CLIP, _DUAL_CLIP)
-        return ds, dlam
+        return ds, dlam, dt, dgam
 
     def rhs_grads(T, dx, du):
         def g_b(i):
             _, sgn, m, _ = groups[i]
-            b = (torch.clamp(T[i] / S[i], -_SIGMA_MAX, _SIGMA_MAX)
-                 + g_sig(i) * g_rs(i, dx, du))
+            Ts, Tt = T[i]
+            rs = g_rs(i, dx, du)
+            b = (torch.clamp(Ts / S[i], -_SIGMA_MAX, _SIGMA_MAX)
+                 + g_sig(i) * rs)
+            if soft:
+                den, w = g_soft(i, Ts, Tt, rs)
+                b = torch.where(SM[i], b - (g_sig(i) * w) / den, b)
             return -sgn * m * b
         bx = g_b(0) + g_b(1)
         bu = g_b(2) + g_b(3)
@@ -296,8 +419,8 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
     eye_u = torch.eye(nu, dtype=torch.float32, device=dev)
 
     def factorize():
-        sig_x = torch.clamp(g_sig(0) + g_sig(1), max=_SIGMA_MAX)
-        sig_u = torch.clamp(g_sig(2) + g_sig(3), max=_SIGMA_MAX)
+        sig_x = torch.clamp(g_fac(0) + g_fac(1), max=_SIGMA_MAX)
+        sig_u = torch.clamp(g_fac(2) + g_fac(3), max=_SIGMA_MAX)
         P = [None] * (N + 1)
         Z = [None] * N
         Hinv = [None] * N
@@ -343,15 +466,18 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
         a_p = torch.ones(Bsz, dtype=torch.float32, device=dev)
         a_d = torch.ones_like(a_p)
         for i in range(4):
-            ds, dlam = dirs(i, T[i], ddx, ddu, dx, du)
+            ds, dlam, dt, dgam = dirs(i, T[i], ddx, ddu, dx, du)
             a_p = torch.minimum(a_p, min_ratio(S[i], ds, tau))
             a_d = torch.minimum(a_d, min_ratio(LAM[i], dlam, tau))
+            if soft:
+                a_p = torch.minimum(a_p, min_ratio(TV[i], dt, tau))
+                a_d = torch.minimum(a_d, min_ratio(GV[i], dgam, tau))
         return torch.clamp(a_p, max=1.0), torch.clamp(a_d, max=1.0)
 
     st0, eq0, req = kkt(dx, du)
     dx_best, du_best = dx, du
-    best_merit = st0 + eq0 + comp_sum() / n_ineq
-    zero_T = [torch.zeros_like(S[i]) for i in range(4)]
+    best_merit = merit(st0, eq0)
+    zero_T = [(z, z) for z in (torch.zeros_like(S[i]) for i in range(4))]
 
     for _ in range(iters):
         mu_cur = comp_sum() / n_ineq
@@ -364,30 +490,44 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
         apb, adb = ap_aff[:, None, None], ad_aff[:, None, None]
         mu_aff = sum((groups[i][2] * (S[i] + apb * ds)
                       * (LAM[i] + adb * dlam)).sum((1, 2))
-                     for i, (ds, dlam) in enumerate(aff)) / n_ineq
+                     for i, (ds, dlam, _, _) in enumerate(aff))
+        if soft:
+            mu_aff = mu_aff + sum(
+                torch.where(SM[i], (TV[i] + apb * dt) * (GV[i] + adb * dg),
+                            0.0).sum((1, 2))
+                for i, (_, _, dt, dg) in enumerate(aff))
+        mu_aff = mu_aff / n_ineq
         ratio = mu_aff / torch.clamp(mu_cur, min=_MU_MIN)
         sigma = torch.clamp(ratio * ratio * ratio, 0.0, 1.0)
         mu_t = torch.clamp(sigma * mu_cur, min=_MU_MIN)[:, None, None]
+
         # corrector with Gondzio-clipped Mehrotra targets
-        T = [_clip(mu_t - ds * dlam, 0.05 * mu_t, 20.0 * mu_t)
-             for ds, dlam in aff]
+        def clip_t(a, b):
+            return _clip(mu_t - a * b, 0.05 * mu_t, 20.0 * mu_t)
+        T = [(clip_t(ds, dlam), clip_t(dt, dg) if soft else None)
+             for ds, dlam, dt, dg in aff]
         qr, rr = rhs_grads(T, dx, du)
         ddx, ddu = solve_rhs(P, Z, Hinv, req, qr, rr)
         a_p, a_d = alphas(T, alpha_frac, ddx, ddu, dx, du)
         apb, adb = a_p[:, None, None], a_d[:, None, None]
         # update (stage-0 state pinned)
         steps = [dirs(i, T[i], ddx, ddu, dx, du) for i in range(4)]
-        for i, (ds, dlam) in enumerate(steps):
+        for i, (ds, dlam, dt, dg) in enumerate(steps):
             S[i] = torch.clamp(S[i] + apb * ds, min=_EPS_S)
             LAM[i] = torch.clamp(LAM[i] + adb * dlam, 0.0, _LAM_MAX)
+            if soft:
+                TV[i] = torch.where(SM[i], torch.clamp(TV[i] + apb * dt,
+                                                       min=_EPS_S), TV[i])
+                GV[i] = torch.where(SM[i], torch.clamp(GV[i] + adb * dg,
+                                                       0.0, _LAM_MAX), GV[i])
         dx = torch.cat([dx[:, :1], dx[:, 1:] + apb * ddx[:, 1:]], 1)
         du = du + apb * ddu
         st, eq, req = kkt(dx, du)
-        merit = st + eq + comp_sum() / n_ineq
-        better = merit < best_merit
+        m_ = merit(st, eq)
+        better = m_ < best_merit
         dx_best = torch.where(better[:, None, None], dx, dx_best)
         du_best = torch.where(better[:, None, None], du, du_best)
-        best_merit = torch.where(better, merit, best_merit)
+        best_merit = torch.where(better, m_, best_merit)
 
     # final diagnostics on the returned (best) iterate, last-iterate duals
     stf, eqf, _ = kkt(dx_best, du_best)
@@ -499,12 +639,13 @@ def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
                           yref_u, yref_e, lbx, ubx, lbu, ubu, model: tuple,
                           dt: float, num_steps: int = 1, iters: int = 6,
                           mu0: float = 1e-1, alpha_frac: float = 0.995,
-                          reg: float = 1e-6, warm=None, R_grad=None,
-                          return_lin: bool = False, skip=None):
+                          reg: float = 1e-6, warm=None, soft=None,
+                          R_grad=None, return_lin: bool = False, skip=None):
     """Eager PyTorch twin of the fuse_lin kernel: `fast_linearize`, the
-    kernel's assembly on the host and `box_qp_solve_plain`. Same arguments
-    and result as `fused_rti_solve` (`skip` is ignored: the twin always
+    kernel's assembly on the host and the plain solve. Same arguments and
+    result as `fused_rti_solve` (`skip` is ignored: the twin always
     computes)."""
+    _check_soft_warm(soft, warm)
     _check_fused_rti(x0, model)
     f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
                     ubx, lbu, ubu, R_grad)
@@ -512,9 +653,18 @@ def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
         f.xbar, f.ubar, _f32(stage_params), _model_params(model, x0.device),
         dt, num_steps, family=model[0])
     c = x_next - f.xbar[:, 1:]
-    sol = box_qp_solve_plain(_fused_qp(f, A, Bm, c), iters=iters, mu0=mu0,
-                             alpha_frac=alpha_frac, reg=reg, warm=warm)
+    sol = _solve_plain(_prep(_fused_qp(f, A, Bm, c)), iters, mu0,
+                       alpha_frac, reg, warm,
+                       _fused_soft_rows(soft, lbx, ubx, lbu, ubu, f))
     return (sol, (A, Bm, c)) if return_lin else sol
+
+
+def _fused_soft_rows(soft, lbx, ubx, lbu, ubu, f: _Fused):
+    """Penalty rows of the fused modes: the single-row absolute boxes
+    (finite where their delta twins are) broadcast over the stages."""
+    Bsz, N = f.ubar.shape[0], f.ubar.shape[1]
+    return _soft_rows(soft, [b.unsqueeze(1).expand(Bsz, N, b.shape[-1])
+                             for b in (lbx, ubx, lbu, ubu)])
 
 
 def _check_fused_rti(x0, model):
@@ -585,17 +735,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of the built library."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # each entry ends its pointers with the warm start (valid + 8 fields)
-    # and the skip flag
-    lib.box_qp_ipm_solve.argtypes = ([ptr] * 35 + [i32] * 3 + [f32] * 3
+    # and the skip flag; the plain and fuse_lin entries then take the
+    # eight soft penalty rows (null: a hard solve)
+    lib.box_qp_ipm_solve.argtypes = ([ptr] * 43 + [i32] * 3 + [f32] * 3
                                      + [ptr])
     lib.box_qp_ipm_fused_cost.argtypes = ([ptr] * 39 + [i32] * 3
                                           + [f32] * 3 + [ptr])
-    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 38 + [i32] * 4
+    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 46 + [i32] * 4
                                          + [f32] * 14 + [i32, ptr])
     for fn in (lib.box_qp_ipm_solve, lib.box_qp_ipm_fused_cost,
                lib.box_qp_ipm_fused_lin):
         fn.restype = i32
-    lib.box_qp_ipm_workspace_floats.argtypes = [i32, i32]
+    lib.box_qp_ipm_workspace_floats.argtypes = [i32, i32, i32]
     lib.box_qp_ipm_workspace_floats.restype = ctypes.c_longlong
     lib.box_qp_ipm_lin_floats.argtypes = [i32]
     lib.box_qp_ipm_lin_floats.restype = ctypes.c_longlong
@@ -632,15 +783,17 @@ def _check_shapes(tensors: NamedTuple, shapes: dict, dev):
                              f" expected {shape} on {dev}")
 
 
-def _solve_outputs(lib, Bsz, N, nx, nu, mode, dev):
+def _solve_outputs(lib, Bsz, N, nx, nu, mode, dev, soft=False):
     """Fresh output tensors of one launch: dx, du, diag, the slacks/duals
-    (slx sux llx lux, slu suu llu luu) and the workspace."""
+    (slx sux llx lux, slu suu llu luu) and the workspace (which holds the
+    violation pairs of a soft solve)."""
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     return (empty(Bsz, N + 1, nx), empty(Bsz, N, nu), empty(Bsz, 6),
             [empty(Bsz, N, nx) for _ in range(4)],
             [empty(Bsz, N, nu) for _ in range(4)],
-            empty(Bsz, int(lib.box_qp_ipm_workspace_floats(N, mode))))
+            empty(Bsz, int(lib.box_qp_ipm_workspace_floats(N, mode,
+                                                           int(soft)))))
 
 
 def _warm_args(warm, Bsz, N, nx, nu, dev) -> list:
@@ -672,10 +825,26 @@ def _ptrs(ts) -> list:
     return [None if t is None else t.data_ptr() for t in ts]
 
 
-def _count(wrapper, warm):
+def _count(wrapper, warm, soft=None):
     wrapper.launches += 1
     if warm is not None:
         wrapper.warm_launches += 1
+    if soft is not None:
+        wrapper.soft_launches += 1
+
+
+def _soft_args(pens, Bsz, N, nx, nu, dev) -> list:
+    """The eight penalty rows (Z, z of lx, ux, lu, uu) of a launch,
+    shape-checked; eight Nones for a hard solve."""
+    if pens is None:
+        return [None] * 8
+    ts = [a for pair in pens for a in pair]
+    for i, t in enumerate(ts):
+        shape = (Bsz, N, nx if i < 4 else nu)
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"soft penalty row {i}: {tuple(t.shape)} on "
+                             f"{t.device}, expected {shape} on {dev}")
+    return ts
 
 
 def _solution(dx, du, diag, sx, su) -> QPSolution:
@@ -694,7 +863,7 @@ def _fused_shapes(Bsz, N, nx, nu):
 
 
 def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
-                  reg: float, warm, skip) -> QPSolution:
+                  reg: float, warm, skip, soft) -> QPSolution:
     p = _prep(data)
     Bsz, N, nx, nu = p.A.shape[0], p.A.shape[1], p.A.shape[-1], \
         p.Bm.shape[-1]
@@ -707,43 +876,49 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
         Qs=(Bsz, nx, nx), Qt=(Bsz, nx, nx), q=(Bsz, N + 1, nx),
         R=(Bsz, nu, nu), r=(Bsz, N, nu), lbx=(Bsz, N, nx), ubx=(Bsz, N, nx),
         lbu=(Bsz, N, nu), ubu=(Bsz, N, nu), dx0=(Bsz, nx)), dev)
+    pens = _soft_rows(soft, _qp_bounds(data))
     lib = _library()
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu, PLAIN,
-                                                dev)
+                                                dev, soft is not None)
     # held until the launch is enqueued
-    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), _skip_arg(skip, dev)]
+    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), _skip_arg(skip, dev),
+          *_soft_args(pens, Bsz, N, nx, nu, dev)]
     rc = lib.box_qp_ipm_solve(
         *_ptrs([*p, dx, du, diag, *sx, *su, work, *wa]),
         Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm")
-    _count(box_qp_solve, warm)
+    _count(box_qp_solve, warm, soft)
     return _solution(dx, du, diag, sx, su)
 
 
 def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
                  alpha_frac: float = 0.995, reg: float = 1e-6, warm=None,
-                 skip=None) -> QPSolution:
+                 skip=None, soft=None) -> QPSolution:
     """Batched box-QP IPM solve; the counterpart of `pallas_box_qp_solve`.
 
     `data` fields carry a leading batch axis (B, ...). Stage Hessians
     must be identical across stages 0..N-1 (Q[:, 0], R[:, 0] are used)
-    with a distinct terminal Q[:, N]; bounds may be +-inf. `warm` and
-    `skip` as in the module docstring. Tensors on a CUDA device run the
-    hand-written kernel (one launch; counted in `box_qp_solve.launches`);
-    tensors on the CPU run the plain twin.
+    with a distinct terminal Q[:, N]; bounds may be +-inf. `warm`, `skip`
+    and `soft` as in the module docstring. Tensors on a CUDA device run
+    the hand-written kernel (one launch; counted in
+    `box_qp_solve.launches`); tensors on the CPU run the plain twin.
     """
+    _check_soft_warm(soft, warm)
     dev = data.A.device
     if dev.type == "cuda":
-        return _solve_kernel(data, iters, mu0, alpha_frac, reg, warm, skip)
+        return _solve_kernel(data, iters, mu0, alpha_frac, reg, warm, skip,
+                             soft)
     if dev.type == "cpu":
         return box_qp_solve_plain(data, iters=iters, mu0=mu0,
-                                  alpha_frac=alpha_frac, reg=reg, warm=warm)
+                                  alpha_frac=alpha_frac, reg=reg, warm=warm,
+                                  soft=soft)
     raise ValueError(f"box_qp_solve runs on cuda or cpu tensors, "
                      f"not {dev.type}")
 
 
 box_qp_solve.launches = 0
 box_qp_solve.warm_launches = 0
+box_qp_solve.soft_launches = 0
 
 
 def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
@@ -817,10 +992,11 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
 
 batched_fused_tick.launches = 0
 batched_fused_tick.warm_launches = 0
+batched_fused_tick.soft_launches = 0  # the fuse_cost mode has no soft form
 
 
 def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
-                      mu0, alpha_frac, reg, return_lin, warm, skip):
+                      mu0, alpha_frac, reg, return_lin, warm, skip, pens):
     Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
         f.ubar.shape[-1]
     _check_dims(nx, nu)
@@ -836,7 +1012,8 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
                          f"expected ({Bsz}, {N}, >=25) on {dev}")
     lib = _library()
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
-                                                FUSE_LIN, dev)
+                                                FUSE_LIN, dev,
+                                                pens is not None)
     lin = (torch.empty((Bsz, int(lib.box_qp_ipm_lin_floats(N))),
                        dtype=torch.float32, device=dev)
            if return_lin else None)
@@ -847,13 +1024,14 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
         model[7], model[8], h, 0.5 * h, h / 6.0)]
     ins = [f.xbar, f.ubar, sp, f.x0, f.Qs, f.Qt, f.R, f.Rg, f.yrx, f.yru,
            f.yre, f.lbx, f.ubx, f.lbu, f.ubu]
-    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), _skip_arg(skip, dev)]
+    wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), _skip_arg(skip, dev),
+          *_soft_args(pens, Bsz, N, nx, nu, dev)]
     rc = lib.box_qp_ipm_fused_lin(
         *_ptrs([*ins, dx, du, diag, *sx, *su, lin, work, *wa]),
         Bsz, N, sp.shape[2], iters, mu0, alpha_frac, reg, *consts,
         num_steps, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_lin")
-    _count(fused_rti_solve, warm)
+    _count(fused_rti_solve, warm, pens)
     sol = _solution(dx, du, diag, sx, su)
     if not return_lin:
         return sol
@@ -886,23 +1064,21 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
     the linearization built). CUDA tensors run the kernel (one launch,
     counted in `fused_rti_solve.launches`); CPU tensors the plain twin.
     """
-    if soft is not None:
-        raise NotImplementedError(
-            "soft bounds are not ported yet; ROADMAP queue 1 item 10 and "
-            "queue 2 K4 (soft-bound kernel) port them")
+    _check_soft_warm(soft, warm)
     _check_fused_rti(x0, model)
     dev = x0.device
     if dev.type == "cuda":
         f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
                         lbx, ubx, lbu, ubu, R_grad)
-        return _fused_lin_kernel(stage_params, f, model, dt, num_steps,
-                                 iters, mu0, alpha_frac, reg, return_lin,
-                                 warm, skip)
+        return _fused_lin_kernel(
+            stage_params, f, model, dt, num_steps, iters, mu0, alpha_frac,
+            reg, return_lin, warm, skip,
+            _fused_soft_rows(soft, lbx, ubx, lbu, ubu, f))
     if dev.type == "cpu":
         return fused_rti_solve_plain(
             xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
             lbx, ubx, lbu, ubu, model, dt, num_steps=num_steps, iters=iters,
-            mu0=mu0, alpha_frac=alpha_frac, reg=reg, warm=warm,
+            mu0=mu0, alpha_frac=alpha_frac, reg=reg, warm=warm, soft=soft,
             R_grad=R_grad, return_lin=return_lin)
     raise ValueError(f"fused_rti_solve runs on cuda or cpu tensors, "
                      f"not {dev.type}")
@@ -910,3 +1086,4 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
 
 fused_rti_solve.launches = 0
 fused_rti_solve.warm_launches = 0
+fused_rti_solve.soft_launches = 0

@@ -1,8 +1,15 @@
 """Scenario batching of the RTI tick on one device.
 
-Port of `mpc_blaster_tpu/parallel/mesh.py::batched_rti_step` with two
-backends:
+Port of `mpc_blaster_tpu/parallel/mesh.py::batched_rti_step` with its
+three backends:
 
+  - "xla" (the default): the tick of `make_rti_step(ocp)` over the batch.
+    With the presets' `qp_backend="riccati"` that is `build_qp` for every
+    scenario at once and the Riccati IPM of `qp/ipm.py` on its leading
+    batch axes (eager PyTorch, no kernel of ours: launch-bound on the
+    card); a "pallas" solver makes it the "pallas" backend below. The
+    B=1 one-launch tick ("pallas_fused") has no batched form here: use
+    backend="pallas_fused";
   - "pallas": the QP assembly runs for every scenario at once
     (`torch.func.vmap` of `build_qp` with the `lin_backend` linearizer),
     then one launch of the box-QP IPM kernel solves the whole batch;
@@ -12,9 +19,8 @@ backends:
     launch of the fuse_cost kernel (`ops/box_qp_ipm.py::
     batched_fused_tick`).
 
-The general "xla" backend ports with ROADMAP queue 1 item 7 (it needs item
-5's IPM); multi-device sharding (`sharded_rti_step`, `sharded_sweep`) with
-item 13.
+Multi-device sharding (`sharded_rti_step`, `sharded_sweep`) ports with
+ROADMAP queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -25,10 +31,13 @@ from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
+from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
 from mpc_blaster_tpu_torch.sqp.rti import (RTIDiagnostics, RTIState,
-                                           _bound_violation, build_qp,
+                                           _bound_violation,
+                                           _check_backend, build_qp,
                                            make_linearizer, not_ported,
-                                           qp_hessian_R, solve_batched_qp)
+                                           qp_hessian_R,
+                                           solve_batched_qp)
 
 
 def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
@@ -36,13 +45,14 @@ def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
     """The RTI tick over a scenario batch.
 
     Returns step(spec, states, x0s) -> (u0s, states, diags); `spec` is
-    shared, states/x0s carry a leading batch axis. `backend="pallas"`
-    solves the host-built QPs with the box-QP IPM kernel,
-    `backend="pallas_fused"` runs the fuse_cost kernel; the JAX package's
-    default "xla" is refused.
+    shared, states/x0s carry a leading batch axis. `backend="xla"` runs
+    the tick of `make_rti_step(ocp)` over the batch (the module
+    docstring), `backend="pallas"` solves the host-built QPs with the
+    box-QP IPM kernel, `backend="pallas_fused"` runs the fuse_cost
+    kernel.
     """
     if backend == "xla":
-        raise not_ported(f"batched backend {backend!r}", "batched_xla")
+        return _batched_rti_step_xla(ocp, dtype=dtype, device=device)
     if backend == "pallas":
         return _batched_rti_step_pallas(ocp, dtype=dtype, device=device)
     if backend == "pallas_fused":
@@ -51,27 +61,53 @@ def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
     raise ValueError(f"unknown batched backend {backend!r}")
 
 
+def _batched_diag(spec, sol, new_states) -> RTIDiagnostics:
+    return RTIDiagnostics(
+        qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
+        step_norm_x=sol.dx.abs().amax((1, 2)),
+        step_norm_u=sol.du.abs().amax((1, 2)),
+        bound_viol=_bound_violation(spec, new_states))
+
+
+def _batched_rti_step_xla(ocp: cfg.OCPConfig, dtype=torch.float32,
+                          device=None):
+    """`make_rti_step(ocp)`'s tick over a scenario batch (the JAX package
+    vmaps it): the host-built QPs go to the solver's own backend."""
+    solver = ocp.solver
+    if solver.qp_backend == "pallas":
+        return _batched_rti_step_pallas(ocp, dtype=dtype, device=device)
+    _check_backend(solver)
+    if solver.qp_backend == "pallas_fused":
+        raise not_ported("backend='xla' with qp_backend='pallas_fused'",
+                         "batched_xla_fused")
+
+    def solve(qps):
+        return box_qp_solve(qps, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
+                            alpha_frac=solver.ipm_alpha_frac,
+                            reg=solver.ipm_reg, riccati=solver.riccati)
+    return _batched_rti_step_pallas(ocp, dtype=dtype, device=device,
+                                    solve=solve)
+
+
 def _batched_rti_step_pallas(ocp: cfg.OCPConfig, dtype=torch.float32,
-                             device=None):
+                             device=None, solve=None):
+    """`build_qp` for every scenario at once, then `solve` on the batch of
+    QPs (default: one launch of the box-QP IPM kernel)."""
     params = BlasterParams.from_config(ocp.model, dtype, device)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
     solver = ocp.solver
     lin = make_linearizer(ocp, params)
+    solve = solve or (lambda qps: solve_batched_qp(qps, solver))
 
     def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
         qps = vmap(lambda xb, ub, x: build_qp(
             spec, RTIState(xb, ub), x, F, params, linearizer=lin,
             solver=solver))(states.xbar, states.ubar, x0s)
-        sol = solve_batched_qp(qps, solver)
+        sol = solve(qps)
         new_states = RTIState(xbar=states.xbar + sol.dx,
                               ubar=states.ubar + sol.du)
-        diag = RTIDiagnostics(
-            qp_kkt_stat=sol.kkt_stat, qp_kkt_eq=sol.kkt_eq, qp_mu=sol.mu,
-            step_norm_x=sol.dx.abs().amax((1, 2)),
-            step_norm_u=sol.du.abs().amax((1, 2)),
-            bound_viol=_bound_violation(spec, new_states),
-        )
-        return new_states.ubar[:, 0], new_states, diag
+        return new_states.ubar[:, 0], new_states, _batched_diag(
+            spec, sol, new_states)
 
     return step
 

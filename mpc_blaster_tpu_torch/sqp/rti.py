@@ -13,11 +13,12 @@ Port of `mpc_blaster_tpu/sqp/rti.py`, the ticks of three QP backends:
     (`ops/box_qp_ipm.py::fused_rti_solve`), fed the static dynamics
     constants of `fused_dyn_statics`.
 
-Each runs cold (`rti_step`) or with slack/dual warm starts carried between
+Each runs cold (`rti_step`), with slack/dual warm starts carried between
 ticks (`rti_step_warm`, kernel K3 on the two kernel backends), optionally
 under the online divergence watchdog (`rti_step_warm_guarded`, the chain
-behind `config.deployed_solver("fastest")`). Everything else (the
-condensed backend, soft bounds, Jacobian reuse) raises
+behind `config.deployed_solver("fastest")`), or with soft state bounds
+(`rti_step_soft`: `qp/soft.py` on "riccati", kernel K4 on the two kernel
+backends). Everything else (the condensed backend, Jacobian reuse) raises
 `NotImplementedError` naming the ROADMAP item that ports it; the port
 never switches a backend by itself.
 """
@@ -37,15 +38,18 @@ from mpc_blaster_tpu_torch.qp.data import QPData
 from mpc_blaster_tpu_torch.qp.ipm import (IpmWarmStart, box_qp_solve,
                                           warm_start_from,
                                           warm_start_recenter)
+from mpc_blaster_tpu_torch.qp.soft import (SoftBounds, SoftQPSolution,
+                                           _violation, soft_box_qp_solve,
+                                           violations_from_primal)
 
 # What ports each option outside the slice (ROADMAP.md, queue 1 / 2).
 _TODO = {
     "condensed": "queue 1 item 12 (qp/condense.py)",
-    "soft": "queue 1 item 10 and queue 2 K4 (soft-bound kernel)",
     "online": "queue 1 item 8 (online POC re-linearization)",
     "jac_refresh": "queue 1 item 12 (Jacobian-reuse ticks)",
-    "batched_xla": "queue 1 item 7 (the general batched tick on the "
-                   "Riccati IPM)",
+    "batched_xla_fused": "queue 1 item 7 (the B=1 one-launch tick over a "
+                         "batch; backend='pallas_fused' is the batched "
+                         "fused tick)",
 }
 QP_BACKENDS = ("riccati", "pallas", "pallas_fused")
 
@@ -160,11 +164,13 @@ def _unbatch1(sol):
 
 def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
                     solver: cfg.SolverConfig, dyn_statics,
-                    warm: Optional[IpmWarmStart] = None, skip=None):
+                    warm: Optional[IpmWarmStart] = None, skip=None,
+                    soft=None):
     """One-launch RTI QP solve: linearization, cost gradients, delta bounds
     and dx0 are all assembled inside the IPM kernel from the iterate and
-    the raw spec tensors; `warm` blends a slack/dual warm start (K3).
-    Returns the delta-form solution."""
+    the raw spec tensors; `warm` blends a slack/dual warm start (K3),
+    `soft` (a `qp/soft.py::SoftBounds`) softens bounds (K4). Returns the
+    delta-form solution."""
     from mpc_blaster_tpu_torch.ops.box_qp_ipm import fused_rti_solve
     if dyn_statics is None:
         raise ValueError(
@@ -182,8 +188,8 @@ def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
         spec.lbx[None], spec.ubx[None], spec.lbu[None], spec.ubu[None],
         model=model, dt=dt, num_steps=nsteps, iters=solver.ipm_iters,
         mu0=solver.ipm_mu0, alpha_frac=solver.ipm_alpha_frac,
-        reg=max(solver.ipm_reg, 1e-6), warm=_batch1(warm), R_grad=Rg,
-        skip=skip)
+        reg=max(solver.ipm_reg, 1e-6), warm=_batch1(warm), soft=soft,
+        R_grad=Rg, skip=skip)
     return _unbatch1(sol)
 
 
@@ -238,7 +244,7 @@ def _check_backend(solver: cfg.SolverConfig):
 
 
 def solve_batched_qp(qp: QPData, solver: cfg.SolverConfig, warm=None,
-                     skip=None):
+                     skip=None, soft=None):
     """Solve a batch of QPs (leading axis) with the box-QP IPM kernel and
     the solver's IPM settings (the regularization floored at 1e-6, as the
     Pallas path always passes it)."""
@@ -248,7 +254,7 @@ def solve_batched_qp(qp: QPData, solver: cfg.SolverConfig, warm=None,
     return K.box_qp_solve(qp, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
                           alpha_frac=solver.ipm_alpha_frac,
                           reg=max(solver.ipm_reg, 1e-6), warm=warm,
-                          skip=skip)
+                          skip=skip, soft=soft)
 
 
 def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None,
@@ -425,9 +431,48 @@ def rti_step_warm_guarded(spec: OCPSpec, state: RTIState,
 
 
 def rti_step_soft(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
-                  params: BlasterParams, F, solver: cfg.SolverConfig, soft):
-    """RTI tick with soft (slacked) state bounds: not ported yet."""
-    raise not_ported("soft state bounds (rti_step_soft)", "soft")
+                  params: BlasterParams, F, solver: cfg.SolverConfig,
+                  soft: SoftBounds, linearizer=None, dyn_statics=None):
+    """RTI tick with soft (slacked) state bounds, the acados ns>0 analog.
+
+    Use where disturbances can push the state outside the hard box (the
+    simulation preset's position box is +-1.5 m): a hard QP is infeasible
+    there, the soft QP trades L1+L2-penalized violations. `soft` is a
+    `qp/soft.py::SoftBounds` in delta units (the penalties are
+    shift-invariant). Returns (u0, new_state, diag, SoftQPSolution).
+
+    "pallas_fused": one launch of the fuse_lin kernel with soft rows
+    (kernel K4; pass `dyn_statics`), violations from the absolute updated
+    iterate. "pallas": `build_qp`, one launch of the plain kernel with
+    soft rows, violations from the returned primal. Every other backend
+    solves with `qp/soft.py::soft_box_qp_solve` (the eager Riccati IPM).
+    """
+    if solver.qp_backend == "pallas_fused":
+        sol = _fused_qp_solve(spec, state, x0, solver, dyn_statics,
+                              soft=soft)
+        new_state, diag = _update(spec, state, sol)
+        # violations of the ABSOLUTE updated iterate: t = max(-sgn (v - b),
+        # 0) is the same in delta and absolute units
+        vx, vu = new_state.xbar[1:], new_state.ubar
+        res = SoftQPSolution(sol, *(
+            _violation(v, b[None], sgn, pen) for v, b, sgn, pen in (
+                (vx, spec.lbx, 1.0, soft.lx), (vx, spec.ubx, -1.0, soft.ux),
+                (vu, spec.lbu, 1.0, soft.lu), (vu, spec.ubu, -1.0, soft.uu))))
+        return new_state.ubar[0], new_state, diag, res
+    qp = build_qp(spec, state, x0, F, params, linearizer=linearizer,
+                  solver=solver)
+    if solver.qp_backend == "pallas":
+        # unbatched (N, w) penalty fields broadcast over the batch of one
+        sol = _unbatch1(solve_batched_qp(_batch1(qp), solver, soft=soft))
+        res = SoftQPSolution(sol, *violations_from_primal(qp, soft, sol.dx,
+                                                          sol.du))
+    else:
+        res = soft_box_qp_solve(qp, soft, iters=solver.ipm_iters,
+                                mu0=solver.ipm_mu0,
+                                alpha_frac=solver.ipm_alpha_frac,
+                                reg=solver.ipm_reg)
+    new_state, diag = _update(spec, state, res.sol)
+    return new_state.ubar[0], new_state, diag, res
 
 
 def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,

@@ -2,8 +2,10 @@
 preset with `qp_backend="pallas"`, frozen POC) against the JAX package's
 loop with Pallas in interpret mode, and on the presets' own default
 `"riccati"` against the JAX loop in float64; the numpy round trips of
-`convert.py`; that the port imports no JAX; and that options outside the
-slice are refused rather than silently switched.
+`convert.py`; that the port imports nothing of JAX or of the JAX package;
+that its own copy of the config matches the JAX package's field by field;
+and that options outside the slice are refused rather than silently
+switched.
 """
 import dataclasses
 import subprocess
@@ -105,31 +107,90 @@ PORT_MODULES = [
     "mpc_blaster_tpu_torch.poc.jet", "mpc_blaster_tpu_torch.poc.solver",
     "mpc_blaster_tpu_torch.ocp.spec", "mpc_blaster_tpu_torch.qp.data",
     "mpc_blaster_tpu_torch.qp.smallalg", "mpc_blaster_tpu_torch.qp.riccati",
-    "mpc_blaster_tpu_torch.qp.ipm",
+    "mpc_blaster_tpu_torch.qp.ipm", "mpc_blaster_tpu_torch.qp.soft",
     "mpc_blaster_tpu_torch.ops.box_qp_ipm", "mpc_blaster_tpu_torch.sqp.rti",
     "mpc_blaster_tpu_torch.sim.closedloop",
     "mpc_blaster_tpu_torch.parallel.mesh",
 ]
 
 
+def _imports_clean(modules):
+    """Import `modules` in a fresh interpreter; assert that no `jax` /
+    `jaxlib` module and nothing of the JAX package (`mpc_blaster_tpu` or
+    `mpc_blaster_tpu.*`) got loaded. The port's own
+    `mpc_blaster_tpu_torch*` modules do not count."""
+    code = ("import importlib, sys\n"
+            f"for m in {list(modules)!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+            "'mpc_blaster_tpu') or m.startswith(('jax.', 'jaxlib.', "
+            "'mpc_blaster_tpu.')))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+
+
 def test_port_imports_no_jax():
-    """Importing every port module leaves `jax` out of sys.modules, and
-    the module list above covers every file of the package."""
+    """Importing every port module and chip_smoke.py loads nothing of JAX
+    or of the JAX package, and the module list above covers every file of
+    the package."""
     found = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
         for p in (REPO / "mpc_blaster_tpu_torch").rglob("*.py"))
     subpackages = {m for m in found if (REPO / m.replace(".", "/")).is_dir()}
     assert set(found) - subpackages <= set(PORT_MODULES), found
-    code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib')))\n"
-            "assert not bad, bad\n"
-            "print('ok')\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+    _imports_clean(PORT_MODULES + ["chip_smoke"])
+
+
+@pytest.mark.parametrize("module", PORT_MODULES + ["chip_smoke"])
+def test_port_module_imports_nothing_of_jax(module):
+    """The same check for each module alone, so that no module passes only
+    because another one was imported first."""
+    _imports_clean([module])
+
+
+def _same_fields(a, b, where="config"):
+    """Two configs (of either package) equal field by field; numpy arrays
+    by value. The port's dataclasses are its own classes, so `==` between
+    the two packages' instances is always False."""
+    if dataclasses.is_dataclass(a):
+        assert dataclasses.is_dataclass(b), where
+        assert type(a).__name__ == type(b).__name__, where
+        fa, fb = dataclasses.fields(a), dataclasses.fields(b)
+        assert [f.name for f in fa] == [f.name for f in fb], where
+        for f in fa:
+            _same_fields(getattr(a, f.name), getattr(b, f.name),
+                         f"{where}.{f.name}")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
+
+
+def test_port_config_matches_jax_config():
+    """The port's own copy of `mpc_blaster_tpu/config.py`: every preset
+    (with the cost matrices it builds) and every `deployed_solver` profile
+    against the JAX package's, field by field, and the module constants."""
+    from mpc_blaster_tpu_torch import config as tcfg
+    assert sorted(tcfg.PRESETS) == sorted(cfg.PRESETS)
+    for name in cfg.PRESETS:
+        a, b = tcfg.get_preset(name), cfg.get_preset(name)
+        _same_fields(a, b, name)
+        for m in ("Q", "R", "Q_t"):
+            np.testing.assert_array_equal(getattr(a.ocp.cost, m)(),
+                                          getattr(b.ocp.cost, m)())
+        assert a.ocp.dt == b.ocp.dt
+    for profile in ("safe", "fast", "fastest"):
+        _same_fields(tcfg.deployed_solver(profile),
+                     cfg.deployed_solver(profile), profile)
+    with pytest.raises(ValueError, match="unknown deployment profile"):
+        tcfg.deployed_solver("turbo")
+    for k in ("NX", "NU", "NP", "NY", "IDX_P", "IDX_EUL", "IDX_V",
+              "IDX_OMEGA", "IDX_ALPHA", "IDX_POC"):
+        assert getattr(tcfg, k) == getattr(cfg, k), k
+    _same_fields(tcfg.SolverConfig(), cfg.SolverConfig(), "SolverConfig()")
 
 
 def _refused(fn):
@@ -185,7 +246,24 @@ def test_out_of_slice_options_refused():
     _refused(lambda: closed_loop(spec, ocp, x0, 1, jac_refresh=2))
     _refused(lambda: solve_qp_backend(None, dataclasses.replace(
         ocp.solver, qp_backend="condensed"), warm=object()))
-    _refused(lambda: rti_step_soft(spec, None, x0, None, None, ocp.solver,
-                                   soft=object()))
-    _refused(lambda: batched_rti_step(ocp))   # the JAX default, "xla"
-    _refused(lambda: batched_rti_step(ocp, backend="xla"))
+    # ported in the soft slice: the soft tick and the batched "xla" tick
+    # (the JAX default) run; tests/test_torch_soft.py holds them against
+    # the JAX package
+    from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams,
+                                                        blaster_ode)
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.qp.soft import SoftBounds
+    from mpc_blaster_tpu_torch.sqp.rti import init_rti_state
+    x_out = x0.clone()
+    x_out[0], x_out[2] = 2.4, 2.0
+    soft = SoftBounds.state_bounds(ocp.N, cfg.NX, cfg.NU, Zl=1e3, zl=1e2)
+    u0, _, diag, res = rti_step_soft(
+        spec, init_rti_state(ocp, x_out), x_out,
+        BlasterParams.from_config(ocp.model), discrete_dynamics(
+            blaster_ode, ocp.dt), ocp.solver, soft)
+    assert torch.isfinite(u0).all() and float(res.t_ux[0, 0]) > 0.5
+    for step in (batched_rti_step(ocp), batched_rti_step(ocp,
+                                                         backend="xla")):
+        u0s, _, _ = step(spec, init_rti_state(ocp, x0[None].repeat(2, 1)),
+                         x0[None].repeat(2, 1))
+        assert u0s.shape == (2, cfg.NU) and torch.isfinite(u0s).all()

@@ -3,7 +3,8 @@ the plain mode (`box_qp_solve`), the fuse_cost mode (`batched_fused_tick`)
 and the fuse_lin mode (`fused_rti_solve`), whose linearization prologue is
 also held pointwise against `dynamics/fastlin.py::fast_linearize`; and
 each mode's warm-start blend (K3) with its valid=0, NaN and skip
-semantics.
+semantics; and the soft-bound instantiations (K4) of the plain and
+fuse_lin modes, with the all-hard case against the hard kernel.
 
 Needs the card (marker `cuda`; skipped without one) and imports no JAX, so
 it also runs where only the port's dependencies are installed:
@@ -267,3 +268,71 @@ def test_warm_kernel_matches_plain_on_gpu(cuda_device, mode):
         a = kern(3, w, skip=torch.tensor(False, device=cuda_device))
         b = kern(3, w)
         assert torch.equal(a.du, b.du) and torch.equal(a.s_lu, b.s_lu)
+
+
+def _soft_calls(dev, mode):
+    """(kernel call, plain twin call, the QP) of one mode on the out-of-box
+    inputs: dx0 pushed 2.2 past the x box (plain, B=3) or x0[0] moved out
+    to 2.4 (fuse_lin, B=1); each call takes (iters, soft)."""
+    if mode == "plain":
+        qp = _blaster_qps(dev)
+        qp = qp._replace(dx0=qp.dx0.clone())
+        qp.dx0[:, 0] += 2.2
+        return (lambda it, s: K.box_qp_solve(qp, iters=it, soft=s),
+                lambda it, s: K.box_qp_solve_plain(qp, iters=it, soft=s), qp)
+    from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
+    ocp, spec, xbar, ubar, x0, args = _fused_inputs(dev, B=1)
+    x0 = x0.clone()
+    x0[0, 0] = 2.4
+    model, dt, nsteps = fused_dyn_statics(ocp)
+    fa = (xbar, ubar, spec.stage_params[None], x0, *args)
+    kw = dict(model=model, dt=dt, num_steps=nsteps)
+    P = BlasterParams.from_config(ocp.model, device=dev)
+    xp, A, Bm = fast_linearize(xbar, ubar, spec.stage_params, P, ocp.dt)
+    qp = _fused_qp((xbar, ubar, x0, args), A, Bm, xp - xbar[:, 1:])
+    return (lambda it, s: K.fused_rti_solve(*fa, iters=it, soft=s, **kw),
+            lambda it, s: K.fused_rti_solve_plain(*fa, iters=it, soft=s,
+                                                  **kw), qp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "fuse_lin"])
+def test_soft_kernel_matches_plain_on_gpu(cuda_device, mode):
+    """K4: an all-hard SoftBounds through the soft instantiation equals the
+    hard kernel after one iteration (bit for bit, or within 1e-6 relative
+    where nvcc contracts a multiply-add differently in the two
+    instantiations); soft position bounds (Zl=1e3, zl=1e2) after one
+    iteration pointwise against the twin (u0 atol 2e-3, dx/du atol 5e-3),
+    after 12 on the penalized objective (2e-3 relative + 1e-3); outputs are
+    fresh; launches and soft launches are counted."""
+    from mpc_blaster_tpu_torch.qp.soft import (SoftBounds, SoftPenalty,
+                                               soft_qp_objective)
+    kern, plain, qp = _soft_calls(cuda_device, mode)
+    N = qp.A.shape[1]
+    soft = SoftBounds.state_bounds(N, cfg.NX, cfg.NU, Zl=1e3, zl=1e2,
+                                   idx=(0, 1, 2), device=cuda_device)
+    hard = SoftBounds(*(SoftPenalty.hard((N, w), device=cuda_device)
+                        for w in (cfg.NX, cfg.NX, cfg.NU, cfg.NU)))
+    wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
+    n0, s0 = wrapper.launches, wrapper.soft_launches
+    a, b = kern(1, None), kern(1, hard)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.soft_launches) == (n0 + 2, s0 + 1)
+    for f in ("dx", "du", "s_lx", "lam_ux", "mu"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert torch.equal(x, y) or torch.allclose(x, y, rtol=1e-6,
+                                                   atol=0.0), f
+    c = kern(1, hard)
+    assert c.du.data_ptr() != b.du.data_ptr()     # fresh outputs
+    for iters in (1, 12):
+        sk, sp = kern(iters, soft), plain(iters, soft)
+        torch.cuda.synchronize()
+        assert torch.isfinite(sk.dx).all() and torch.isfinite(sk.du).all()
+        if iters == 1:
+            assert (sk.du[:, 0] - sp.du[:, 0]).abs().max().item() <= 2e-3
+            torch.testing.assert_close(sk.du, sp.du, rtol=0, atol=5e-3)
+            torch.testing.assert_close(sk.dx, sp.dx, rtol=0, atol=5e-3)
+            continue
+        ok = soft_qp_objective(qp, soft, sk.dx, sk.du)   # per problem
+        op = soft_qp_objective(qp, soft, sp.dx, sp.du)
+        assert ((ok - op).abs() <= 2e-3 * op.abs() + 1e-3).all(), (ok, op)

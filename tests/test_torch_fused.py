@@ -299,9 +299,10 @@ def test_fused_wrappers_run_plain_twins_on_cpu():
 
 def test_fused_refusals():
     """B != 1 on the one-launch tick, missing dynamics statics, families
-    other than "blaster" on the fused kernel, soft bounds, and Jacobian
-    reuse with the fused tick; the deployed profiles, "fastest" included,
-    are the JAX package's."""
+    other than "blaster" on the fused kernel, soft bounds with a warm
+    start, and Jacobian reuse with the fused tick; the deployed profiles,
+    "fastest" included, are the JAX package's (field by field: the port
+    keeps its own copy of the config classes)."""
     from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
     from mpc_blaster_tpu_torch.sim.closedloop import closed_loop
     ocp = _ocp()
@@ -324,12 +325,18 @@ def test_fused_refusals():
     with pytest.raises(ValueError, match="warm.valid"):
         K._warm_args(trti.IpmWarmStart.zeros(8, 17, 6), 1, 8, 17, 6,
                      x0.device)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K4"):
-        K.fused_rti_solve(*one, model=model, dt=dt, soft=object())
+    from mpc_blaster_tpu_torch.qp.soft import SoftBounds
+    soft = SoftBounds.state_bounds(ocp.N, 17, 6, Zl=1e3, zl=1e2)
+    with pytest.raises(ValueError, match="soft bounds do not support"):
+        K.fused_rti_solve(*one, model=model, dt=dt, soft=soft,
+                          warm=trti.IpmWarmStart(*(
+                              a[None] for a in trti.IpmWarmStart.zeros(
+                                  ocp.N, 17, 6))))
     with pytest.raises(ValueError, match="dyn_statics"):
         trti.rti_step(ts, _first(st), x0[0], BlasterParams.from_config(
             ocp.model), None, ocp.solver)
-    assert cfg.deployed_solver("fastest") == jcfg.deployed_solver("fastest")
+    assert dataclasses.asdict(cfg.deployed_solver("fastest")) == \
+        dataclasses.asdict(jcfg.deployed_solver("fastest"))
     for profile, iters in (("safe", 6), ("fast", 4)):
         sv = cfg.deployed_solver(profile)
         assert (sv.qp_backend, sv.lin_backend, sv.ipm_iters) == \

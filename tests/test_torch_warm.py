@@ -563,7 +563,8 @@ def test_fastest_closed_loop_matches_jax():
     pre = jcfg.simulation_preset()
     ocp = dataclasses.replace(pre.ocp, N=8, Tf=8 / 30.0,
                               solver=cfg.deployed_solver("fastest"))
-    assert ocp.solver == jcfg.deployed_solver("fastest")
+    assert dataclasses.asdict(ocp.solver) == \
+        dataclasses.asdict(jcfg.deployed_solver("fastest"))
     js = jbuild_spec(ocp, yref=pre.loop.yref,
                      stage_params=jpsp(pre, jnp.float32), dtype=jnp.float32)
     rj = jmcl(ocp, 6, warm_start=True)(js, jnp.asarray(pre.loop.x0,
