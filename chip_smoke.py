@@ -4,11 +4,14 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the box-QP IPM kernel (its plain, fuse_cost and fuse_lin modes,
-each with the warm-start blend K3, and the soft-bound instantiations K4 of
-the plain and fuse_lin modes) from `mpc_blaster_tpu_torch/csrc/` with
-nvcc, holds each mode, cold, warm and soft, against its plain PyTorch twin
-on the card (phases 2 and 2b), then drives the port's main paths, each
-with the launch counts set to 0 just before it and read just after:
+each with the warm-start blend K3, the soft-bound instantiations K4 of
+the plain and fuse_lin modes, the plain mode at 13x4 for the quad13 model
+and the fuse_lin mode with the "quad13" and "blaster_dist" prologues) from
+`mpc_blaster_tpu_torch/csrc/` with nvcc, holds each mode, cold, warm and
+soft, against its plain PyTorch twin on the card (phases 2, 2b and 2c,
+which also holds the long horizons N=120 and 240, kernel K7's shapes),
+then drives the port's main paths, each with the launch counts set to 0
+just before it and read just after:
 
   3. the batched RTI tick, backend "pallas" (N=20, B=1024, 10 ticks);
   4. the simulation preset's closed loop, backend "pallas" (N=60, frozen
@@ -35,7 +38,25 @@ with the launch counts set to 0 just before it and read just after:
      "pallas_fused" (one soft fuse_lin launch per tick) and "pallas" with
      the fused linearizer (one soft plain launch per tick);
  11. the batched "xla" tick (the Riccati IPM on the batch, eager PyTorch):
-     2 ticks at N=20, B=1024.
+     2 ticks at N=20, B=1024;
+ 12. figure-8 tracking (`sim/tasks.py::run_figure8`), "pallas_fused": the
+     simulation preset at N=60, 12 iterations, 120 ticks, held to
+     tests/golden/figure8_120.npz; and bench.py's fig8_rt6f configuration
+     (N=20, 6 iterations, 220 ticks), its settle error after tick 60;
+ 13. the offset-free loop (`sim/scenarios.py::offset_free_loop`) at
+     bench.py's configuration (the simulation preset at N=30, Tf 1 s,
+     "pallas_fused" at 6 iterations, wind (0.7, -0.5, 0.2), 250 ticks from
+     z=3): one fuse_lin "blaster_dist" launch per tick;
+ 14. the quad13 hover chain (`models/quad13.py`, N=20, 6 iterations, 60
+     ticks from z=1 to the hover at z=2 with the model's own RK4 plant)
+     under "pallas" (one 13x4 plain launch per tick) and "pallas_fused"
+     (one fuse_lin "quad13" launch per tick);
+ 15. long horizons: the simulation preset at N=120 and N=240 under
+     "pallas", 12 iterations, 20 ticks from the ground (the kernel has one
+     layout for every N, so the solver's streaming flags select nothing).
+
+Each phase's wall seconds and the running total are printed ("wall"
+lines).
 
 Every phase prints one line; any failure raises and the exit code is
 non-zero. Without a CUDA device it fails before printing any result; it
@@ -101,6 +122,24 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     JAX package's own float32 run of the same chain (its `qp/soft.py` on
     the CPU: SOFT_JAX) + 5e-2 m, back inside the +-1.5 m box if that run
     is, and the peak stage-1 violation within 0.05 m of that run's;
+  - the other models' instantiations (phase 2c) as the plain and fuse_lin
+    modes above, the prologues against `fast_linearize` of their family;
+    the long horizons (K7) as the plain mode above at N=120 and 240 (the
+    soft case at N=120 as the soft cases below, without the spread rule:
+    12 iterations meet the tolerance there, 24 do not converge it);
+  - figure-8: positions within 5e-2 m of figure8_120.npz (tests/
+    test_golden.py:43); fig8_rt6f's max xy error after tick 60 within the
+    JAX package's own float32 run of the same loop on the CPU (its Riccati
+    IPM at 6 iterations: FIG8_JAX) + 5e-2 m;
+  - the offset-free loop: settle error and wind-estimate error within the
+    JAX package's own float32 run (its Riccati IPM: OFFSET_FREE_JAX) + 5e-2
+    m;
+  - quad13: both backends reach the hover within the criterion of
+    tests/test_quad13.py::test_quad13_rti_converges_to_hover (|z - 2| <
+    0.05, unit quaternion within 1e-3, |v| < 0.05), and their first-tick
+    u0 agree within 5e-2 (tests/test_fused_tick.py:196);
+  - long horizons: positions within 5e-2 m of the JAX package's own
+    float32 "riccati" run (every fifth tick: LONG_JAX);
   - warm starts (K3): the blend itself pointwise (0 IPM iterations return
     the blended initial slacks and duals; rtol 1e-5 / atol 1e-6) on valid,
     invalid (valid=0) and NaN/+inf-poisoned problems; valid=0 problems
@@ -122,6 +161,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -129,12 +169,19 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden" / "simulation_poc_100.npz"
+GOLDEN_FIG8 = REPO / "tests" / "golden" / "figure8_120.npz"
 KERNEL_SOURCE = "mpc_blaster_tpu_torch/csrc/box_qp_ipm.cu"
 REPLACES = {"box_qp_ipm": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
             "box_qp_ipm_fuse_cost": "mpc_blaster_tpu/ops/pallas_ipm.py:1236",
             "box_qp_ipm_fuse_lin": "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
             "box_qp_ipm_warm": "mpc_blaster_tpu/ops/pallas_ipm.py:402",
-            "box_qp_ipm_soft": "mpc_blaster_tpu/ops/pallas_ipm.py:249"}
+            "box_qp_ipm_soft": "mpc_blaster_tpu/ops/pallas_ipm.py:249",
+            "box_qp_ipm_13x4": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
+            "box_qp_ipm_fuse_lin_quad13":
+                "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
+            "box_qp_ipm_fuse_lin_blaster_dist":
+                "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
+            "box_qp_ipm_long_horizon": "mpc_blaster_tpu/ops/pallas_ipm.py:293"}
 FULL_ITERS = 12   # the simulation preset's ipm_iters
 SAFE_ITERS = 6    # deployed_solver("safe")
 FASTEST_ITERS = 3  # deployed_solver("fastest")
@@ -151,6 +198,33 @@ ALT_BOUND_M = {"fastest": 0.0186 + 5e-2, "raw_watchdog": 0.0 + 5e-2}
 # test_chip_smoke_soft_loop_bounds_are_jax_run computes it)
 SOFT_JAX = {"final_dist_m": 0.0420, "inside_box": True,
             "peak_stage1_viol_m": 0.9805}
+# The JAX package's own float32 runs of phases 12-15 on the CPU, each
+# recomputed by a test: fig8_rt6f's loop on its Riccati IPM at 6
+# iterations (tests/test_torch_tasks.py::test_chip_smoke_fig8_bound_is_jax_run),
+# the offset-free loop on its Riccati IPM at 6 iterations
+# (tests/test_torch_scenarios.py::test_chip_smoke_offset_free_bounds_are_jax_run),
+# and the long-horizon loops' positions every fifth tick on its Riccati
+# IPM at 12 iterations (tests/test_torch_stream.py::
+# test_chip_smoke_long_horizon_positions_are_jax_run). BENCH_R05 holds the
+# round-5 bench rows (BENCH_r05.json, taken on a TPU v5e) printed beside
+# the port's numbers; they bound nothing.
+FIG8_JAX = {"settle_err_m": 0.0388}
+OFFSET_FREE_JAX = {"settle_err_m": 0.0053, "wind_est_err": 0.0}
+LONG_JAX = {
+    120: [[0.0, 0.0, 0.0], [-0.000126, 0.0, 0.140538],
+          [-0.001981, 1e-06, 0.307211], [-0.006096, 1e-06, 0.473889],
+          [-0.0116, 0.0, 0.640565]],
+    240: [[0.0, 0.0, 0.0], [-0.000124, 0.0, 0.140688],
+          [-0.001975, 1e-06, 0.307471], [-0.006086, 1e-06, 0.474142],
+          [-0.011584, 0.0, 0.640817]]}
+BENCH_R05 = {"fig8_rt6f_settle_err_m": 0.0387,
+             "fig8_cold12_settle_err_m": 0.0384,
+             "offsetfree_settle_err_m": 0.0053}
+LONG_TICKS = 20      # phase 15's ticks from the ground
+FIG8_TICKS = 120     # the figure-8 golden's length
+RT6F_TICKS = 220     # bench.py's fig8 rows
+OF_TICKS = 250       # bench.py's offset-free row
+Q13_TICKS = 60       # tests/test_quad13.py's hover test
 
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): float32 outside the
@@ -165,14 +239,28 @@ PEAK_BYTES = 3.35e12
 # value the algorithm needs is counted once, where it is first needed,
 # however often the kernel recomputes it.
 #
-# The BLASTER ODE (`ode_rows`) at one point: 150 for the values, 2 more for
-# tan's derivative factor 1 + tan^2; 233 for one tangent column (a product
-# of two dual numbers 3, with a constant 1, a quotient 3, a trig 1: its
-# cosine or sine is the value part's). RK4 (`rk4_rows`) adds 13 per state
-# and per column. The value part runs once per node, the tangent part once
-# per (node, column) pair.
-RK4_VALUE = 4 * (150 + 2) + 13 * 17
-RK4_TANGENT = 4 * 233 + 13 * 17
+# The rows-form ODE of a family at one point (`family_rows`), counted as
+# FLOPs for the values (once per node) and per tangent column:
+#   blaster: 150 for the values, 2 more for tan's derivative factor
+#     1 + tan^2; 233 per tangent column (a product of two dual numbers 3,
+#     with a constant 1, a quotient 3, a trig 1: its cosine or sine is the
+#     value part's);
+#   blaster_dist: blaster's and the six disturbance adds (values only);
+#   quad13 (`quad13_rows`): 90 for the values (the norm 8, four divisions,
+#     the thrust column 13, q_dot 24, the moments 12, Euler's equation
+#     21); 159 per tangent column (sqrt's derivative 2, the quotients 3
+#     each).
+# RK4 (`rk4_rows`) adds 13 per state for the values and per column.
+ODE_FLOPS = {"blaster": (150 + 2, 233), "blaster_dist": (150 + 2 + 6, 233),
+             "quad13": (90, 159)}
+
+
+def rk4_flops(family: str, nx: int) -> tuple:
+    """(value FLOPs per node, tangent FLOPs per column) of one RK4 step."""
+    value, tangent = ODE_FLOPS[family]
+    return 4 * value + 13 * nx, 4 * tangent + 13 * nx
+
+
 # Per bound entry (one side of a row) and IPM iteration: the barrier weight
 # and its pair cap 3, the slack residual 2, the predictor's gradient term 2,
 # directions 6 (s*lam from the complementarity sum), step ratios 6 and
@@ -192,24 +280,40 @@ SOFT_ITER = 6 + 1 + 6 + 9 + 6 + 6 + 4 + 9 + 10 + 8 + 7 + 8
 ENTRY_INIT, SOFT_INIT = 10 + 2, 5 + 8
 
 
+def chol_flops(nu: int) -> int:
+    """FLOPs of the kernel's equilibrated nu x nu Cholesky inverse
+    (`chol_inverse`): the scaling 2 nu, the factor, the inverse of L and
+    the product L^-T L^-1 with the unscaling, each value once."""
+    fac = sum(5 + 2 * j + (nu - 1 - j) * (3 + 2 * j) for j in range(nu))
+    inv = sum(1 + sum(2 + 2 * (i - j - 1) for i in range(j + 1, nu))
+              for j in range(nu))
+    out = sum(2 * (nu - max(i, j)) + 1 for i in range(nu) for j in range(nu))
+    return 2 * nu + fac + inv + out
+
+
 def launch_work(mode: str, N: int, B: int, iters: int, soft_rows: int = 0,
-                warm: bool = False, nsteps: int = 1) -> tuple:
+                warm: bool = False, nsteps: int = 1, nx: int = 17,
+                nu: int = 6, family: str = "blaster") -> tuple:
     """(FLOPs, bytes) of one box-QP IPM launch, counted from its shapes.
 
     FLOPs: per problem, what the solve needs (the counts above): every
     matrix product at 2 FLOPs per multiply-add (the factorization's P'A,
     P'B, B'PB, B'PA, A'PA, Hux'Z and Hinv'Hux, the two sweeps' and the KKT
     pass's matrix-vector products; the right-hand side reuses the KKT
-    pass's Q x + q and R u + r), the 6x6 Cholesky inverse at 500, the
-    elementwise terms of the bound rows, and the FUSE_LIN prologue's RK4.
-    `soft_rows` counts the soft entries of one problem. Every bound of the
-    main path is finite and every iteration runs, so the count does not
-    depend on the data. Bytes: each input read once and each output written
-    once (float32); the workspace is scratch and not counted."""
-    nx, nu, n = 17, 6, N
+    pass's Q x + q and R u + r), the nu x nu Cholesky inverse
+    (`chol_flops`), the elementwise terms of the bound rows, and the
+    FUSE_LIN prologue's RK4 of the family's ODE (its value part once per
+    node, its tangent part once per (node, column) pair). `soft_rows`
+    counts the soft entries of one problem. Every bound of the main path
+    is finite and every iteration runs, so the count does not depend on
+    the data. Bytes: each input read once and each output written once
+    (float32; the FUSE_LIN stage parameters at the family's width); the
+    workspace is scratch and not counted."""
+    from mpc_blaster_tpu_torch.ops.box_qp_ipm import FAMILY_NP
+    n = N
     e = 2 * (nx + nu)                          # bound entries per stage
     fac = (4 * nx ** 3 + 6 * nx ** 2 * nu + 4 * nu ** 2 * nx + 4 * nx ** 2
-           + nu ** 2 + 2 * nu + nx + 500)
+           + nu ** 2 + 2 * nu + nx + chol_flops(nu))
     sweep = 6 * nx ** 2 + 8 * nx * nu + 2 * nu ** 2 + 5 * nx + 2 * nu
     kkt = 6 * nx ** 2 + 4 * nx * nu + 2 * nu ** 2 + 5 * nx + 3 * nu
     per_it = n * (fac + 2 * sweep + kkt + ENTRY_ITER * e) \
@@ -220,11 +324,12 @@ def launch_work(mode: str, N: int, B: int, iters: int, soft_rows: int = 0,
     if mode != "plain":                        # cost and bound assembly
         flops += 2 * (n + 1) * nx ** 2 + 2 * n * nu ** 2 + 2 * n * (nx + nu)
     if mode == "fuse_lin":                     # RK4 on duals + the defect
-        flops += n * nsteps * (RK4_VALUE + (nx + nu) * RK4_TANGENT) + n * nx
+        value, tangent = rk4_flops(family, nx)
+        flops += n * nsteps * (value + (nx + nu) * tangent) + n * nx
     floats_in = 2 * nx * nx + nu * nu + nx     # Qs, Qt, R, x0 / dx0
     if mode == "fuse_lin":
-        floats_in += (n + 1) * nx + n * nu + n * 25 + nu * nu \
-            + n * (nx + nu) + nx + 2 * (nx + nu)
+        floats_in += (n + 1) * nx + n * nu + n * FAMILY_NP[family] \
+            + nu * nu + n * (nx + nu) + nx + 2 * (nx + nu)
     else:
         floats_in += n * (nx * nx + nx * nu + nx)     # A, B, c
         if mode == "plain":
@@ -280,6 +385,11 @@ WRAPPERS = ("box_qp_solve", "batched_fused_tick", "fused_rti_solve")
 KERNEL_WRAPPERS: dict = {}   # the wrappers that hold the launch counts
 
 
+def soft_launches(fn) -> int:
+    """A wrapper's launches of soft-bound instantiations (kernel K4)."""
+    return sum(v for k, v in fn.by_instance.items() if k.endswith(" soft"))
+
+
 def counts() -> dict:
     """Launches per wrapper, and ("<wrapper>.warm", "<wrapper>.soft") those
     with a warm start (kernel K3) and with soft bounds (kernel K4)."""
@@ -287,7 +397,7 @@ def counts() -> dict:
     for w, fn in KERNEL_WRAPPERS.items():
         out[w] = fn.launches
         out[w + ".warm"] = fn.warm_launches
-        out[w + ".soft"] = fn.soft_launches
+        out[w + ".soft"] = soft_launches(fn)
     return out
 
 
@@ -295,7 +405,25 @@ def reset_counts():
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
         fn.warm_launches = 0
-        fn.soft_launches = 0
+        fn.by_instance = {}
+
+
+def instance_counts() -> dict:
+    """Launches per wrapper and instantiation ("<wrapper>[<instance>]",
+    e.g. "fused_rti_solve[13x4 quad13]"), the non-zero ones."""
+    return {f"{w}[{k}]": v for w, fn in KERNEL_WRAPPERS.items()
+            for k, v in fn.by_instance.items() if v}
+
+
+START = time.perf_counter()
+_LAST = [START]
+
+
+def wall(phase: str):
+    """Log the wall seconds since the previous mark and the total."""
+    now = time.perf_counter()
+    log("wall", step=phase, s=now - _LAST[0], total_s=now - START)
+    _LAST[0] = now
 
 
 @contextlib.contextmanager
@@ -392,9 +520,12 @@ def objective_check(name, qp, dk, uk, dp, up, row, key, batch_rule=False):
           within=within)
 
 
-def compare_kernel(name, qp, K):
-    """Plain-mode kernel vs plain twin on one QP batch; the report row."""
-    row = {"case": name, "B": qp.A.shape[0], "N": qp.A.shape[1]}
+def compare_kernel(name, qp, K, time_iters=(FULL_ITERS,)):
+    """Plain-mode kernel vs plain twin on one QP batch; the report row
+    (times at FULL_ITERS as kernel_ms / plain_ms, at other `time_iters`
+    with an "_<n>it" suffix)."""
+    row = {"case": name, "B": qp.A.shape[0], "N": qp.A.shape[1],
+           "nx": qp.A.shape[-1], "nu": qp.B.shape[-1]}
     for iters in (1, FULL_ITERS):
         n0 = K.box_qp_solve.launches
         sk = K.box_qp_solve(qp, iters=iters)
@@ -416,20 +547,29 @@ def compare_kernel(name, qp, K):
         objective_check(name, qp, sk.dx, sk.du, sp.dx, sp.du, row,
                         "obj_rel_err")
         kkt_eq_checks(name, sk.kkt_eq, sp.kkt_eq, row, cap=5e-2)
-    row["kernel_ms"] = cuda_ms(lambda: K.box_qp_solve(qp, iters=FULL_ITERS),
-                               reps=10)
-    row["plain_ms"] = cuda_ms(
-        lambda: K.box_qp_solve_plain(qp, iters=FULL_ITERS), reps=1)
+    for it in time_iters:
+        sfx = "" if it == FULL_ITERS else f"_{it}it"
+        row["kernel_ms" + sfx] = cuda_ms(
+            lambda: K.box_qp_solve(qp, iters=it), reps=10)
+        row["plain_ms" + sfx] = cuda_ms(
+            lambda: K.box_qp_solve_plain(qp, iters=it), reps=1)
     return row
 
 
-def fused_case(N: int, B: int, dev, seed: int):
+# Non-zero disturbance estimates (force, torque accelerations) of the
+# "blaster_dist" cases: the offset-free loop's wind and a small torque.
+DIST_ROWS = (0.7, -0.5, 0.2, 0.05, -0.03, 0.01)
+
+
+def fused_case(N: int, B: int, dev, seed: int, family: str = "blaster"):
     """A perturbed hover iterate at N, B with the fused modes' spec
     arguments (shared rows broadcast over the batch) and the plain
     linearization of it: (ocp, stage params, xbar, ubar, x0, args, lin).
     The perturbation keeps the iterate inside the boxes, as the main
     path's iterates are: states +-0.02 around x0 (every node its own
-    linearization point), rotor thrusts +-0.5 N around hover."""
+    linearization point), rotor thrusts +-0.5 N around hover. The
+    "blaster_dist" family's stage parameters carry DIST_ROWS in rows
+    25-30."""
     from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
     from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
     from mpc_blaster_tpu_torch.ocp.spec import build_spec
@@ -453,9 +593,65 @@ def fused_case(N: int, B: int, dev, seed: int):
             bc(spec.yref_x), bc(spec.yref_u), bc(spec.yref_e),
             bc(spec.lbx), bc(spec.ubx), bc(spec.lbu), bc(spec.ubu))
     P = BlasterParams.from_config(ocp.model, device=dev)
-    xp, A, Bm = fast_linearize(xbar, ubar, spec.stage_params, P, ocp.dt)
-    return ocp, bc(spec.stage_params), xbar, ubar, x0, args, \
-        (A, Bm, xp - xbar[:, 1:])
+    sp = spec.stage_params
+    if family == "blaster_dist":
+        d = torch.tensor(DIST_ROWS, dtype=torch.float32, device=dev)
+        sp = torch.cat([sp, d.expand(N, 6)], -1)
+    xp, A, Bm = fast_linearize(xbar, ubar, sp, P, ocp.dt, family=family)
+    return ocp, bc(sp), xbar, ubar, x0, args, (A, Bm, xp - xbar[:, 1:])
+
+
+def quad13_start(N: int, B: int, dev, rng):
+    """The quad13 model at N: (config, spec, x0, hover iterate), x0 at
+    hover z=1 spread +-0.4 m in position."""
+    from mpc_blaster_tpu_torch.models import quad13 as Q
+    c = Q.Quad13Config(N=N, Tf=N / 30.0)
+    spec = Q.build_quad13_spec(c, device=dev)
+    x0 = Q.hover_state(1.0, device=dev).repeat(B, 1)
+    x0[:, 0:3] += torch.as_tensor(rng.uniform(-0.4, 0.4, (B, 3)),
+                                  dtype=torch.float32, device=dev)
+    return c, spec, x0, Q.init_quad13_rti_state(c, x0)
+
+
+def quad13_fused_case(N: int, B: int, dev, seed: int):
+    """fused_case for the quad13 model (`quad13_start`), the iterate
+    perturbed as there: (statics, stage params, xbar, ubar, x0, args,
+    lin)."""
+    from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
+    from mpc_blaster_tpu_torch.models import quad13 as Q
+    rng = np.random.default_rng(seed)
+    c, spec, x0, st = quad13_start(N, B, dev, rng)
+    xbar = st.xbar + torch.as_tensor(
+        rng.uniform(-0.02, 0.02, st.xbar.shape), dtype=torch.float32,
+        device=dev)
+    ubar = st.ubar + torch.as_tensor(
+        rng.uniform(-0.5, 0.5, st.ubar.shape), dtype=torch.float32,
+        device=dev)
+
+    def bc(a):
+        return a.expand(B, *a.shape)
+    args = (bc(spec.dt * spec.Q), bc(spec.Q_t), bc(spec.dt * spec.R),
+            bc(spec.yref_x), bc(spec.yref_u), bc(spec.yref_e),
+            bc(spec.lbx), bc(spec.ubx), bc(spec.lbu), bc(spec.ubu))
+    xp, A, Bm = fast_linearize(xbar, ubar, spec.stage_params,
+                               Q._params(c, device=dev), c.dt,
+                               family="quad13")
+    return Q.quad13_dyn_statics(c), bc(spec.stage_params), xbar, ubar, \
+        x0, args, (A, Bm, xp - xbar[:, 1:])
+
+
+def quad13_qps(N: int, B: int, dev):
+    """Linearized quad13 QPs at the hover iterate (z=1, x0 spread +-0.4
+    m), built by the port on the card."""
+    from torch.func import vmap
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.models import quad13 as Q
+    from mpc_blaster_tpu_torch.sqp.rti import RTIState, build_qp
+    c, spec, x0, st = quad13_start(N, B, dev, np.random.default_rng(N))
+    F = discrete_dynamics(Q.quad13_ode, c.dt)
+    P = Q._params(c, device=dev)
+    return vmap(lambda xb, ub, x: build_qp(spec, RTIState(xb, ub), x, F, P))(
+        st.xbar, st.ubar, x0)
 
 
 def fused_checks(name, K, qp, new_k, new_p, base, iters, row, dk=None,
@@ -514,15 +710,22 @@ def compare_fuse_cost(name, N, B, dev, K):
     return row
 
 
-def compare_fuse_lin(name, N, dev, K):
-    """fuse_lin kernel vs `fused_rti_solve_plain` (and its prologue vs
-    `fast_linearize`); the report row."""
+def compare_fuse_lin(name, N, dev, K, family="blaster"):
+    """fuse_lin kernel with the family's prologue vs
+    `fused_rti_solve_plain` (and its prologue vs `fast_linearize` of the
+    family); the report row."""
     from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
-    ocp, sp, xbar, ubar, x0, args, (A, Bm, c) = fused_case(N, 1, dev, N + 2)
-    model, dt, ns = fused_dyn_statics(ocp)
+    if family == "quad13":
+        statics, sp, xbar, ubar, x0, args, (A, Bm, c) = quad13_fused_case(
+            N, 1, dev, N + 2)
+    else:
+        ocp, sp, xbar, ubar, x0, args, (A, Bm, c) = fused_case(
+            N, 1, dev, N + 2, family)
+        statics = fused_dyn_statics(ocp, family=family)
+    model, dt, ns = statics
     kw = dict(model=model, dt=dt, num_steps=ns)
     qp = K._fused_qp(K._fused_prep(xbar, ubar, x0, *args, None), A, Bm, c)
-    row = {"case": name, "B": 1, "N": N}
+    row = {"case": name, "B": 1, "N": N, "family": family}
     for iters in (1, SAFE_ITERS, FULL_ITERS):
         n0 = K.fused_rti_solve.launches
         sk, lin = K.fused_rti_solve(xbar, ubar, sp, x0, *args, iters=iters,
@@ -836,10 +1039,10 @@ def compare_soft(name, mode, N, B, dev, K, spread_rule=False):
     row = {"case": name, "mode": mode, "B": B, "N": N}
     wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
     # the sentinel: all-hard through the soft instantiation = hard kernel
-    n0 = wrapper.soft_launches
+    n0 = soft_launches(wrapper)
     a, b = kern(1, None), kern(1, hard)
     torch.cuda.synchronize()
-    check(wrapper.soft_launches == n0 + 1, "soft launch counted", case=name)
+    check(soft_launches(wrapper) == n0 + 1, "soft launch counted", case=name)
     fields = ("dx", "du", "s_lx", "s_ux", "s_lu", "s_uu", "lam_lx",
               "lam_ux", "lam_lu", "lam_uu", "kkt_eq", "kkt_stat", "mu")
     exact = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
@@ -961,6 +1164,39 @@ def run_batched_ticks(step, spec, x0s, n_ticks, ocp):
     return u0s, states, diag, e0.elapsed_time(e1) / n_ticks
 
 
+def timed(fn, n_ticks):
+    """(fn(), ms per tick): CUDA events around a loop of n_ticks."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return res, e0.elapsed_time(e1) / n_ticks
+
+
+def quad13_hover_loop(step, dev):
+    """Q13_TICKS of a quad13 RTI tick and the model's RK4 plant from
+    hover_state(1.0) (tests/test_quad13.py's loop): (final state, first
+    tick's u0)."""
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.models import quad13 as Q
+    qc = Q.Quad13Config(N=20)
+    spec = Q.build_quad13_spec(qc, device=dev)
+    P = Q._params(qc, device=dev)
+    F = discrete_dynamics(Q.quad13_ode, qc.dt)
+    x = Q.hover_state(1.0, device=dev)
+    st = Q.init_quad13_rti_state(qc, x)
+    p0 = torch.zeros(1, device=dev)
+    first = None
+    for _ in range(Q13_TICKS):
+        u0, st, _ = step(spec, st, x)
+        first = u0 if first is None else first
+        x = F(x, u0, p0, P)
+    return x, first
+
+
 def timed_closed_loop(pre, n_ticks, dev):
     from mpc_blaster_tpu_torch.sim.closedloop import run_preset
     torch.cuda.synchronize()
@@ -1066,6 +1302,7 @@ def run(dev: torch.device) -> int:
     log("build", library=str(so.relative_to(REPO)), nvcc_s=secs,
         ptxas=ptxas)
 
+    wall('1 build')
     # ---- phase 2: each kernel mode vs its plain twin on the card ----
     rows = []
     for name, N, B in (("n8_b3", 8, 3), ("n20_b1024", 20, BATCH),
@@ -1083,7 +1320,7 @@ def run(dev: torch.device) -> int:
     for r in cost_rows:
         log("fuse_cost_vs_plain", **r)
     lin_rows = [compare_fuse_lin(n, N, dev, K)
-                for n, N in (("n8_b1", 8), ("n60_b1", 60))]
+                for n, N in (("n8_b1", 8), ("n20_b1", 20), ("n60_b1", 60))]
     for r in lin_rows:
         log("fuse_lin_vs_plain", **r)
     warm_rows = [compare_warm(n, mode, N, B, dev, K) for n, mode, N, B in (
@@ -1095,6 +1332,7 @@ def run(dev: torch.device) -> int:
         ("fuse_lin_n60_b1", "fuse_lin", 60, 1))]
     for r in warm_rows:
         log("warm_vs_plain", **r)
+    wall('2 kernel vs twin')
     # ---- phase 2b: the soft-bound kernel (K4) vs its plain twin ----
     soft_rows = [compare_soft(n, mode, N, B, dev, K, spread_rule=sr)
                  for n, mode, N, B, sr in (
@@ -1105,6 +1343,34 @@ def run(dev: torch.device) -> int:
                      ("fuse_lin_n60_b1", "fuse_lin", 60, 1, False))]
     for r in soft_rows:
         log("soft_vs_plain", **r)
+    wall("2b soft kernel vs twin")
+    # ---- phase 2c: the other models' instantiations and long horizons ----
+    q13_rows = [compare_kernel(n, quad13_qps(N, B, dev), K,
+                               time_iters=(SAFE_ITERS, FULL_ITERS))
+                for n, N, B in (("q13_n8_b3", 8, 3),
+                                ("q13_n20_b1024", 20, BATCH),
+                                ("q13_n20_b1", 20, 1))]
+    for r in q13_rows:
+        log("kernel_13x4_vs_plain", **r)
+    fam_rows = {fam: [compare_fuse_lin(f"{fam}_n{N}_b1", N, dev, K, fam)
+                      for N in Ns]
+                for fam, Ns in (("quad13", (8, 20)),
+                                ("blaster_dist", (8, 30)))}
+    for r in fam_rows["quad13"] + fam_rows["blaster_dist"]:
+        log("fuse_lin_family_vs_plain", **r)
+    # K7: the plain kernel at long horizons (one layout for every N)
+    long_rows = [compare_kernel(n, blaster_qps(N, B, dev), K)
+                 for n, N, B in (("n120_b1", 120, 1), ("n240_b1", 240, 1),
+                                 ("n240_b256", 240, 256))]
+    for r in long_rows:
+        log("long_horizon_vs_plain", **r)
+    # 24 iterations do not converge the out-of-box soft QP at N=120 (the
+    # twin's mu 363, measured on an H100), so the spread rule's converged
+    # check does not apply; 12 iterations meet the plain tolerance (0.35
+    # of it, same run)
+    long_soft = compare_soft("plain_n120_b1", "plain", 120, 1, dev, K)
+    log("long_horizon_soft_vs_plain", **long_soft)
+    wall("2c other models and long horizons vs twin")
 
     # ---- the main paths, each counted on its own ----
     pre20 = simulation_ocp(20)
@@ -1113,12 +1379,18 @@ def run(dev: torch.device) -> int:
     step = batched_rti_step(pre20.ocp, backend="pallas", device=dev)
     pre60 = simulation_ocp(60)
 
-    def counted(expected: dict, what: str, fn):
+    def counted(expected: dict, what: str, fn, instances=None):
+        """Run fn with the counts set to 0; check the launches per
+        wrapper (and, where given, per instantiation)."""
         reset_counts()
         out = fn()
         got = counts()
         want = {k: expected.get(k, 0) for k in got}
         check(got == want, f"{what} launches", got=got, want=want)
+        if instances is not None:
+            inst = instance_counts()
+            check(inst == instances, f"{what} launches per instantiation",
+                  got=inst, want=instances)
         return out, got
 
     # phase 3: 10 chained batched ticks, N=20, B=1024, backend "pallas"
@@ -1128,6 +1400,7 @@ def run(dev: torch.device) -> int:
     check(bool(torch.isfinite(u0s).all() & torch.isfinite(states.xbar).all()
                & torch.isfinite(diag.qp_kkt_eq).all()), "batched finite")
 
+    wall('3 batched tick')
     # phase 4: the simulation preset's closed loop, N=60, backend "pallas"
     (res, loop_ms), c4 = counted(
         {"box_qp_solve": LOOP_TICKS}, "closed loop",
@@ -1158,6 +1431,7 @@ def run(dev: torch.device) -> int:
     check(bool(torch.isfinite(res_p.xs).all()), "plain closed-loop finite")
     log("closed_loop_plain", N=60, ticks=3, ms_per_tick=plain_loop_ms)
 
+    wall('4 closed loop')
     # phase 5: the batched fused tick, N=20, B=1024, at 6 and 12 iterations
     fused_launches = 0
     fused_tick_ms = {}
@@ -1187,6 +1461,7 @@ def run(dev: torch.device) -> int:
         log("batched_fused_tick_plain", N=20, B=BATCH, ticks=2, iters=iters,
             ms_per_tick=pms, solves_per_s=BATCH * 1000.0 / pms)
 
+    wall('5 batched fused tick')
     # phase 6: the fused closed loop, N=60: 12 iterations (held to the
     # golden) and deployed_solver("safe")
     lin_launches = 0
@@ -1214,6 +1489,7 @@ def run(dev: torch.device) -> int:
     log("fused_closed_loop_plain", N=60, ticks=2, iters=FULL_ITERS,
         ms_per_tick=pms)
 
+    wall('6 fused closed loops')
     # phase 7: deployed_solver("fastest"), N=60, 100 ticks, the guarded
     # warm chain: the tick and the watchdog's redo, two warm launches
     from mpc_blaster_tpu_torch.sim.closedloop import preset_stage_params
@@ -1239,6 +1515,7 @@ def run(dev: torch.device) -> int:
         kkt_eq_max=res.kkt_eq.max().item())
     warm_launches = c7["fused_rti_solve.warm"]
 
+    wall('7 fastest loop')
     # phase 8: the altitude-step stress, N=20, 200 ticks from z=0.5
     pre20f = simulation_ocp(20)
     spec20f = build_spec(pre20f.ocp, yref=pre20f.loop.yref, device=dev)
@@ -1271,6 +1548,7 @@ def run(dev: torch.device) -> int:
             watchdog_trips=trips(), final_z=float(z[-1]),
             kkt_eq_max=res.kkt_eq.max().item())
 
+    wall('8 altitude step')
     # phase 9: the presets' default qp_backend="riccati", eager PyTorch on
     # the card (no kernel of ours), 3 ticks at N=60
     pre_r = cfg.simulation_preset()
@@ -1282,6 +1560,7 @@ def run(dev: torch.device) -> int:
         qp_backend=pre_r.ocp.solver.qp_backend, ms_per_tick=ms,
         final_z=float(res.xs[-1, 2]))
 
+    wall('9 riccati loop')
     # phase 10: the soft closed loop, N=60, 100 ticks from outside the box,
     # "pallas_fused" and "pallas" (fused linearizer), 6 IPM iterations
     from mpc_blaster_tpu_torch.sqp import rti as R
@@ -1332,6 +1611,7 @@ def run(dev: torch.device) -> int:
             final_x=xs[-1, :3].tolist(), jax=SOFT_JAX,
             hard_tick_kkt_eq=float(dg_h.qp_kkt_eq))
 
+    wall('10 soft loops')
     # phase 11: the batched "xla" tick (the Riccati IPM on the batch, eager
     # PyTorch, no kernel of ours), N=20, B=1024, 2 ticks
     pre_x = cfg.simulation_preset()
@@ -1348,6 +1628,139 @@ def run(dev: torch.device) -> int:
         solves_per_s=BATCH * 1000.0 / xla_ms,
         kkt_eq_max=diag.qp_kkt_eq.max().item())
 
+    wall("11 batched xla tick")
+
+    # phase 12: figure-8 tracking, "pallas_fused": the simulation preset at
+    # N=60, 12 iterations, held to the golden; bench.py's fig8_rt6f
+    from mpc_blaster_tpu_torch.sim.tasks import run_figure8
+    base = cfg.simulation_preset().ocp.solver
+    fig8 = {}
+    for name, pre_8, n, iters in (
+            ("golden_12it", simulation_ocp(60, solver=dataclasses.replace(
+                base, qp_backend="pallas_fused", ipm_iters=FULL_ITERS)),
+             FIG8_TICKS, FULL_ITERS),
+            ("rt6f", simulation_ocp(20, solver=dataclasses.replace(
+                base, qp_backend="pallas_fused", lin_backend="fused",
+                ipm_iters=SAFE_ITERS)), RT6F_TICKS, SAFE_ITERS)):
+        (res, ms), c12 = counted(
+            {"fused_rti_solve": n}, f"figure-8 {name}",
+            lambda: timed(lambda: run_figure8(pre_8, n_steps=n, device=dev),
+                          n),
+            instances={"fused_rti_solve[17x6 blaster]": n})
+        xs, refs = res.xs.cpu().numpy(), res.refs.cpu().numpy()
+        finite = bool(np.isfinite(xs).all())
+        row = {"case": name, "N": pre_8.ocp.N, "ticks": n, "iters": iters,
+               "launches": c12["fused_rti_solve"],
+               "launches_per_tick": c12["fused_rti_solve"] / n,
+               "ms_per_tick": ms}
+        if name == "golden_12it":
+            golden = np.load(GOLDEN_FIG8)["xs"][:xs.shape[0]]
+            err = float(np.abs(xs[:, 0:3] - golden[:, 0:3]).max())
+            row.update(golden_max_pos_err_m=err, bound_m=5e-2,
+                       bench_r05_cold12_m=BENCH_R05[
+                           "fig8_cold12_settle_err_m"])
+            check(finite and err < 5e-2, "figure-8 vs golden",
+                  max_pos_err_m=err)
+        else:
+            err = float(np.linalg.norm(xs[1:, 0:2] - refs[:, 0:2],
+                                       axis=1)[60:].max())
+            bound = FIG8_JAX["settle_err_m"] + 5e-2
+            row.update(settle_err_m=err, bound_m=bound, jax=FIG8_JAX,
+                       bench_r05_m=BENCH_R05["fig8_rt6f_settle_err_m"])
+            check(finite and err <= bound, "fig8_rt6f vs the JAX run",
+                  settle_err_m=err, bound_m=bound)
+        fig8[name] = row
+        log("figure8", **row)
+    wall("12 figure-8")
+
+    # phase 13: the offset-free loop, bench.py's configuration: one
+    # fuse_lin "blaster_dist" launch per tick
+    from mpc_blaster_tpu_torch.sim.scenarios import offset_free_loop
+    pre_o = cfg.simulation_preset()
+    ocp_o = dataclasses.replace(pre_o.ocp, N=30, Tf=1.0,
+                                solver=dataclasses.replace(
+                                    base, qp_backend="pallas_fused",
+                                    ipm_iters=SAFE_ITERS))
+    spec_o = build_spec(ocp_o, yref=pre_o.loop.yref, device=dev)
+    x_o = torch.zeros(17, device=dev)
+    x_o[2] = 3.0
+    wind = (0.7, -0.5, 0.2)
+    (res_o, of_ms), c13 = counted(
+        {"fused_rti_solve": OF_TICKS}, "offset-free loop",
+        lambda: timed(lambda: offset_free_loop(spec_o, ocp_o, x_o, wind,
+                                               n_steps=OF_TICKS), OF_TICKS),
+        instances={"fused_rti_solve[17x6 blaster_dist]": OF_TICKS})
+    xs_o = res_o.xs.cpu().numpy()
+    settle = float(np.linalg.norm(xs_o[-1, 0:3]
+                                  - spec_o.yref_x[0, 0:3].cpu().numpy()))
+    west = float(np.linalg.norm(res_o.d_hist[-1, 0:3].cpu().numpy()
+                                - np.asarray(wind)))
+    check(bool(np.isfinite(xs_o).all())
+          and settle <= OFFSET_FREE_JAX["settle_err_m"] + 5e-2
+          and west <= OFFSET_FREE_JAX["wind_est_err"] + 5e-2,
+          "offset-free loop vs the JAX run", settle_err_m=settle,
+          wind_est_err=west, jax=OFFSET_FREE_JAX)
+    log("offset_free_loop", N=30, ticks=OF_TICKS, iters=SAFE_ITERS,
+        launches=c13["fused_rti_solve"],
+        launches_per_tick=c13["fused_rti_solve"] / OF_TICKS,
+        ms_per_tick=of_ms, settle_err_m=settle, wind_est_err=west,
+        jax=OFFSET_FREE_JAX,
+        bench_r05_m=BENCH_R05["offsetfree_settle_err_m"],
+        kkt_eq_max=res_o.kkt_eq.max().item())
+    wall("13 offset-free loop")
+
+    # phase 14: the quad13 hover chain on "pallas" (13x4 plain) and
+    # "pallas_fused" (the quad13 prologue)
+    from mpc_blaster_tpu_torch.models import quad13 as Q
+    q13 = {}
+    for backend, wrapper, inst in (("pallas", "box_qp_solve", "13x4"),
+                                   ("pallas_fused", "fused_rti_solve",
+                                    "13x4 quad13")):
+        qstep = Q.make_quad13_rti_step(
+            Q.Quad13Config(N=20), solver=dataclasses.replace(
+                cfg.SolverConfig(), qp_backend=backend,
+                ipm_iters=SAFE_ITERS), device=dev)
+        ((xq, u_first), ms), c14 = counted(
+            {wrapper: Q13_TICKS}, f"quad13 hover {backend}",
+            lambda: timed(lambda: quad13_hover_loop(qstep, dev), Q13_TICKS),
+            instances={f"{wrapper}[{inst}]": Q13_TICKS})
+        xq = xq.cpu().numpy()
+        hover = bool(np.isfinite(xq).all() and abs(xq[2] - 2.0) < 0.05
+                     and abs(np.linalg.norm(xq[3:7]) - 1.0) < 1e-3
+                     and np.abs(xq[7:10]).max() < 0.05)
+        check(hover, "quad13 reaches the hover", backend=backend,
+              final=xq.tolist())
+        q13[backend] = {"launches": c14[wrapper],
+                        "launches_per_tick": c14[wrapper] / Q13_TICKS,
+                        "ms_per_tick": ms, "final_z": float(xq[2]),
+                        "final_v_max": float(np.abs(xq[7:10]).max()),
+                        "u0_first": u_first.cpu().numpy()}
+    du0 = float(np.abs(q13["pallas"].pop("u0_first")
+                       - q13["pallas_fused"].pop("u0_first")).max())
+    check(du0 <= 5e-2, "quad13 backends agree on u0", u0_diff=du0)
+    log("quad13_hover", N=20, ticks=Q13_TICKS, iters=SAFE_ITERS,
+        u0_first_diff=du0, **q13)
+    wall("14 quad13 hover")
+
+    # phase 15: long horizons under "pallas"
+    long_loop = {}
+    for N in (120, 240):
+        pre_l = simulation_ocp(N, solver=dataclasses.replace(
+            base, qp_backend="pallas", ipm_iters=FULL_ITERS))
+        (res_l, ms_l), c15 = counted(
+            {"box_qp_solve": LONG_TICKS}, f"long horizon N={N}",
+            lambda: timed_closed_loop(pre_l, LONG_TICKS, dev),
+            instances={"box_qp_solve[17x6]": LONG_TICKS})
+        xs_l = res_l.xs.cpu().numpy()
+        err = float(np.abs(xs_l[::5, 0:3] - np.asarray(LONG_JAX[N])).max())
+        check(bool(np.isfinite(xs_l).all()) and err < 5e-2,
+              "long horizon vs the JAX run", N=N, max_pos_err_m=err)
+        long_loop[N] = {"launches": c15["box_qp_solve"],
+                        "ms_per_tick": ms_l, "max_pos_err_m": err}
+        log("long_horizon_loop", N=N, ticks=LONG_TICKS, iters=FULL_ITERS,
+            **long_loop[N])
+    wall("15 long horizons")
+
     if FAILURES:
         for f in FAILURES:
             log("FAILED", **f)
@@ -1356,6 +1769,7 @@ def run(dev: torch.device) -> int:
     main_row = next(r for r in rows if r["case"] == "n60_b1")
     cost_main = next(r for r in cost_rows if r["case"] == "n20_b1024")
     lin_main = next(r for r in lin_rows if r["case"] == "n60_b1")
+    lin_n20 = next(r for r in lin_rows if r["case"] == "n20_b1")  # rt6f
     warm_main = next(r for r in warm_rows if r["case"] == "fuse_lin_n60_b1")
 
     soft_main = next(r for r in soft_rows if r["case"] == "fuse_lin_n60_b1")
@@ -1365,6 +1779,21 @@ def run(dev: torch.device) -> int:
         PyTorch call solves a box-constrained OCP-QP)."""
         return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": None, "flops": b["flops"], "bytes": b["bytes"]}
+
+    q13_main = next(r for r in q13_rows if r["case"] == "q13_n20_b1")
+
+    def kentry(name, launches, rs, main, iters, b, **extra):
+        """An entry timed at `iters` IPM iterations (the main path's)."""
+        sfx = "" if iters == FULL_ITERS else f"_{iters}it"
+        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": max(r["max_abs_err_1it"] for r in rs),
+                "ms": main["kernel_ms" + sfx],
+                "plain_ms": main["plain_ms" + sfx], "iters": iters,
+                **bound_keys(b),
+                "by_shape": {r["case"]: [r["kernel_ms" + sfx],
+                                         r["plain_ms" + sfx]] for r in rs},
+                **extra}
 
     def entry(name, launches, rs, main, b, **extra):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
@@ -1384,10 +1813,19 @@ def run(dev: torch.device) -> int:
               ms_6it=cost_main["kernel_ms_6it"],
               plain_ms_6it=cost_main["plain_ms_6it"],
               tick_ms={str(k): v for k, v in fused_tick_ms.items()}),
-        entry("box_qp_ipm_fuse_lin", lin_launches, lin_rows, lin_main,
+        entry("box_qp_ipm_fuse_lin",
+              lin_launches + sum(r["launches"] for r in fig8.values()),
+              lin_rows, lin_main,
               launch_bound("fuse_lin", 60, 1, FULL_ITERS),
               ms_6it=lin_main["kernel_ms_6it"],
               plain_ms_6it=lin_main["plain_ms_6it"],
+              launches_by_path={"fused_closed_loops": lin_launches,
+                                **{f"figure8_{k}": r["launches"]
+                                   for k, r in fig8.items()}},
+              ms_n20_6it=lin_n20["kernel_ms_6it"],
+              plain_ms_n20_6it=lin_n20["plain_ms_6it"],
+              bound_ms_n20_6it=launch_bound("fuse_lin", 20, 1,
+                                            SAFE_ITERS)["bound_ms"],
               prologue_max_abs_err=max(
                   max(r["prologue_max_abs_err"].values())
                   for r in lin_rows)),
@@ -1419,7 +1857,45 @@ def run(dev: torch.device) -> int:
                                   r["hard_kernel_ms"]] for r in soft_rows},
          "loop_ms_per_tick": {k: v["ms_per_tick"]
                               for k, v in soft_loop.items()}},
+        kentry("box_qp_ipm_13x4", q13["pallas"]["launches"], q13_rows,
+               q13_main, SAFE_ITERS,
+               launch_bound("plain", 20, 1, SAFE_ITERS, nx=13, nu=4),
+               loop_ms_per_tick=q13["pallas"]["ms_per_tick"]),
+        kentry("box_qp_ipm_fuse_lin_quad13",
+               q13["pallas_fused"]["launches"], fam_rows["quad13"],
+               fam_rows["quad13"][-1], SAFE_ITERS,
+               launch_bound("fuse_lin", 20, 1, SAFE_ITERS, nx=13, nu=4,
+                            family="quad13"),
+               prologue_max_abs_err=max(
+                   max(r["prologue_max_abs_err"].values())
+                   for r in fam_rows["quad13"]),
+               loop_ms_per_tick=q13["pallas_fused"]["ms_per_tick"]),
+        kentry("box_qp_ipm_fuse_lin_blaster_dist", c13["fused_rti_solve"],
+               fam_rows["blaster_dist"], fam_rows["blaster_dist"][-1],
+               SAFE_ITERS,
+               launch_bound("fuse_lin", 30, 1, SAFE_ITERS,
+                            family="blaster_dist"),
+               prologue_max_abs_err=max(
+                   max(r["prologue_max_abs_err"].values())
+                   for r in fam_rows["blaster_dist"]),
+               loop_ms_per_tick=of_ms),
+        kentry("box_qp_ipm_long_horizon",
+               sum(v["launches"] for v in long_loop.values()), long_rows,
+               long_rows[1], FULL_ITERS,
+               launch_bound("plain", 240, 1, FULL_ITERS),
+               ms_n120=long_rows[0]["kernel_ms"],
+               plain_ms_n120=long_rows[0]["plain_ms"],
+               bound_ms_n120=launch_bound("plain", 120, 1,
+                                          FULL_ITERS)["bound_ms"],
+               ms_n240_b256=long_rows[2]["kernel_ms"],
+               bound_ms_n240_b256=launch_bound("plain", 240, 256,
+                                               FULL_ITERS)["bound_ms"],
+               soft_n120=[long_soft["kernel_ms_12it"],
+                          long_soft["plain_ms_12it"]],
+               loop_ms_per_tick={str(k): v["ms_per_tick"]
+                                 for k, v in long_loop.items()}),
     ]}
+    wall("report")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

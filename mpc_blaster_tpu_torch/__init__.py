@@ -5,21 +5,23 @@ The JAX package beside it stays the reference; every module here keeps
 its counterpart's name and subpackage so a reader finds one from the
 other. Plain tensor code is eager PyTorch; the TPU kernel on the slice's
 path (the Pallas box-QP IPM, `mpc_blaster_tpu/ops/pallas_ipm.py`, in its
-plain, fuse_cost and fuse_lin modes, cold or warm-started, and soft-bounded
-in the plain and fuse_lin modes) is a hand-written CUDA C++ kernel for
-sm_90a (`csrc/box_qp_ipm.cu`, wrapped by `ops/box_qp_ipm.py`).
+plain, fuse_cost and fuse_lin modes, cold or warm-started, soft-bounded
+in the plain and fuse_lin modes, for the 17x6 BLASTER and the 13x4 quad13
+models, at any horizon) is a hand-written CUDA C++ kernel for sm_90a
+(`csrc/box_qp_ipm.cu`, wrapped by `ops/box_qp_ipm.py`).
 
 Ported so far (the RTI ticks and closed loop, cold, warm-started or
 soft-bounded, on the presets' default `qp_backend="riccati"`, on `"pallas"`
 and on the deployed one-launch `"pallas_fused"`, with the divergence
 watchdog; the batched ticks on the "xla", "pallas" and "pallas_fused"
-backends):
+backends; the quad13 model; the offset-free loop and figure-8 tracking):
 
   - ``core``      rotations, nozzle homogeneous-transform chain
   - ``dynamics``  the 17-state BLASTER ODE, RK4, jacfwd sensitivities,
                   the component-form linearizer (`fastlin`)
   - ``poc``       water-jet point-of-contact solve + Jacobians
-  - ``ocp``       OCP specification and cost
+  - ``models``    the 13-state quaternion quadrotor (`quad13`)
+  - ``ocp``       OCP specification and cost, the DARE terminal weight
   - ``qp``        QP data containers, the small-matrix algebra, the Riccati
                   recursion, the Riccati IPM with its warm starts, and the
                   soft-bounded IPM (`soft`)
@@ -28,7 +30,9 @@ backends):
                   their plain twins and launch wrappers
   - ``sqp``       the SQP-RTI ticks: cold, warm, warm under the watchdog,
                   soft-bounded
-  - ``sim``       the closed loop (frozen-POC branches)
+  - ``sim``       the closed loop (frozen-POC branches), the scenario
+                  draws and the offset-free loop, figure-8 tracking and the
+                  blasting task
   - ``parallel``  the batched ticks on one device
   - ``convert``   numpy <-> port containers (state shared with the JAX side)
 

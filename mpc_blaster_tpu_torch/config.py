@@ -153,10 +153,10 @@ class SolverConfig:
     # numbers, fewer XLA ops, built for the B=1 latency loop where the
     # jacfwd path is dispatch-bound.
     lin_backend: str = "jacfwd"
-    # Pallas kernel HBM-streaming overrides (None = auto by horizon; see
-    # ops/pallas_ipm.py). Deployment tuning knobs: streaming trades VMEM
-    # footprint for per-stage DMA latency, so the fastest setting depends
-    # on N and on what else shares the chip.
+    # Pallas kernel HBM-streaming overrides (None = auto by horizon), kept
+    # so that configs compare field by field with the JAX package's. The
+    # CUDA kernel has one layout for every N and reads neither (see
+    # ops/box_qp_ipm.py::box_qp_solve).
     pallas_stream_p: bool | None = None
     pallas_stream_big: bool | None = None
     # Warm-start conditioning for rti_step_warm chains (see

@@ -1,25 +1,30 @@
 """State carried across between the JAX package and the port, as numpy.
 
 `*_from_numpy` turn the fields of a JAX container (an `OCPSpec`,
-`RTIState`, `QPData`, `IpmWarmStart`, `WatchdogState` or `SoftBounds`, as
-numpy arrays, or a mapping of them) into the port's container on a device
-and dtype; `*_to_numpy` go the other way, returning a dict of numpy arrays
-keyed by field name (for `SoftBounds` a dict of such dicts, one per
-`SoftPenalty`). The parity tests use these so both sides compute from the
+`RTIState`, `QPData`, `IpmWarmStart`, `WatchdogState`, `SoftBounds`,
+`OffsetFreeResult` or `TrackingResult`, as numpy arrays, or a mapping of
+them) into the port's container on a device and dtype; `*_to_numpy` go
+the other way, returning a dict of numpy arrays keyed by field name (for
+`SoftBounds` a dict of such dicts, one per `SoftPenalty`). A
+`Quad13Config` (a frozen dataclass of numbers) goes by its fields too. The parity tests use these so both sides compute from the
 same numbers (and start a warm chain from the same warm state, a soft
 tick from the same penalties).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from mpc_blaster_tpu_torch.models.quad13 import Quad13Config
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.qp.data import QPData
 from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
 from mpc_blaster_tpu_torch.qp.soft import SoftBounds, SoftPenalty
+from mpc_blaster_tpu_torch.sim.scenarios import OffsetFreeResult
+from mpc_blaster_tpu_torch.sim.tasks import TrackingResult
 from mpc_blaster_tpu_torch.sqp.rti import RTIState, WatchdogState
 
 
@@ -92,3 +97,38 @@ def soft_from_numpy(d, device=None, dtype=torch.float32) -> SoftBounds:
 
 def soft_to_numpy(soft: SoftBounds) -> dict:
     return {g: _to_numpy(p) for g, p in soft._asdict().items()}
+
+
+def offset_free_from_numpy(d, device=None, dtype=torch.float32
+                           ) -> OffsetFreeResult:
+    return _from_numpy(OffsetFreeResult, d, device, dtype)
+
+
+def offset_free_to_numpy(res: OffsetFreeResult) -> dict:
+    return _to_numpy(res)
+
+
+def tracking_from_numpy(d, device=None, dtype=torch.float32
+                        ) -> TrackingResult:
+    return _from_numpy(TrackingResult, d, device, dtype)
+
+
+def tracking_to_numpy(res: TrackingResult) -> dict:
+    return _to_numpy(res)
+
+
+def quad13_config_to_numpy(c) -> dict:
+    """A `Quad13Config` of either package as numpy values by field."""
+    return {f.name: np.asarray(getattr(c, f.name))
+            for f in dataclasses.fields(c)}
+
+
+def quad13_config_from_numpy(d) -> Quad13Config:
+    """The port's `Quad13Config` from numpy values by field (tuples stay
+    tuples of floats, N an int)."""
+    out = {}
+    for f in dataclasses.fields(Quad13Config):
+        v = np.asarray(d[f.name])
+        out[f.name] = (tuple(float(a) for a in v) if v.ndim
+                       else int(v) if f.name == "N" else float(v))
+    return Quad13Config(**out)

@@ -12,10 +12,23 @@
 //              dx0 are assembled in the kernel from the iterate and the spec,
 //              and a last pass writes the updated ABSOLUTE iterate and the
 //              step norms / worst box violation (pallas_batched_fused_tick);
-//   FUSE_LIN   FUSE_COST's assembly plus a linearization prologue: RK4 of the
-//              rows-form BLASTER ODE on forward-mode dual numbers gives A, B
-//              and c for every node inside the kernel; deltas out
+//   FUSE_LIN   FUSE_COST's assembly plus a linearization prologue: RK4 of a
+//              rows-form ODE on forward-mode dual numbers gives A, B and c
+//              for every node inside the kernel; deltas out
 //              (pallas_fused_rti_solve, the one-launch B=1 tick).
+//
+// The model's dimensions NX, NU and, in FUSE_LIN, its ODE family are
+// template parameters too, as the Pallas kernel takes its dimensions from
+// the arrays and its prologue's ODE from dynamics/fastlin.py::FAMILIES:
+// BLASTER (17x6, _ode_rows), BLASTER_DIST (17x6, _ode_rows_dist: the
+// offset-free observer's six disturbance estimates ride in stage
+// parameters 25-30) and QUAD13 (13x4, _quad13_rows: the quaternion
+// quadrotor of models/quad13.py, no stage parameters). The extern "C"
+// entries dispatch on (nx, nu, family) to the instantiations built here:
+// PLAIN hard and soft, FUSE_COST hard, FUSE_LIN BLASTER hard and soft and
+// BLASTER_DIST hard at 17x6; PLAIN hard and FUSE_LIN QUAD13 hard at 13x4.
+// Any other combination returns cudaErrorInvalidValue (the Python
+// wrappers refuse it first).
 //
 // Every mode takes an optional slack/dual warm start (the Pallas kernel's
 // static `warm_on` variant, pallas_ipm.py:402-421, applied after the centred
@@ -58,7 +71,8 @@
 // order.
 //
 // What bounds it on this card: the solve is a chain of O(N * iters) small
-// dependent steps (17x17 products, a 6x6 factorization) -- per problem it is
+// dependent steps (17x17 products, a 6x6 factorization; 13x13 and 4x4 for
+// QUAD13) -- per problem it is
 // latency-bound, not FLOP- or byte-bound (N=60, 12 iterations is ~60 MFLOP
 // and ~0.3 MB of per-problem state). The Pallas kernel answered that with a
 // batch-on-lanes layout; a warp-wide lane layout would run a B=1 closed-loop
@@ -70,9 +84,18 @@
 // ~230 KB at N=60, more than one block's 227 KB of shared memory). A batch of
 // B problems is B blocks, spread over the 132 SMs. The fused modes' assembly
 // is elementwise over the block's threads; the FUSE_LIN prologue gives each
-// thread one (node, tangent column) pair (N * 23 pairs), so it needs no jvp
-// and no cross-thread traffic. Shared-memory staging, warp-level
-// factorization and tensor-core products are later work.
+// thread one (node, tangent column) pair (N * (NX + NU) pairs: 23 per node
+// for BLASTER, 17 for QUAD13), so it needs no jvp and no cross-thread
+// traffic. Shared-memory staging, warp-level factorization and
+// tensor-core products are later work.
+//
+// The long-horizon variants of the Pallas kernel (stream_p / stream_big,
+// pallas_ipm.py:293-393, kernel K7) stream P, the A/B record and the Z
+// gains between HBM and VMEM once an instance outgrows the TPU's resident
+// budget. Here every stage stack already lives in the global workspace,
+// indexed with size_t, and the shared memory does not grow with N, so the
+// one layout above serves every horizon: K7 has no code of its own (the
+// wrappers accept the streaming flags and ignore them).
 //
 // Interface: plain C (loaded with ctypes), float32, contiguous problem-major
 // tensors; launches on the caller's stream and returns cudaGetLastError().
@@ -85,9 +108,6 @@
 
 namespace {
 
-constexpr int NX = 17;
-constexpr int NU = 6;
-constexpr int NXX = NX * NX;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
@@ -102,6 +122,9 @@ constexpr float DUAL_CLIP = 1e12f;
 constexpr float WARM_S_MIN = 1e-5f;  // S_MIN * 1e-2, the warm slack floor
 
 enum Mode : int { PLAIN = 0, FUSE_COST = 1, FUSE_LIN = 2 };
+// The FUSE_LIN prologue's ODE (dynamics/fastlin.py::FAMILIES); PLAIN and
+// FUSE_COST instantiate with BLASTER and never read it.
+enum Family : int { BLASTER = 0, BLASTER_DIST = 1, QUAD13 = 2 };
 
 // NaN-propagating min/max/clip, as jnp.minimum/maximum/clip and
 // torch.minimum/maximum/clamp behave (fminf/fmaxf drop NaNs).
@@ -141,22 +164,25 @@ __device__ float block_reduce(float v, float* red, Op op) {
 
 // Floats of the FUSE_LIN prologue's record per problem: A (N, NX, NX),
 // B (N, NX, NU), c (N, NX).
+template <int NX, int NU>
 __host__ __device__ size_t lin_floats(int N) {
-  return (size_t)N * (NXX + NX * NU + NX);
+  return (size_t)N * (NX * NX + NX * NU + NX);
 }
 
+template <int NX, int NU>
 __host__ __device__ size_t workspace_floats(int N, int mode, bool soft) {
+  constexpr int NXX = NX * NX;
   const size_t n = N, n1 = N + 1;
   size_t w = n1 * (NXX + 4 * NX)                  // P, dx, ddx, ddxa, qr
              + n * (NU * NX + NU * NU + 5 * NU + NX);  // Z, Hinv, kff, du,
                                                        // ddu, ddua, rr, req
   if (mode != PLAIN) w += n1 * NX + 2 * n * NX + 3 * n * NU;  // q, r, bounds
-  if (mode == FUSE_LIN) w += lin_floats(N);
+  if (mode == FUSE_LIN) w += lin_floats<NX, NU>(N);
   if (soft) w += 4 * n * (NX + NU);  // t, gam of the four groups
   return w;
 }
 
-struct Inputs {  // problem-major float32
+struct Inputs {  // problem-major float32, NX x NU the instantiation's model
   const float* A;    // (B, N, NX, NX)
   const float* Bm;   // (B, N, NX, NU)
   const float* c;    // (B, N, NX)
@@ -209,11 +235,13 @@ struct Outputs {
   float* diag;  // (B, 6)
   float* s[4];  // last-iterate slacks: lx, ux (B, N, NX); lu, uu (B, N, NU)
   float* lam[4];  // last-iterate duals, same layout
-  float* work;  // (B, workspace_floats(N, mode))
-  float* lin;   // FUSE_LIN, optional: (B, lin_floats(N)) A, B, c it built
+  float* work;  // (B, workspace_floats<NX, NU>(N, mode, soft))
+  float* lin;   // FUSE_LIN, optional: (B, lin_floats<NX, NU>(N)) A, B, c
 };
 
+template <int NX, int NU>
 struct Shared {
+  static constexpr int NXX = NX * NX;
   float Pn[NXX];   // P_{k+1}: the factorization's carry
   float PA[NXX];
   float Pt[NXX];
@@ -228,10 +256,12 @@ struct Shared {
   float red[WARPS];
 };
 
-// Fail-safe, Jacobi-equilibrated inverse of the SPD 6x6 Huu (one thread).
-// Returns the zero matrix when a diagonal entry is <= 0 or the minimum
-// Cholesky pivot is <= 1e-10: the stage's gain collapses to 0 instead of
-// blowing the recursion up to inf/NaN.
+// Fail-safe, Jacobi-equilibrated inverse of the SPD NU x NU Huu (one
+// thread; 6x6 for BLASTER, 4x4 for QUAD13). Returns the zero matrix when a
+// diagonal entry is <= 0 or the minimum Cholesky pivot is <= 1e-10: the
+// stage's gain collapses to 0 instead of blowing the recursion up to
+// inf/NaN.
+template <int NU>
 __device__ void chol_inverse(const float* M, float* out) {
   float dscale[NU], L[NU][NU], Li[NU][NU];
   bool diag_ok = true;
@@ -312,6 +342,9 @@ __device__ __forceinline__ Dual operator-(Dual a, Dual b) {
 __device__ __forceinline__ Dual operator-(Dual a, float b) {
   return {a.v - b, a.d};
 }
+__device__ __forceinline__ Dual operator+(Dual a, float b) {
+  return {a.v + b, a.d};
+}
 __device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
 __device__ __forceinline__ Dual operator*(Dual a, Dual b) {
   return {a.v * b.v, a.d * b.v + a.v * b.d};
@@ -341,6 +374,12 @@ __device__ __forceinline__ Dual fcos(Dual x) {
 __device__ __forceinline__ Dual ftan(Dual x) {
   const float t = tanf(x.v);
   return {t, (1.f + t * t) * x.d};
+}
+// sqrt' = 1 / (2 sqrt), as PyTorch's forward-mode rule writes it
+__device__ __forceinline__ float fsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ Dual fsqrt(Dual x) {
+  const float s = sqrtf(x.v);
+  return {s, x.d / (2.f * s)};
 }
 
 // The BLASTER ODE with components as scalars, written once over the scalar
@@ -423,32 +462,97 @@ __device__ __forceinline__ void ode_rows(const T* X, const T* U,
   }
 }
 
-// Classic RK4 with md.nsteps substeps, in place on X:
-// dynamics/fastlin.py::_rk4_rows, x + h/6 (((k1 + 2 k2) + 2 k3) + k4).
+// The 13-state quaternion quadrotor (models/quad13.py::quad13_ode) with
+// components as scalars: dynamics/fastlin.py::_quad13_rows term for term,
+// X (13), U (4) -> Xd (13); no stage parameters. The Hamilton-product
+// q_dot takes the raw state quaternion, the thrust column R(q) e3 the
+// normalized one: one IEEE sqrt and four divisions (the total thrust is
+// scaled by 1/m, as the BLASTER rows do).
 template <class T>
+__device__ __forceinline__ void quad13_rows(const T* X, const T* U,
+                                            const Model& md, T* Xd) {
+  const T qw = X[3], qx = X[4], qy = X[5], qz = X[6];
+  const T vx = X[7], vy = X[8], vz = X[9];
+  const T w1 = X[10], w2 = X[11], w3 = X[12];
+  const T t1 = U[0], t2 = U[1], t3 = U[2], t4 = U[3];
+
+  const T qn = fsqrt(qw * qw + qx * qx + qy * qy + qz * qz);
+  const T iw = qw / qn, ix = qx / qn, iy = qy / qn, iz = qz / qn;
+
+  // R(qn) e3, the third column of quat_to_rot
+  const T r02 = 2.f * (ix * iz + iw * iy);
+  const T r12 = 2.f * (iy * iz - iw * ix);
+  const T r22 = 2.f * (iw * iw + iz * iz) - 1.f;
+  const T t_tot = (t1 + t2 + t3 + t4) * md.inv_m;
+
+  const T qdw = 0.5f * (-qx * w1 - qy * w2 - qz * w3);
+  const T qdx = 0.5f * (qw * w1 + qy * w3 - qz * w2);
+  const T qdy = 0.5f * (qw * w2 - qx * w3 + qz * w1);
+  const T qdz = 0.5f * (qw * w3 + qx * w2 - qy * w1);
+
+  const T m0 = (t2 + t4 - t1 - t3) * md.ly;
+  const T m1 = (-t1 - t4 + t2 + t3) * md.lx;
+  const T m2 = (-t1 - t2 + t3 + t4) * md.cy;
+
+  Xd[0] = vx;
+  Xd[1] = vy;
+  Xd[2] = vz;
+  Xd[3] = qdw;
+  Xd[4] = qdx;
+  Xd[5] = qdy;
+  Xd[6] = qdz;
+  Xd[7] = r02 * t_tot;
+  Xd[8] = r12 * t_tot;
+  Xd[9] = r22 * t_tot - md.g;
+  Xd[10] = (m0 - (w2 * (md.j3 * w3) - w3 * (md.j2 * w2))) / md.j1;
+  Xd[11] = (m1 - (w3 * (md.j1 * w1) - w1 * (md.j3 * w3))) / md.j2;
+  Xd[12] = (m2 - (w1 * (md.j2 * w2) - w2 * (md.j1 * w1))) / md.j3;
+}
+
+// The rows-form ODE of a family: BLASTER's; BLASTER_DIST adds the force
+// and torque disturbance estimates P[25..30] to the v and omega rows
+// (dynamics/fastlin.py::_ode_rows_dist); QUAD13's.
+template <int FAM, class T>
+__device__ __forceinline__ void family_rows(const T* X, const T* U,
+                                            const float* P, const Model& md,
+                                            T* Xd) {
+  if constexpr (FAM == QUAD13) {
+    quad13_rows(X, U, md, Xd);
+  } else {
+    ode_rows(X, U, P, md, Xd);
+    if constexpr (FAM == BLASTER_DIST) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) Xd[6 + i] = Xd[6 + i] + P[25 + i];
+    }
+  }
+}
+
+// Classic RK4 with md.nsteps substeps, in place on X (NX rows):
+// dynamics/fastlin.py::_rk4_rows, x + h/6 (((k1 + 2 k2) + 2 k3) + k4).
+template <int FAM, int NX, class T>
 __device__ __forceinline__ void rk4_rows(T* X, const T* U, const float* P,
                                          const Model& md) {
   for (int s = 0; s < md.nsteps; ++s) {
     T k[NX], acc[NX], Xs[NX];
-    ode_rows(X, U, P, md, k);
+    family_rows<FAM>(X, U, P, md, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = k[i];
       Xs[i] = X[i] + md.h2 * k[i];
     }
-    ode_rows(Xs, U, P, md, k);
+    family_rows<FAM>(Xs, U, P, md, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + 2.f * k[i];
       Xs[i] = X[i] + md.h2 * k[i];
     }
-    ode_rows(Xs, U, P, md, k);
+    family_rows<FAM>(Xs, U, P, md, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + 2.f * k[i];
       Xs[i] = X[i] + md.h * k[i];
     }
-    ode_rows(Xs, U, P, md, k);
+    family_rows<FAM>(Xs, U, P, md, k);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + k[i];
@@ -456,10 +560,6 @@ __device__ __forceinline__ void rk4_rows(T* X, const T* U, const float* P,
     }
   }
 }
-
-// The float instantiation: the same ODE without tangents.
-template __device__ void rk4_rows<float>(float*, const float*, const float*,
-                                         const Model&);
 
 // The soft rows of one problem: penalty rows and the violation pairs (in
 // the workspace). Empty unless SOFT, so the hard instantiations carry no
@@ -472,9 +572,11 @@ struct SoftRows<true> {
   float *tv[4], *gv[4];
 };
 
-// One problem's solve, run by one thread block.
-template <int MODE, bool SOFT>
+// One problem's solve, run by one thread block: an NX-state, NU-control
+// model; FAM is the FUSE_LIN prologue's ODE.
+template <int MODE, bool SOFT, int NX, int NU, int FAM>
 struct Solver : SoftRows<SOFT> {
+  static constexpr int NXX = NX * NX;
   // inputs of this problem
   const float *A, *Bm, *c, *Qs, *Qt, *q, *R, *r, *dx0;
   const float* bnd[4];  // lbx, ubx, lbu, ubu (delta form)
@@ -492,12 +594,12 @@ struct Solver : SoftRows<SOFT> {
   // workspace
   float *P, *Z, *Hinv, *kff, *dx, *du, *ddx, *ddu, *ddxa, *ddua, *qr, *rr,
       *req;
-  Shared& sh;
+  Shared<NX, NU>& sh;
   int N, t;
   float mu0, reg, n_ineq, mu_t;
 
-  __device__ Solver(const Inputs& in, const Outputs& out, Shared& sh_, int N_,
-                    float mu0_, float reg_)
+  __device__ Solver(const Inputs& in, const Outputs& out, Shared<NX, NU>& sh_,
+                    int N_, float mu0_, float reg_)
       : sh(sh_), N(N_), t(threadIdx.x), mu0(mu0_), reg(reg_), n_ineq(1.f),
         mu_t(0.f) {
     const size_t b = blockIdx.x, n = N, n1 = N + 1;
@@ -529,7 +631,7 @@ struct Solver : SoftRows<SOFT> {
       ws[g] = warm_use ? in.ws[g] + b * n * w : nullptr;
       wl[g] = warm_use ? in.wl[g] + b * n * w : nullptr;
     }
-    float* w = out.work + b * workspace_floats(N, MODE, SOFT);
+    float* w = out.work + b * workspace_floats<NX, NU>(N, MODE, SOFT);
     P = w;        w += n1 * NXX;
     dx = w;       w += n1 * NX;
     ddx = w;      w += n1 * NX;
@@ -575,7 +677,7 @@ struct Solver : SoftRows<SOFT> {
     if constexpr (MODE == FUSE_LIN) {
       np = in.np;
       sp = in.sp + b * n * np;
-      float* L = out.lin ? out.lin + b * lin_floats(N) : w;
+      float* L = out.lin ? out.lin + b * lin_floats<NX, NU>(N) : w;
       Aw = L;
       Bw = L + n * NXX;
       cw = Bw + n * NX * NU;
@@ -586,10 +688,10 @@ struct Solver : SoftRows<SOFT> {
   }
 
   // ---- fused assembly ----------------------------------------------------
-  // FUSE_LIN prologue: thread e takes node k = e / 23 and tangent column
-  // j = e % 23 (j < NX seeds x_j, else u_{j-NX}), runs RK4 on duals and
-  // writes column j of A_k or B_k; column 0 also writes the shooting defect
-  // c_k = x_next - xbar_{k+1}.
+  // FUSE_LIN prologue: thread e takes node k = e / C and tangent column
+  // j = e % C, C = NX + NU (j < NX seeds x_j, else u_{j-NX}), runs RK4 of
+  // the family's ODE on duals and writes column j of A_k or B_k; column 0
+  // also writes the shooting defect c_k = x_next - xbar_{k+1}.
   __device__ void linearize(const Model& md) {
     constexpr int C = NX + NU;
     for (int e = t; e < N * C; e += THREADS) {
@@ -603,7 +705,7 @@ struct Solver : SoftRows<SOFT> {
       for (int i = 0; i < NU; ++i) {
         U[i] = {ubar[k * NU + i], NX + i == j ? 1.f : 0.f};
       }
-      rk4_rows(X, U, sp + (size_t)k * np, md);
+      rk4_rows<FAM, NX>(X, U, sp + (size_t)k * np, md);
       if (j < NX) {
 #pragma unroll
         for (int i = 0; i < NX; ++i) Aw[((size_t)k * NX + i) * NX + j] = X[i].d;
@@ -1020,7 +1122,7 @@ struct Solver : SoftRows<SOFT> {
         }
       }
       __syncthreads();
-      if (t == 0) chol_inverse(sh.Huu, sh.Hi);
+      if (t == 0) chol_inverse<NU>(sh.Huu, sh.Hi);
       __syncthreads();
       for (int e = t; e < NU * NX + NU * NU; e += THREADS) {
         if (e < NU * NX) {  // Z = Hinv' Hux
@@ -1315,13 +1417,13 @@ struct Solver : SoftRows<SOFT> {
   }
 };
 
-template <int MODE, bool SOFT>
+template <int MODE, bool SOFT, int NX, int NU, int FAM>
 __global__ void __launch_bounds__(THREADS)
 box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
                   float mu0, float alpha_frac, float reg) {
   if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
-  __shared__ Shared sh;
-  Solver<MODE, SOFT> solver(in, out, sh, N, mu0, reg);
+  __shared__ Shared<NX, NU> sh;
+  Solver<MODE, SOFT, NX, NU, FAM> solver(in, out, sh, N, mu0, reg);
   solver.run(iters, alpha_frac, md);
 }
 
@@ -1357,7 +1459,7 @@ void set_soft(Inputs& in, const float* Zlx, const float* zlx,
   in.zp[3] = zuu;
 }
 
-template <int MODE, bool SOFT>
+template <int MODE, bool SOFT, int NX, int NU, int FAM = BLASTER>
 int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
            int N, int iters, float mu0, float alpha_frac, float reg,
            void* stream) {
@@ -1379,20 +1481,29 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
       }
     }
   }
-  box_qp_ipm_kernel<MODE, SOFT><<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      in, out, md, N, iters, mu0, alpha_frac, reg);
+  box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>
+      <<<B, THREADS, 0, (cudaStream_t)stream>>>(in, out, md, N, iters, mu0,
+                                                alpha_frac, reg);
   return (int)cudaGetLastError();
 }
 
+// The model dimensions the entries take: BLASTER's 17x6 or QUAD13's 13x4.
+bool is_17x6(int nx, int nu) { return nx == 17 && nu == 6; }
+bool is_13x4(int nx, int nu) { return nx == 13 && nu == 4; }
+
 }  // namespace
 
-extern "C" long long box_qp_ipm_workspace_floats(int N, int mode,
-                                                int soft) {
-  return (long long)workspace_floats(N, mode, soft != 0);
+extern "C" long long box_qp_ipm_workspace_floats(int N, int mode, int soft,
+                                                int nx, int nu) {
+  if (is_17x6(nx, nu)) return (long long)workspace_floats<17, 6>(N, mode, soft);
+  if (is_13x4(nx, nu)) return (long long)workspace_floats<13, 4>(N, mode, soft);
+  return -1;
 }
 
-extern "C" long long box_qp_ipm_lin_floats(int N) {
-  return (long long)lin_floats(N);
+extern "C" long long box_qp_ipm_lin_floats(int N, int nx, int nu) {
+  if (is_17x6(nx, nu)) return (long long)lin_floats<17, 6>(N);
+  if (is_13x4(nx, nu)) return (long long)lin_floats<13, 4>(N);
+  return -1;
 }
 
 extern "C" const char* box_qp_ipm_error_string(int err) {
@@ -1400,7 +1511,8 @@ extern "C" const char* box_qp_ipm_error_string(int err) {
 }
 
 // PLAIN: one launch solves the whole batch: grid = B blocks of THREADS
-// threads. Non-null penalty rows (Zlx ...) select the soft instantiation.
+// threads. Non-null penalty rows (Zlx ...) select the soft instantiation
+// (17x6 only).
 extern "C" int box_qp_ipm_solve(
     const float* A, const float* Bm, const float* c, const float* Qs,
     const float* Qt, const float* q, const float* R, const float* r,
@@ -1414,21 +1526,29 @@ extern "C" int box_qp_ipm_solve(
     const float* wsuu, const float* wllu, const float* wluu,
     const unsigned char* skip, const float* Zlx, const float* zlx,
     const float* Zux, const float* zux, const float* Zlu, const float* zlu,
-    const float* Zuu, const float* zuu, int B, int N, int iters, float mu0,
-    float alpha_frac, float reg, void* stream) {
+    const float* Zuu, const float* zuu, int B, int N, int nx, int nu,
+    int iters, float mu0, float alpha_frac, float reg, void* stream) {
   Inputs in{A, Bm, c, Qs, Qt, q, R, r, lbx, ubx, lbu, ubu, dx0};
   set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
   set_soft(in, Zlx, zlx, Zux, zux, Zlu, zlu, Zuu, zuu);
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu}, work};
-  if (Zlx != nullptr) {
-    return launch<PLAIN, true>(in, out, Model{}, B, N, iters, mu0,
-                               alpha_frac, reg, stream);
+  const bool soft = Zlx != nullptr;
+  if (is_17x6(nx, nu)) {
+    if (soft) {
+      return launch<PLAIN, true, 17, 6>(in, out, Model{}, B, N, iters, mu0,
+                                        alpha_frac, reg, stream);
+    }
+    return launch<PLAIN, false, 17, 6>(in, out, Model{}, B, N, iters, mu0,
+                                       alpha_frac, reg, stream);
   }
-  return launch<PLAIN, false>(in, out, Model{}, B, N, iters, mu0, alpha_frac,
-                              reg, stream);
+  if (is_13x4(nx, nu) && !soft) {
+    return launch<PLAIN, false, 13, 4>(in, out, Model{}, B, N, iters, mu0,
+                                       alpha_frac, reg, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// FUSE_COST (the batched fused tick): xnew/unew receive the updated
+// FUSE_COST (the batched fused tick, 17x6): xnew/unew receive the updated
 // absolute iterate, diag rows 3-5 the step norms and the box violation.
 extern "C" int box_qp_ipm_fused_cost(
     const float* A, const float* Bm, const float* c,
@@ -1442,8 +1562,9 @@ extern "C" int box_qp_ipm_fused_cost(
     float* work, const float* wvalid, const float* wslx, const float* wsux,
     const float* wllx, const float* wlux, const float* wslu,
     const float* wsuu, const float* wllu, const float* wluu,
-    const unsigned char* skip, int B, int N, int iters, float mu0,
-    float alpha_frac, float reg, void* stream) {
+    const unsigned char* skip, int B, int N, int nx, int nu, int iters,
+    float mu0, float alpha_frac, float reg, void* stream) {
+  if (!is_17x6(nx, nu)) return (int)cudaErrorInvalidValue;
   Inputs in{};
   set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
   in.A = A;
@@ -1465,13 +1586,15 @@ extern "C" int box_qp_ipm_fused_cost(
   in.box[3] = ubu;
   Outputs out{xnew, unew, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
               work};
-  return launch<FUSE_COST, false>(in, out, Model{}, B, N, iters, mu0,
-                                  alpha_frac, reg, stream);
+  return launch<FUSE_COST, false, 17, 6>(in, out, Model{}, B, N, iters, mu0,
+                                         alpha_frac, reg, stream);
 }
 
 // FUSE_LIN (the one-launch RTI tick): dx/du receive deltas; `lin`, when not
 // null, receives the A, B and c the prologue built (B, lin_floats(N)).
-// Non-null penalty rows (Zlx ...) select the soft instantiation.
+// `family` picks the ODE and with it the dimensions: BLASTER (17x6, np >=
+// 25, hard or soft), BLASTER_DIST (17x6, np >= 31, hard) or QUAD13 (13x4,
+// hard). Non-null penalty rows (Zlx ...) select the soft instantiation.
 extern "C" int box_qp_ipm_fused_lin(
     const float* xbar, const float* ubar, const float* sp, const float* x0,
     const float* Qs, const float* Qt, const float* R, const float* Rg,
@@ -1486,11 +1609,13 @@ extern "C" int box_qp_ipm_fused_lin(
     const float* wluu, const unsigned char* skip, const float* Zlx,
     const float* zlx, const float* Zux, const float* zux, const float* Zlu,
     const float* zlu, const float* Zuu, const float* zuu, int B, int N,
-    int np,
+    int np, int family,
     int iters, float mu0, float alpha_frac, float reg, float inv_m, float g,
     float lx, float ly, float cy, float j1, float j2, float j3, float h,
     float h2, float h6, int nsteps, void* stream) {
-  if (np < 25 || nsteps < 1) return (int)cudaErrorInvalidValue;
+  const bool soft = Zlx != nullptr;
+  const int np_min = family == BLASTER ? 25 : family == BLASTER_DIST ? 31 : 1;
+  if (np < np_min || nsteps < 1) return (int)cudaErrorInvalidValue;
   Inputs in{};
   set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
   in.Qs = Qs;
@@ -1513,10 +1638,21 @@ extern "C" int box_qp_ipm_fused_lin(
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
               work, lin};
   const Model md{inv_m, g, lx, ly, cy, j1, j2, j3, h, h2, h6, nsteps};
-  if (Zlx != nullptr) {
-    return launch<FUSE_LIN, true>(in, out, md, B, N, iters, mu0, alpha_frac,
-                                  reg, stream);
+  if (family == BLASTER) {
+    if (soft) {
+      return launch<FUSE_LIN, true, 17, 6>(in, out, md, B, N, iters, mu0,
+                                           alpha_frac, reg, stream);
+    }
+    return launch<FUSE_LIN, false, 17, 6>(in, out, md, B, N, iters, mu0,
+                                          alpha_frac, reg, stream);
   }
-  return launch<FUSE_LIN, false>(in, out, md, B, N, iters, mu0, alpha_frac,
-                                 reg, stream);
+  if (family == BLASTER_DIST && !soft) {
+    return launch<FUSE_LIN, false, 17, 6, BLASTER_DIST>(
+        in, out, md, B, N, iters, mu0, alpha_frac, reg, stream);
+  }
+  if (family == QUAD13 && !soft) {
+    return launch<FUSE_LIN, false, 13, 4, QUAD13>(
+        in, out, md, B, N, iters, mu0, alpha_frac, reg, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -15,16 +15,29 @@ and the host side of `_pallas_box_qp_solve`:
     solves, and returns the updated absolute iterate with the step norms
     and the worst box violation.
   - fuse_lin (`pallas_fused_rti_solve`): `fused_rti_solve`, twin
-    `fused_rti_solve_plain`. The kernel also linearizes (RK4 on dual
-    numbers, `dynamics/fastlin.py::fast_linearize` is the twin): the whole
-    B=1 RTI QP is one launch.
+    `fused_rti_solve_plain`. The kernel also linearizes (RK4 of the
+    model family's rows-form ODE on dual numbers,
+    `dynamics/fastlin.py::fast_linearize` is the twin): the whole B=1 RTI
+    QP is one launch.
+
+The kernel is instantiated per model (dimensions and, in fuse_lin, the
+ODE family of `dynamics/fastlin.py::FAMILIES`), as the Pallas kernel takes
+its dimensions from the arrays: `BUILT` lists the instantiations of
+`csrc/box_qp_ipm.cu`. The wrappers refuse any other combination with
+`NotImplementedError`, on every device (no path of the port uses one).
+The Pallas kernel's long-horizon variants (K7, its `stream_p` /
+`stream_big` switches) have no counterpart: the CUDA kernel keeps every
+stage stack in global memory at any horizon, so one layout serves every
+N (`box_qp_solve` accepts the switches and selects nothing with them).
 
 One call runs a whole Mehrotra predictor-corrector IPM (Gondzio-clipped
 targets, Riccati factorization and sweeps, fraction-to-boundary steps,
 best-merit tracking) for every problem of a batch. CUDA tensors go to the
 kernel in `csrc/box_qp_ipm.cu` (one launch, every IPM iteration inside
-it; counted in the wrapper's `launches`, and in `warm_launches` when a
-warm start is given); CPU tensors go to the plain twin.
+it; counted in the wrapper's `launches`, per instantiation in its
+`by_instance` (soft launches under keys ending in " soft",
+`instance_name`), and in `warm_launches` when a warm start is given); CPU
+tensors go to the plain twin.
 
 Every wrapper takes `warm=`, an `qp/ipm.py::IpmWarmStart` with a leading
 batch axis (fields (B, N, nx|nu), valid (B,)): per problem with valid >
@@ -38,7 +51,7 @@ redo, `sqp/rti.py::rti_step_warm_guarded`); the plain twins ignore it and
 always compute. `box_qp_solve` and `fused_rti_solve` take `soft=`, a
 `qp/soft.py::SoftBounds` with fields (N, nx|nu) (broadcast over the batch)
 or (B, N, nx|nu): each soft bound row gains a violation pair eliminated
-inside the kernel (kernel K4; counted in `soft_launches` too). The host
+inside the kernel (kernel K4). The host
 sanitises the penalties as the Pallas host does (`pen_in`): rows that are
 hard or whose bound is infinite carry Z = 1e18, z = 0. Soft and warm do
 not combine (ValueError, as in the JAX package). Nothing falls back: an
@@ -90,6 +103,22 @@ from mpc_blaster_tpu_torch.qp.smallalg import \
 
 # Kernel modes (the `Mode` template parameter of csrc/box_qp_ipm.cu).
 PLAIN, FUSE_COST, FUSE_LIN = 0, 1, 2
+_MODE_NAMES = {PLAIN: "plain", FUSE_COST: "fuse_cost", FUSE_LIN: "fuse_lin"}
+# The fuse_lin prologue's ODE families (its `Family` template parameter)
+# and the stage parameters each reads.
+FAMILY_IDS = {"blaster": 0, "blaster_dist": 1, "quad13": 2}
+FAMILY_NP = {"blaster": 25, "blaster_dist": 31, "quad13": 1}
+# The instantiations csrc/box_qp_ipm.cu builds: (nx, nu, mode, family, soft);
+# family None for the modes without a prologue. Warm starts (K3) are a
+# runtime switch of each.
+BUILT = frozenset({
+    (17, 6, PLAIN, None, False), (17, 6, PLAIN, None, True),
+    (13, 4, PLAIN, None, False),
+    (17, 6, FUSE_COST, None, False),
+    (17, 6, FUSE_LIN, "blaster", False), (17, 6, FUSE_LIN, "blaster", True),
+    (17, 6, FUSE_LIN, "blaster_dist", False),
+    (13, 4, FUSE_LIN, "quad13", False),
+})
 
 _BIG = 1e20     # slack sentinel for masked (infinite) bounds
 _BIGB = 1e18    # finite stand-in for an infinite bound value
@@ -100,9 +129,6 @@ _DUAL_CLIP = 1e12
 _WARM_S_MIN = 1e-5   # _S_MIN * 1e-2, the warm slack floor
 _WARM_FIELDS = ("s_lx", "s_ux", "lam_lx", "lam_ux", "s_lu", "s_uu",
                 "lam_lu", "lam_uu")
-
-# Dimensions the CUDA kernel is instantiated for (the BLASTER model).
-KERNEL_NX, KERNEL_NU = 17, 6
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "box_qp_ipm.cu"
@@ -219,11 +245,15 @@ def _check_soft_warm(soft, warm):
 
 def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
                        alpha_frac: float = 0.995, reg: float = 1e-6,
-                       warm=None, skip=None, soft=None) -> QPSolution:
+                       warm=None, skip=None, soft=None,
+                       stream_p: bool | None = None,
+                       stream_big: bool | None = None) -> QPSolution:
     """Eager PyTorch twin of the CUDA kernel. `data` fields carry a
-    leading batch axis (B, ...); any device. Same arguments and result as
-    `box_qp_solve` (`skip` is ignored: the twin always computes)."""
+    leading batch axis (B, ...); any device; any dimensions. Same
+    arguments and result as `box_qp_solve` (`skip` is ignored: the twin
+    always computes)."""
     _check_soft_warm(soft, warm)
+    _check_stream(stream_p, stream_big)
     return _solve_plain(_prep(data), iters, mu0, alpha_frac, reg, warm,
                         _soft_rows(soft, _qp_bounds(data)))
 
@@ -646,7 +676,7 @@ def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
     result as `fused_rti_solve` (`skip` is ignored: the twin always
     computes)."""
     _check_soft_warm(soft, warm)
-    _check_fused_rti(x0, model)
+    _check_fused_rti(x0, model, stage_params)
     f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
                     ubx, lbu, ubu, R_grad)
     x_next, A, Bm = fast_linearize(
@@ -667,17 +697,36 @@ def _fused_soft_rows(soft, lbx, ubx, lbu, ubu, f: _Fused):
                              for b in (lbx, ubx, lbu, ubu)])
 
 
-def _check_fused_rti(x0, model):
+def _check_fused_rti(x0, model, stage_params):
     if x0.ndim != 2 or x0.shape[0] != 1:
         raise ValueError("fused_rti_solve is the B=1 latency path (got "
                          f"batch {tuple(x0.shape[:-1])}); use "
                          "batched_fused_tick or box_qp_solve for batched "
                          "solves")
-    if model[0] != "blaster":
+    if model[0] not in FAMILY_IDS:
+        raise ValueError(f"unknown model family {model[0]!r} (expected one "
+                         f"of {sorted(FAMILY_IDS)})")
+    if stage_params.shape[-1] < FAMILY_NP[model[0]]:
+        raise ValueError(f"family {model[0]!r} reads {FAMILY_NP[model[0]]} "
+                         f"stage parameters (got {stage_params.shape[-1]})")
+
+
+def _check_built(nx: int, nu: int, mode: int, family=None, soft=False):
+    """Refuse a combination csrc/box_qp_ipm.cu does not instantiate."""
+    if (nx, nu, mode, family, bool(soft)) not in BUILT:
+        what = (f"nx={nx}, nu={nu}"
+                + ("" if family is None else f", family {family!r}")
+                + (", soft bounds" if soft else ""))
         raise NotImplementedError(
-            f"the fused linearization runs the 'blaster' family only (got "
-            f"{model[0]!r}); the other rows-form families port with ROADMAP "
-            "queue 1 item 11")
+            f"the CUDA box-QP IPM has no {_MODE_NAMES[mode]} instantiation "
+            f"for {what}; no path of the port uses one yet: ROADMAP queue 2 "
+            "(instantiations not built) adds it")
+
+
+def _check_stream(stream_p, stream_big):
+    for name, v in (("stream_p", stream_p), ("stream_big", stream_big)):
+        if v is not None and not isinstance(v, bool):
+            raise TypeError(f"{name} is a bool or None (got {v!r})")
 
 
 # ------------------------------- the kernel -------------------------------
@@ -736,19 +785,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # each entry ends its pointers with the warm start (valid + 8 fields)
     # and the skip flag; the plain and fuse_lin entries then take the
-    # eight soft penalty rows (null: a hard solve)
-    lib.box_qp_ipm_solve.argtypes = ([ptr] * 43 + [i32] * 3 + [f32] * 3
+    # eight soft penalty rows (null: a hard solve); then B, N and the
+    # model's dimensions (fuse_lin: np and the family, which fixes them)
+    lib.box_qp_ipm_solve.argtypes = ([ptr] * 43 + [i32] * 5 + [f32] * 3
                                      + [ptr])
-    lib.box_qp_ipm_fused_cost.argtypes = ([ptr] * 39 + [i32] * 3
+    lib.box_qp_ipm_fused_cost.argtypes = ([ptr] * 39 + [i32] * 5
                                           + [f32] * 3 + [ptr])
-    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 46 + [i32] * 4
+    lib.box_qp_ipm_fused_lin.argtypes = ([ptr] * 46 + [i32] * 5
                                          + [f32] * 14 + [i32, ptr])
     for fn in (lib.box_qp_ipm_solve, lib.box_qp_ipm_fused_cost,
                lib.box_qp_ipm_fused_lin):
         fn.restype = i32
-    lib.box_qp_ipm_workspace_floats.argtypes = [i32, i32, i32]
+    lib.box_qp_ipm_workspace_floats.argtypes = [i32] * 5
     lib.box_qp_ipm_workspace_floats.restype = ctypes.c_longlong
-    lib.box_qp_ipm_lin_floats.argtypes = [i32]
+    lib.box_qp_ipm_lin_floats.argtypes = [i32] * 3
     lib.box_qp_ipm_lin_floats.restype = ctypes.c_longlong
     lib.box_qp_ipm_error_string.argtypes = [i32]
     lib.box_qp_ipm_error_string.restype = ctypes.c_char_p
@@ -765,14 +815,6 @@ def _launched(lib, rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
                            + lib.box_qp_ipm_error_string(rc).decode())
-
-
-def _check_dims(nx: int, nu: int):
-    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
-        raise NotImplementedError(
-            f"the CUDA box-QP IPM is built for nx={KERNEL_NX}, "
-            f"nu={KERNEL_NU} (got {nx}, {nu}); other models port with "
-            "ROADMAP queue 1 item 11")
 
 
 def _check_shapes(tensors: NamedTuple, shapes: dict, dev):
@@ -792,8 +834,8 @@ def _solve_outputs(lib, Bsz, N, nx, nu, mode, dev, soft=False):
     return (empty(Bsz, N + 1, nx), empty(Bsz, N, nu), empty(Bsz, 6),
             [empty(Bsz, N, nx) for _ in range(4)],
             [empty(Bsz, N, nu) for _ in range(4)],
-            empty(Bsz, int(lib.box_qp_ipm_workspace_floats(N, mode,
-                                                           int(soft)))))
+            empty(Bsz, int(lib.box_qp_ipm_workspace_floats(
+                N, mode, int(soft), nx, nu))))
 
 
 def _warm_args(warm, Bsz, N, nx, nu, dev) -> list:
@@ -825,12 +867,18 @@ def _ptrs(ts) -> list:
     return [None if t is None else t.data_ptr() for t in ts]
 
 
-def _count(wrapper, warm, soft=None):
+def instance_name(nx: int, nu: int, family=None, soft=False) -> str:
+    """The key of an instantiation in a wrapper's `by_instance` counts,
+    e.g. "17x6", "17x6 soft", "13x4 quad13"."""
+    return (f"{nx}x{nu}" + ("" if family is None else f" {family}")
+            + (" soft" if soft else ""))
+
+
+def _count(wrapper, warm, inst):
     wrapper.launches += 1
+    wrapper.by_instance[inst] = wrapper.by_instance.get(inst, 0) + 1
     if warm is not None:
         wrapper.warm_launches += 1
-    if soft is not None:
-        wrapper.soft_launches += 1
 
 
 def _soft_args(pens, Bsz, N, nx, nu, dev) -> list:
@@ -867,7 +915,6 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
     p = _prep(data)
     Bsz, N, nx, nu = p.A.shape[0], p.A.shape[1], p.A.shape[-1], \
         p.Bm.shape[-1]
-    _check_dims(nx, nu)
     if Bsz == 0 or N < 1:
         raise ValueError(f"empty QP batch (B={Bsz}, N={N})")
     dev = p.A.device
@@ -885,25 +932,35 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
           *_soft_args(pens, Bsz, N, nx, nu, dev)]
     rc = lib.box_qp_ipm_solve(
         *_ptrs([*p, dx, du, diag, *sx, *su, work, *wa]),
-        Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
+        Bsz, N, nx, nu, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm")
-    _count(box_qp_solve, warm, soft)
+    _count(box_qp_solve, warm, instance_name(nx, nu, soft=soft is not None))
     return _solution(dx, du, diag, sx, su)
 
 
 def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
                  alpha_frac: float = 0.995, reg: float = 1e-6, warm=None,
-                 skip=None, soft=None) -> QPSolution:
+                 skip=None, soft=None, stream_p: bool | None = None,
+                 stream_big: bool | None = None) -> QPSolution:
     """Batched box-QP IPM solve; the counterpart of `pallas_box_qp_solve`.
 
-    `data` fields carry a leading batch axis (B, ...). Stage Hessians
+    `data` fields carry a leading batch axis (B, ...), for a model of a
+    built instantiation (`BUILT`: 17x6, or 13x4 hard). Stage Hessians
     must be identical across stages 0..N-1 (Q[:, 0], R[:, 0] are used)
     with a distinct terminal Q[:, N]; bounds may be +-inf. `warm`, `skip`
-    and `soft` as in the module docstring. Tensors on a CUDA device run
-    the hand-written kernel (one launch; counted in
-    `box_qp_solve.launches`); tensors on the CPU run the plain twin.
+    and `soft` as in the module docstring. `stream_p` / `stream_big`
+    (bool or None) are `pallas_box_qp_solve`'s long-horizon switches,
+    accepted so that its callers run unchanged; they select nothing: one
+    layout serves every N (every stage stack lives in global memory, and
+    shared memory does not grow with N), so the port's ticks do not pass
+    `SolverConfig.pallas_stream_*` on. Tensors on a CUDA device run the
+    hand-written kernel (one launch; counted in `box_qp_solve.launches`);
+    tensors on the CPU run the plain twin.
     """
     _check_soft_warm(soft, warm)
+    _check_stream(stream_p, stream_big)
+    _check_built(data.A.shape[-1], data.B.shape[-1], PLAIN,
+                 soft=soft is not None)
     dev = data.A.device
     if dev.type == "cuda":
         return _solve_kernel(data, iters, mu0, alpha_frac, reg, warm, skip,
@@ -918,14 +975,13 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
 
 box_qp_solve.launches = 0
 box_qp_solve.warm_launches = 0
-box_qp_solve.soft_launches = 0
+box_qp_solve.by_instance = {}    # launches per instantiation (instance_name)
 
 
 def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
                        warm):
     Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
         f.ubar.shape[-1]
-    _check_dims(nx, nu)
     if Bsz == 0 or N < 1:
         raise ValueError(f"empty batch (B={Bsz}, N={N})")
     dev = f.x0.device
@@ -943,9 +999,9 @@ def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
     wa = [*_warm_args(warm, Bsz, N, nx, nu, dev), None]
     rc = lib.box_qp_ipm_fused_cost(
         *_ptrs([*ins, xn, un, diag, *sx, *su, work, *wa]),
-        Bsz, N, iters, mu0, alpha_frac, reg, _stream(dev))
+        Bsz, N, nx, nu, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_cost")
-    _count(batched_fused_tick, warm)
+    _count(batched_fused_tick, warm, instance_name(nx, nu))
     dg = {"kkt_stat": diag[:, 0], "kkt_eq": diag[:, 1], "mu": diag[:, 2],
           "step_norm_x": diag[:, 3], "step_norm_u": diag[:, 4],
           "bound_viol": diag[:, 5]}
@@ -975,6 +1031,7 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
     (one launch, counted in `batched_fused_tick.launches`); CPU tensors the
     plain twin.
     """
+    _check_built(xbar.shape[-1], ubar.shape[-1], FUSE_COST)
     dev = x0.device
     if dev.type == "cuda":
         f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
@@ -992,29 +1049,29 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
 
 batched_fused_tick.launches = 0
 batched_fused_tick.warm_launches = 0
-batched_fused_tick.soft_launches = 0  # the fuse_cost mode has no soft form
+batched_fused_tick.by_instance = {}
 
 
 def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
                       mu0, alpha_frac, reg, return_lin, warm, skip, pens):
     Bsz, N, nx, nu = f.ubar.shape[0], f.ubar.shape[1], f.xbar.shape[-1], \
         f.ubar.shape[-1]
-    _check_dims(nx, nu)
     if N < 1 or num_steps < 1:
         raise ValueError(f"empty horizon or substeps (N={N}, "
                          f"num_steps={num_steps})")
     dev = f.x0.device
     _check_shapes(f, _fused_shapes(Bsz, N, nx, nu), dev)
     sp = _f32(stage_params)
+    np_min = FAMILY_NP[model[0]]
     if sp.device != dev or sp.ndim != 3 or tuple(sp.shape[:2]) != (Bsz, N) \
-            or sp.shape[2] < 25:
+            or sp.shape[2] < np_min:
         raise ValueError(f"stage_params {tuple(sp.shape)} on {sp.device}: "
-                         f"expected ({Bsz}, {N}, >=25) on {dev}")
+                         f"expected ({Bsz}, {N}, >={np_min}) on {dev}")
     lib = _library()
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
                                                 FUSE_LIN, dev,
                                                 pens is not None)
-    lin = (torch.empty((Bsz, int(lib.box_qp_ipm_lin_floats(N))),
+    lin = (torch.empty((Bsz, int(lib.box_qp_ipm_lin_floats(N, nx, nu))),
                        dtype=torch.float32, device=dev)
            if return_lin else None)
     # the float32 roundings of the constants the Python linearizer uses
@@ -1028,10 +1085,11 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
           *_soft_args(pens, Bsz, N, nx, nu, dev)]
     rc = lib.box_qp_ipm_fused_lin(
         *_ptrs([*ins, dx, du, diag, *sx, *su, lin, work, *wa]),
-        Bsz, N, sp.shape[2], iters, mu0, alpha_frac, reg, *consts,
-        num_steps, _stream(dev))
+        Bsz, N, sp.shape[2], FAMILY_IDS[model[0]], iters, mu0, alpha_frac,
+        reg, *consts, num_steps, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_lin")
-    _count(fused_rti_solve, warm, pens)
+    _count(fused_rti_solve, warm,
+           instance_name(nx, nu, model[0], pens is not None))
     sol = _solution(dx, du, diag, sx, su)
     if not return_lin:
         return sol
@@ -1056,8 +1114,10 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
     the 25-dim POC parameters; x0 (B, nx); Q / R dt-scaled, Q_t unscaled;
     yref_x (B, N, nx), yref_u (B, N, nu), yref_e (B, nx); lbx/ubx (B, nx),
     lbu/ubu (B, nu) single-row absolute boxes (+-inf allowed); `model` the
-    tuple of `sqp/rti.py::fused_dyn_statics` (family "blaster" only), dt
-    and the RK4 substep count; R_grad as in `batched_fused_tick`; `warm`
+    tuple of `sqp/rti.py::fused_dyn_statics` (family "blaster", hard or
+    soft; "blaster_dist", whose stage_params carry the six disturbance
+    rows 25-30, hard; or `models/quad13.py::quad13_dyn_statics`' "quad13",
+    13x4, hard), dt and the RK4 substep count; R_grad as in `batched_fused_tick`; `warm`
     and `skip` as in the module docstring.
 
     Returns the delta-form QPSolution (and, with return_lin, the (A, B, c)
@@ -1065,7 +1125,9 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
     counted in `fused_rti_solve.launches`); CPU tensors the plain twin.
     """
     _check_soft_warm(soft, warm)
-    _check_fused_rti(x0, model)
+    _check_fused_rti(x0, model, stage_params)
+    _check_built(xbar.shape[-1], ubar.shape[-1], FUSE_LIN, model[0],
+                 soft is not None)
     dev = x0.device
     if dev.type == "cuda":
         f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e,
@@ -1086,4 +1148,4 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
 
 fused_rti_solve.launches = 0
 fused_rti_solve.warm_launches = 0
-fused_rti_solve.soft_launches = 0
+fused_rti_solve.by_instance = {}

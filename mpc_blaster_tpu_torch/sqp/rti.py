@@ -50,6 +50,11 @@ _TODO = {
     "batched_xla_fused": "queue 1 item 7 (the B=1 one-launch tick over a "
                          "batch; backend='pallas_fused' is the batched "
                          "fused tick)",
+    "sweeps": "queue 1 item 11 (fault_sweep / disturbance_sweep, batch-"
+              "explicit with the disturbance carried as data)",
+    "blast_scan": "queue 1 item 11 (the blast scan with the online POC "
+                  "modes, plant_poc='exact', select_poc_mode / "
+                  "select_carry_frac)",
 }
 QP_BACKENDS = ("riccati", "pallas", "pallas_fused")
 
@@ -143,7 +148,9 @@ def fused_dyn_statics(ocp: cfg.OCPConfig, num_steps: int = 1,
     (`qp_backend="pallas_fused"`): ((family, mass, g, arm_x, arm_y, yaw_c,
     Jx, Jy, Jz), dt, num_steps). The kernel takes them as runtime
     arguments; `family` names the rows-form ODE of
-    `dynamics/fastlin.py::FAMILIES` (the kernel runs "blaster")."""
+    `dynamics/fastlin.py::FAMILIES` ("blaster", or "blaster_dist" for the
+    offset-free loop's disturbance rows; `models/quad13.py` builds the
+    "quad13" tuple)."""
     m = ocp.model
     return ((family, float(m.mass), float(m.gravity),
              float(m.arm_length_x), float(m.arm_length_y),

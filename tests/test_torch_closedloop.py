@@ -105,11 +105,13 @@ PORT_MODULES = [
     "mpc_blaster_tpu_torch.dynamics.fastlin",
     "mpc_blaster_tpu_torch.dynamics.integrators",
     "mpc_blaster_tpu_torch.poc.jet", "mpc_blaster_tpu_torch.poc.solver",
-    "mpc_blaster_tpu_torch.ocp.spec", "mpc_blaster_tpu_torch.qp.data",
+    "mpc_blaster_tpu_torch.ocp.spec", "mpc_blaster_tpu_torch.ocp.terminal",
+    "mpc_blaster_tpu_torch.models.quad13", "mpc_blaster_tpu_torch.qp.data",
     "mpc_blaster_tpu_torch.qp.smallalg", "mpc_blaster_tpu_torch.qp.riccati",
     "mpc_blaster_tpu_torch.qp.ipm", "mpc_blaster_tpu_torch.qp.soft",
     "mpc_blaster_tpu_torch.ops.box_qp_ipm", "mpc_blaster_tpu_torch.sqp.rti",
     "mpc_blaster_tpu_torch.sim.closedloop",
+    "mpc_blaster_tpu_torch.sim.scenarios", "mpc_blaster_tpu_torch.sim.tasks",
     "mpc_blaster_tpu_torch.parallel.mesh",
 ]
 

@@ -3,8 +3,11 @@ the plain mode (`box_qp_solve`), the fuse_cost mode (`batched_fused_tick`)
 and the fuse_lin mode (`fused_rti_solve`), whose linearization prologue is
 also held pointwise against `dynamics/fastlin.py::fast_linearize`; and
 each mode's warm-start blend (K3) with its valid=0, NaN and skip
-semantics; and the soft-bound instantiations (K4) of the plain and
-fuse_lin modes, with the all-hard case against the hard kernel.
+semantics; the soft-bound instantiations (K4) of the plain and fuse_lin
+modes, with the all-hard case against the hard kernel; the instantiations
+for other models: the plain mode at 13x4 (the quad13 model) and the
+fuse_lin mode with the "quad13" and "blaster_dist" prologues; and the
+plain mode at long horizons (K7, N=120 and 240).
 
 Needs the card (marker `cuda`; skipped without one) and imports no JAX, so
 it also runs where only the port's dependencies are installed:
@@ -314,10 +317,13 @@ def test_soft_kernel_matches_plain_on_gpu(cuda_device, mode):
     hard = SoftBounds(*(SoftPenalty.hard((N, w), device=cuda_device)
                         for w in (cfg.NX, cfg.NX, cfg.NU, cfg.NU)))
     wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
-    n0, s0 = wrapper.launches, wrapper.soft_launches
+    key = K.instance_name(cfg.NX, cfg.NU,
+                          None if mode == "plain" else "blaster", soft=True)
+    n0, s0 = wrapper.launches, wrapper.by_instance.get(key, 0)
     a, b = kern(1, None), kern(1, hard)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.soft_launches) == (n0 + 2, s0 + 1)
+    assert (wrapper.launches, wrapper.by_instance.get(key, 0)) == (n0 + 2,
+                                                                  s0 + 1)
     for f in ("dx", "du", "s_lx", "lam_ux", "mu"):
         x, y = getattr(a, f), getattr(b, f)
         assert torch.equal(x, y) or torch.allclose(x, y, rtol=1e-6,
@@ -336,3 +342,113 @@ def test_soft_kernel_matches_plain_on_gpu(cuda_device, mode):
         ok = soft_qp_objective(qp, soft, sk.dx, sk.du)   # per problem
         op = soft_qp_objective(qp, soft, sp.dx, sp.du)
         assert ((ok - op).abs() <= 2e-3 * op.abs() + 1e-3).all(), (ok, op)
+
+
+def _quad13_case(dev, B=3, N=8):
+    """Linearized quad13 QPs around hover at z=1 (x0 spread +-0.4 m), the
+    spec and the iterate, built by the port on `dev`."""
+    from mpc_blaster_tpu_torch.models.quad13 import (
+        Quad13Config, _params, build_quad13_spec, hover_state,
+        init_quad13_rti_state, quad13_ode)
+    c = Quad13Config(N=N, Tf=N / 30.0)
+    spec = build_quad13_spec(c, device=dev)
+    rng = np.random.default_rng(2)
+    x0 = hover_state(1.0, device=dev).repeat(B, 1)
+    x0[:, 0:3] += torch.as_tensor(rng.uniform(-0.4, 0.4, (B, 3)),
+                                  dtype=torch.float32, device=dev)
+    st = init_quad13_rti_state(c, x0)
+    F = discrete_dynamics(quad13_ode, c.dt)
+    P = _params(c, device=dev)
+    qp = vmap(lambda xb, ub, x: build_qp(spec, RTIState(xb, ub), x, F, P))(
+        st.xbar, st.ubar, x0)
+    return c, spec, x0, st, qp
+
+
+def _solve_check(sk, spl, lin_k, lin_p, qp, iters):
+    for g, r in zip(lin_k, lin_p):
+        torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-4)
+    assert torch.isfinite(sk.dx).all() and torch.isfinite(sk.du).all()
+    if iters == 1:
+        assert (sk.du[:, 0] - spl.du[:, 0]).abs().max().item() <= 2e-3
+        torch.testing.assert_close(sk.du, spl.du, rtol=0, atol=5e-3)
+        torch.testing.assert_close(sk.dx, spl.dx, rtol=0, atol=5e-3)
+        return
+    ok = vmap(qp_objective)(qp, sk.dx, sk.du)
+    op = vmap(qp_objective)(qp, spl.dx, spl.du)
+    assert ((ok - op).abs() / op.abs().clamp(min=1.0) < 1.2e-2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 6])
+def test_quad13_plain_kernel_matches_plain_on_gpu(cuda_device, iters):
+    """K1 at 13x4: the plain instantiation of the quad13 model."""
+    *_, qp = _quad13_case(cuda_device)
+    n0 = K.box_qp_solve.launches
+    sk = K.box_qp_solve(qp, iters=iters)
+    torch.cuda.synchronize()
+    assert K.box_qp_solve.launches == n0 + 1
+    sp = K.box_qp_solve_plain(qp, iters=iters)
+    _solve_check(sk, sp, (), (), qp, iters)
+    torch.testing.assert_close(sk.kkt_eq, sp.kkt_eq, rtol=0.2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 6])
+def test_fuse_lin_quad13_kernel_matches_plain_on_gpu(cuda_device, iters):
+    """K6's "quad13" prologue (13x4): the prologue against
+    `fast_linearize(family="quad13")`, the solve against the twin."""
+    from mpc_blaster_tpu_torch.models.quad13 import quad13_dyn_statics
+    c, spec, x0, st, _ = _quad13_case(cuda_device, B=1)
+    model, dt, ns = quad13_dyn_statics(c)
+    args = tuple(a[None] for a in (
+        spec.dt * spec.Q, spec.Q_t, spec.dt * spec.R, spec.yref_x,
+        spec.yref_u, spec.yref_e, spec.lbx, spec.ubx, spec.lbu, spec.ubu))
+    fa = (st.xbar, st.ubar, spec.stage_params[None], x0, *args)
+    kw = dict(model=model, dt=dt, num_steps=ns, iters=iters,
+              return_lin=True)
+    n0 = K.fused_rti_solve.launches
+    sk, lin_k = K.fused_rti_solve(*fa, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_rti_solve.launches == n0 + 1
+    spl, lin_p = K.fused_rti_solve_plain(*fa, **kw)
+    qp = _fused_qp((st.xbar, st.ubar, x0, args), *lin_p[:2], lin_p[2])
+    _solve_check(sk, spl, lin_k, lin_p, qp, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 6])
+def test_fuse_lin_blaster_dist_kernel_matches_plain_on_gpu(cuda_device,
+                                                           iters):
+    """K6's "blaster_dist" prologue: six non-zero disturbance rows in
+    stage parameters 25-30."""
+    ocp, spec, xbar, ubar, x0, args = _fused_inputs(cuda_device, B=1)
+    model, dt, ns = fused_dyn_statics(ocp, family="blaster_dist")
+    d = torch.tensor([0.7, -0.5, 0.2, 0.05, -0.03, 0.01], device=cuda_device)
+    sp = torch.cat([spec.stage_params, d.expand(ocp.N, 6)], -1)[None]
+    kw = dict(model=model, dt=dt, num_steps=ns, iters=iters,
+              return_lin=True)
+    n0 = K.fused_rti_solve.launches
+    sk, lin_k = K.fused_rti_solve(xbar, ubar, sp, x0, *args, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_rti_solve.launches == n0 + 1
+    spl, lin_p = K.fused_rti_solve_plain(xbar, ubar, sp, x0, *args, **kw)
+    qp = _fused_qp((xbar, ubar, x0, args), *lin_p[:2], lin_p[2])
+    _solve_check(sk, spl, lin_k, lin_p, qp, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [120, 240])
+def test_long_horizon_kernel_matches_plain_on_gpu(cuda_device, N):
+    """K7: the one layout at the long horizons (Tf 4 s and 8 s at 30 Hz),
+    B=2, after one iteration and after 12."""
+    qp = _blaster_qps(cuda_device, B=2, N=N)
+    for iters in (1, 12):
+        n0 = K.box_qp_solve.launches
+        sk = K.box_qp_solve(qp, iters=iters)
+        torch.cuda.synchronize()
+        assert K.box_qp_solve.launches == n0 + 1
+        sp = K.box_qp_solve_plain(qp, iters=iters)
+        _solve_check(sk, sp, (), (), qp, iters)
+        if iters > 1:
+            torch.testing.assert_close(sk.kkt_eq, sp.kkt_eq, rtol=0.2,
+                                       atol=1e-3)

@@ -298,9 +298,12 @@ def test_fused_wrappers_run_plain_twins_on_cpu():
 
 
 def test_fused_refusals():
-    """B != 1 on the one-launch tick, missing dynamics statics, families
-    other than "blaster" on the fused kernel, soft bounds with a warm
-    start, and Jacobian reuse with the fused tick; the deployed profiles,
+    """B != 1 on the one-launch tick, missing dynamics statics, an unknown
+    family or too few stage parameters for one ("blaster_dist" reads rows
+    25-30; it and "quad13" run since the fuse_lin kernel has their
+    prologues), soft bounds with a warm start and with the "blaster_dist"
+    prologue (not instantiated), and Jacobian reuse with the fused tick;
+    the deployed profiles,
     "fastest" included, are the JAX package's (field by field: the port
     keeps its own copy of the config classes)."""
     from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
@@ -317,10 +320,16 @@ def test_fused_refusals():
     with pytest.raises(ValueError, match="B=1"):
         K.fused_rti_solve(*args, model=model, dt=dt)
     one = tuple(a[:1] for a in args)
-    for fam in ("blaster_dist", "quad13"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"
-                                                      " 11"):
-            K.fused_rti_solve(*one, model=(fam,) + model[1:], dt=dt)
+    with pytest.raises(ValueError, match="unknown model family"):
+        K.fused_rti_solve(*one, model=("quad14",) + model[1:], dt=dt)
+    with pytest.raises(ValueError, match="reads 31 stage parameters"):
+        K.fused_rti_solve(*one, model=("blaster_dist",) + model[1:], dt=dt)
+    # the "blaster_dist" prologue with zero disturbance rows is "blaster"
+    sp31 = torch.cat([one[2], torch.zeros(1, ocp.N, 6)], -1)
+    a = K.fused_rti_solve(*one[:2], sp31, *one[3:], dt=dt, iters=2,
+                          model=("blaster_dist",) + model[1:])
+    b = K.fused_rti_solve(*one, model=model, dt=dt, iters=2)
+    torch.testing.assert_close(a.du, b.du, rtol=0, atol=1e-5)
     # a warm start must carry the launch's batch axis (valid (B,))
     with pytest.raises(ValueError, match="warm.valid"):
         K._warm_args(trti.IpmWarmStart.zeros(8, 17, 6), 1, 8, 17, 6,
@@ -332,6 +341,9 @@ def test_fused_refusals():
                           warm=trti.IpmWarmStart(*(
                               a[None] for a in trti.IpmWarmStart.zeros(
                                   ocp.N, 17, 6))))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        K.fused_rti_solve(*one[:2], sp31, *one[3:], dt=dt, soft=soft,
+                          model=("blaster_dist",) + model[1:])
     with pytest.raises(ValueError, match="dyn_statics"):
         trti.rti_step(ts, _first(st), x0[0], BlasterParams.from_config(
             ocp.model), None, ocp.solver)

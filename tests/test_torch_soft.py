@@ -445,7 +445,11 @@ def soft_ticks_f32():
     out["jax_riccati"] = jax.jit(lambda sp, st, x, so: jstep(
         sp, st, x, jp, jF, sv, so))(jspec, jinit(ocp, jx0, jnp.float32),
                                     jx0, js)
-    n0 = (K.box_qp_solve.soft_launches, K.fused_rti_solve.soft_launches)
+    def counted():
+        return (K.box_qp_solve.launches, dict(K.box_qp_solve.by_instance),
+                K.fused_rti_solve.launches,
+                dict(K.fused_rti_solve.by_instance))
+    n0 = counted()
     for backend, lb in (("riccati", "jacfwd"), ("pallas", "fused"),
                         ("pallas_fused", "fused")):
         sv = dataclasses.replace(ocp.solver, qp_backend=backend,
@@ -456,8 +460,7 @@ def soft_ticks_f32():
             linearizer=make_linearizer(o, P),
             dyn_statics=fused_dyn_statics(o))
     # on the CPU the wrappers ran the plain twins: no kernel launch counted
-    assert (K.box_qp_solve.soft_launches,
-            K.fused_rti_solve.soft_launches) == n0
+    assert counted() == n0
     return out
 
 
