@@ -6,12 +6,14 @@ NVIDIA GPU.
 Builds the box-QP IPM kernel (its plain, fuse_cost and fuse_lin modes,
 each with the warm-start blend K3, the soft-bound instantiations K4 of
 the plain and fuse_lin modes, the plain mode at 13x4 for the quad13 model
-and the fuse_lin mode with the "quad13" and "blaster_dist" prologues) from
-`mpc_blaster_tpu_torch/csrc/` with nvcc, holds each mode, cold, warm and
-soft, against its plain PyTorch twin on the card (phases 2, 2b and 2c,
-which also holds the long horizons N=120 and 240, kernel K7's shapes),
-then drives the port's main paths, each with the launch counts set to 0
-just before it and read just after:
+and the fuse_lin mode with the "quad13" and "blaster_dist" prologues) and
+the hardware probes P1 and P2 from `mpc_blaster_tpu_torch/csrc/` with
+nvcc (one nvcc per source, both started together), holds each mode,
+cold, warm and soft, against its plain PyTorch twin on the card (phases
+2, 2b and 2c, which also holds the long horizons N=120 and 240, kernel
+K7's shapes), then drives the port's main paths, each with the launch
+counts (the probes' included) set to 0 just before it and read just
+after:
 
   3. the batched RTI tick, backend "pallas" (N=20, B=1024, 10 ticks);
   4. the simulation preset's closed loop, backend "pallas" (N=60, frozen
@@ -53,7 +55,28 @@ just before it and read just after:
      (one fuse_lin "quad13" launch per tick);
  15. long horizons: the simulation preset at N=120 and N=240 under
      "pallas", 12 iterations, 20 ticks from the ground (the kernel has one
-     layout for every N, so the solver's streaming flags select nothing).
+     layout for every N, so the solver's streaming flags select nothing);
+ 16. the one-launch tick over a batch (kernel K6 at B > 1): the fuse_lin
+     kernel against its twin at N=20, B=64 with one spec per problem,
+     timed at N=20, B=1024 beside the fuse_cost kernel (K5) on the same
+     problems; then 10 chained ticks of the batched "xla" tick over
+     `deployed_solver("safe")` (N=20, B=1024): one fuse_lin launch per
+     tick, and one `torch.profiler` window of 3 ticks for the device's
+     busy share;
+ 17. the scenario sweeps (`sim/scenarios.py`) on the simulation preset
+     (N=60) under `deployed_solver("safe")`, swapped to "pallas" as the
+     JAX package swaps it: `disturbance_sweep` on tests/test_scenarios.py's
+     8 wind scenarios and `fault_sweep` on its 4 rotor deratings, 150
+     ticks each, blind and offset-free, one plain launch per tick for the
+     whole batch; then 20 ticks of the offset-free wind sweep at B=256,
+     timed. This phase calls its entry points without `device=` and
+     checks that their tensors are on the card (the port's default);
+ 18. the probes: P1, the largest dynamic shared memory one block can opt
+     in to and read back (16 KB up to the card's ceiling, which it must
+     reach; one more word must raise), and P2, the dependent FMA chains
+     (rows 6 to 32 of 128 lanes, 1 or 4 independent chains per thread),
+     held to the twin at 10^3 steps and timed at 10^6 (ns per dependent
+     step, and 4 chains against 1).
 
 Each phase's wall seconds and the running total are printed ("wall"
 lines).
@@ -86,7 +109,9 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     an H100: 96.8% within, the kernel's worst kkt_eq 3.4e-3 against the
     twin's 1.0e-2). The fused modes' step norms and bound violation
     within rtol 0.05 / atol 1e-3 (tests/test_batched_fused.py) on at least
-    95% of the problems;
+    95% of the problems. The plain mode at the sweeps' shape (N=60,
+    B=256) is also held at the deployed 6 iterations, there under the
+    fused modes' batch rule and without the kkt_eq cap;
   - the fuse_lin prologue's A, B and c against `fast_linearize`: rtol and
     atol 2e-4 (tests/test_fastlin.py's float32 bound);
   - closed loops: positions within 5e-2 m of the float64 golden run (the
@@ -140,6 +165,28 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     u0 agree within 5e-2 (tests/test_fused_tick.py:196);
   - long horizons: positions within 5e-2 m of the JAX package's own
     float32 "riccati" run (every fifth tick: LONG_JAX);
+  - the one-launch tick over a batch: the fuse_lin mode's rules above at
+    B=64 and at the timed B=1024 (one iteration pointwise; the full
+    budgets on the objective, kkt_eq and the step norms and box
+    violation, the batch rule);
+  - the sweeps: the criteria of tests/test_scenarios.py (the wind sweep's
+    max error < 0.6 m and mean < 0.3 m; offset-free every scenario
+    settled and max < 0.02 m; the blind controller's single-rotor fault >
+    1.0 m; every fault recovered within 0.02 m), and every scenario's
+    error within 5e-2 m of the JAX package's own float32 run of the same
+    sweep (its Riccati IPM at the same 6 iterations: SWEEP_JAX), on both
+    sides (a plant that dropped the wind would end too close), but
+    for the one scenario that run leaves more than 1 m off (the blind
+    single-rotor fault, which diverges): where a diverging loop stands
+    after 150 ticks is set by f32 rounding, so it is held to the JAX
+    test's > 1.0 m alone. The JAX test's worst kkt_eq < 1e-3 belongs to
+    its float64 12-iteration run: the JAX package's float32 6-iteration
+    sweeps reach 0.51-1.19 (SWEEP_JAX), so it is logged beside them, not
+    held;
+  - the probes: P1 reads back 3x at every size, exactly; P2 within 1e-5
+    relative of its twin after 1, 3, 17 and 10^3 steps (the kernel fuses
+    each multiply-add, the twin rounds twice; the recurrence contracts,
+    so only the short counts show a wrong step count or a dropped y).
   - warm starts (K3): the blend itself pointwise (0 IPM iterations return
     the blended initial slacks and duals; rtol 1e-5 / atol 1e-6) on valid,
     invalid (valid=0) and NaN/+inf-poisoned problems; valid=0 problems
@@ -162,6 +209,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -171,6 +219,7 @@ REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden" / "simulation_poc_100.npz"
 GOLDEN_FIG8 = REPO / "tests" / "golden" / "figure8_120.npz"
 KERNEL_SOURCE = "mpc_blaster_tpu_torch/csrc/box_qp_ipm.cu"
+PROBE_SOURCE = "mpc_blaster_tpu_torch/csrc/probes.cu"
 REPLACES = {"box_qp_ipm": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
             "box_qp_ipm_fuse_cost": "mpc_blaster_tpu/ops/pallas_ipm.py:1236",
             "box_qp_ipm_fuse_lin": "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
@@ -181,7 +230,11 @@ REPLACES = {"box_qp_ipm": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
                 "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
             "box_qp_ipm_fuse_lin_blaster_dist":
                 "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
-            "box_qp_ipm_long_horizon": "mpc_blaster_tpu/ops/pallas_ipm.py:293"}
+            "box_qp_ipm_long_horizon": "mpc_blaster_tpu/ops/pallas_ipm.py:293",
+            "box_qp_ipm_fuse_lin_batched":
+                "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
+            "probe_smem_capacity": "scripts/probe_vmem_ceiling.py:32",
+            "probe_fma_chain": "scripts/probe_r5_sublane.py:85"}
 FULL_ITERS = 12   # the simulation preset's ipm_iters
 SAFE_ITERS = 6    # deployed_solver("safe")
 FASTEST_ITERS = 3  # deployed_solver("fastest")
@@ -225,6 +278,35 @@ FIG8_TICKS = 120     # the figure-8 golden's length
 RT6F_TICKS = 220     # bench.py's fig8 rows
 OF_TICKS = 250       # bench.py's offset-free row
 Q13_TICKS = 60       # tests/test_quad13.py's hover test
+SWEEP_TICKS = 150    # tests/test_scenarios.py's sweeps
+SWEEP_B = 256        # phase 17's timed sweep batch
+SWEEP_TIMED_TICKS = 20
+# The JAX package's own float32 sweeps of phase 17 on the CPU (the
+# simulation preset at N=60 under deployed_solver("safe") with
+# qp_backend="riccati", 6 iterations, 150 ticks; tests/test_scenarios.py's
+# scenarios): per-scenario position errors in m and the worst QP kkt_eq,
+# recomputed by tests/test_torch_sweep_bounds.py.
+SWEEP_JAX = {
+    "wind_blind": {"pos_err_m": [0.3327, 0.2936, 0.2225, 0.0939, 0.4062,
+                                 0.3075, 0.0708, 0.0049],
+                   "worst_kkt_eq": 0.5066},
+    "wind_offset_free": {"pos_err_m": [0.0034, 0.0002, 0.0001, 0.0001,
+                                       0.0003, 0.0019, 0.0001, 0.0],
+                         "worst_kkt_eq": 0.5735},
+    "fault_blind": {"pos_err_m": [0.0, 0.0676, 2.593, 0.0239],
+                    "worst_kkt_eq": 1.1862},
+    "fault_offset_free": {"pos_err_m": [0.0, 0.0, 0.0, 0.0],
+                          "worst_kkt_eq": 0.0}}
+# tests/test_scenarios.py:57-62's rotor deratings
+FAULT_DERATE = ((1.0, 1.0, 1.0, 1.0), (0.8, 0.8, 0.8, 0.8),
+                (0.7, 1.0, 1.0, 1.0), (0.85, 0.85, 1.0, 1.0))
+CHAIN_STEPS = 10 ** 6   # P2's dependent steps (scripts/probe_r5_sublane.py)
+CHAIN_CHECK_STEPS = 10 ** 3
+# Short step counts where the result still depends on y and on the count
+# (the recurrence contracts by x <= 0.6 a step: after ~40 steps every
+# element is x / (1 - x) to float32 rounding, whatever y and the count)
+CHAIN_SHORT_STEPS = (1, 3, 17)
+CHAIN_ROWS = (6, 8, 16, 17, 24, 32)
 
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): float32 outside the
@@ -383,6 +465,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 WRAPPERS = ("box_qp_solve", "batched_fused_tick", "fused_rti_solve")
 KERNEL_WRAPPERS: dict = {}   # the wrappers that hold the launch counts
+PROBES = ("smem_capacity", "fma_chain")
+PROBE_WRAPPERS: dict = {}    # the probes' wrappers (no main path runs them)
 
 
 def soft_launches(fn) -> int:
@@ -398,6 +482,7 @@ def counts() -> dict:
         out[w] = fn.launches
         out[w + ".warm"] = fn.warm_launches
         out[w + ".soft"] = soft_launches(fn)
+    out.update({w: fn.launches for w, fn in PROBE_WRAPPERS.items()})
     return out
 
 
@@ -406,6 +491,8 @@ def reset_counts():
         fn.launches = 0
         fn.warm_launches = 0
         fn.by_instance = {}
+    for fn in PROBE_WRAPPERS.values():
+        fn.launches = 0
 
 
 def instance_counts() -> dict:
@@ -520,13 +607,16 @@ def objective_check(name, qp, dk, uk, dp, up, row, key, batch_rule=False):
           within=within)
 
 
-def compare_kernel(name, qp, K, time_iters=(FULL_ITERS,)):
-    """Plain-mode kernel vs plain twin on one QP batch; the report row
-    (times at FULL_ITERS as kernel_ms / plain_ms, at other `time_iters`
-    with an "_<n>it" suffix)."""
+def compare_kernel(name, qp, K, time_iters=(FULL_ITERS,),
+                   check_iters=(1, FULL_ITERS)):
+    """Plain-mode kernel vs plain twin on one QP batch, at each of
+    `check_iters`: one iteration pointwise, FULL_ITERS on the objective
+    of every problem and kkt_eq, a smaller budget under the batch rule of
+    `fused_checks`; the report row (times at FULL_ITERS as kernel_ms /
+    plain_ms, at other `time_iters` with an "_<n>it" suffix)."""
     row = {"case": name, "B": qp.A.shape[0], "N": qp.A.shape[1],
            "nx": qp.A.shape[-1], "nu": qp.B.shape[-1]}
-    for iters in (1, FULL_ITERS):
+    for iters in check_iters:
         n0 = K.box_qp_solve.launches
         sk = K.box_qp_solve(qp, iters=iters)
         torch.cuda.synchronize()
@@ -544,9 +634,12 @@ def compare_kernel(name, qp, K, time_iters=(FULL_ITERS,)):
                   case=name, u0_err=u0, max_abs_err=err)
             row["max_abs_err_1it"] = err
             continue
+        full = iters == FULL_ITERS
+        sfx = "" if full else f"_{iters}it"
         objective_check(name, qp, sk.dx, sk.du, sp.dx, sp.du, row,
-                        "obj_rel_err")
-        kkt_eq_checks(name, sk.kkt_eq, sp.kkt_eq, row, cap=5e-2)
+                        "obj_rel_err" + sfx, batch_rule=not full)
+        kkt_eq_checks(name, sk.kkt_eq, sp.kkt_eq, row, sfx,
+                      cap=5e-2 if full else None)
     for it in time_iters:
         sfx = "" if it == FULL_ITERS else f"_{it}it"
         row["kernel_ms" + sfx] = cuda_ms(
@@ -1269,6 +1362,193 @@ def loop_checks(name, res, bound):
     return xs, pos_err
 
 
+def batched_fused_case(N: int, B: int, dev, seed: int):
+    """`fused_case` with one spec per problem: every problem's altitude
+    target (yref z, +-0.5 m) and T_blast (+-2%) differ, so each
+    per-problem row of a launch is its own: (ocp, stage params, xbar,
+    ubar, x0, args, lin)."""
+    from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
+    from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
+    ocp, sp, xbar, ubar, x0, args, _ = fused_case(N, B, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def draw(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, B), dtype=torch.float32,
+                               device=dev)
+    Qs, Qt, R, yrx, yru, yre, lbx, ubx, lbu, ubu = args
+    dz = draw(-0.5, 0.5)
+    yrx = yrx.clone()
+    yrx[:, :, 2] += dz[:, None]
+    yre = yre.clone()
+    yre[:, 2] += dz
+    sp = sp.clone()
+    sp[:, :, 24] *= 1.0 + draw(-0.02, 0.02)[:, None]
+    P = BlasterParams.from_config(ocp.model, device=dev)
+    xp, A, Bm = fast_linearize(xbar, ubar, sp, P, ocp.dt)
+    return ocp, sp, xbar, ubar, x0, (Qs, Qt, R, yrx, yru, yre, lbx, ubx,
+                                     lbu, ubu), (A, Bm, xp - xbar[:, 1:])
+
+
+def compare_fuse_lin_batched(name, N, B, dev, K, seed, time_iters=()):
+    """The fuse_lin kernel over a batch of B problems, one spec each, vs
+    `fused_rti_solve_plain`: one iteration pointwise, the full budgets on
+    the objective, kkt_eq and feasibility (step norms, box violation of
+    the new iterate) under the batch rule of `fused_checks`. At each of
+    `time_iters` the kernel, its twin and fuse_cost (K5) on the same
+    problems with the host's linearization are timed on the card. The
+    report row."""
+    from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
+    ocp, sp, xbar, ubar, x0, args, (A, Bm, c) = batched_fused_case(
+        N, B, dev, seed)
+    model, dt, ns = fused_dyn_statics(ocp)
+    kw = dict(model=model, dt=dt, num_steps=ns)
+    f = K._fused_prep(xbar, ubar, x0, *args, None)
+    qp = K._fused_qp(f, A, Bm, c)
+    row = {"case": name, "B": B, "N": N}
+    for iters in (1, SAFE_ITERS, FULL_ITERS):
+        n0 = K.fused_rti_solve.launches
+        sk = K.fused_rti_solve(xbar, ubar, sp, x0, *args, iters=iters, **kw)
+        torch.cuda.synchronize()
+        check(K.fused_rti_solve.launches == n0 + 1, "kernel launched",
+              case=name)
+        spl = K.fused_rti_solve_plain(xbar, ubar, sp, x0, *args,
+                                      iters=iters, **kw)
+        xk, uk, dk = K._tick_diag(f, sk)
+        xp, up, dp = K._tick_diag(f, spl)
+        fused_checks(name, K, qp, (xk, uk), (xp, up), (xbar, ubar), iters,
+                     row, dk, dp)
+    AB = torch.cat([A, Bm], -1)
+    for it in time_iters:
+        sfx = "" if it == FULL_ITERS else f"_{it}it"
+        row["kernel_ms" + sfx] = cuda_ms(lambda: K.fused_rti_solve(
+            xbar, ubar, sp, x0, *args, iters=it, **kw), reps=10)
+        row["plain_ms" + sfx] = cuda_ms(lambda: K.fused_rti_solve_plain(
+            xbar, ubar, sp, x0, *args, iters=it, **kw), reps=1)
+        row["fuse_cost_ms" + sfx] = cuda_ms(lambda: K.batched_fused_tick(
+            AB, c, xbar, ubar, x0, *args, iters=it), reps=10)
+        row["bound_ms" + sfx] = launch_bound("fuse_lin", N, B,
+                                             it)["bound_ms"]
+    return row
+
+
+def device_busy(fn) -> dict:
+    """One `torch.profiler` window around fn(): the device's kernel time
+    (the device events' time, summed as the profiler's own table sums
+    it), the window's wall time (host clock, synchronised) and their
+    ratio, the busy share; None where the profiler recorded no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+    return {"device_ms": dev_us / 1e3, "wall_ms": wall_ms,
+            "busy_share": dev_us / 1e3 / wall_ms if dev_us > 0 else None}
+
+
+def chain_case(rows: int, nchains: int, dev, seed: int):
+    """P2's inputs: x in U[0.4, 0.6] and y as (nchains, E) chains, the
+    row groups of one (rows, 128) tile (`_chain_kernel`) where rows
+    split, else nchains separate tiles (`_sep_ref_kernel`); and the
+    layout's name."""
+    from mpc_blaster_tpu_torch.ops import probes as P
+    rng = np.random.default_rng(seed)
+    split = rows % nchains == 0
+    shape = (rows, P.LANES) if split else (nchains, rows, P.LANES)
+
+    def draw():
+        t = torch.as_tensor(rng.uniform(0.4, 0.6, shape), dtype=torch.float32,
+                            device=dev)
+        return P.chain_tiles(t, nchains) if split else P.sep_tiles(t)
+    return draw(), draw(), "row_groups" if split else "separate_tiles"
+
+
+def probe_phase(dev) -> dict:
+    """P1 and P2 on the card against their plain twins; their report
+    rows."""
+    from mpc_blaster_tpu_torch.ops import probes as P
+    # P1: opt-in shared memory, 16 KB up to the card's ceiling
+    optin = P.smem_optin_max(dev)
+    x = torch.tensor([1.25], dtype=torch.float32, device=dev)
+    sizes = sorted({kb * 1024 for kb in (16, 32, 48, 64, 96, 128, 160, 192,
+                                         224)} | {optin})
+    passed, err = [], 0.0
+    for nb in (s for s in sizes if s <= optin):
+        got = P.smem_capacity(x, nb).item()
+        want = P.smem_capacity_plain(x, nb).item()
+        err = max(err, abs(got - want))
+        check(got == want == 3.75, "smem probe reads back", bytes=nb,
+              got=got, plain=want)
+        if got == want == 3.75:
+            passed.append(nb)
+    try:
+        P.smem_capacity(x, optin + 4)
+        refused = False
+    except RuntimeError:
+        refused = True
+    torch.cuda.synchronize()
+    check(refused, "smem probe above the ceiling raises", bytes=optin + 4)
+    largest = max(passed) if passed else 0
+    check(largest == optin, "smem probe reaches the ceiling",
+          largest=largest, optin=optin)
+    p1 = {"optin_bytes": optin, "largest_bytes": largest,
+          "sizes_passed": passed, "above_ceiling_refused": refused,
+          "max_abs_err": err,
+          "ms": cuda_ms(lambda: P.smem_capacity(x, optin), reps=10),
+          "plain_ms": cuda_ms(lambda: P.smem_capacity_plain(x, optin),
+                              reps=10)}
+    # P2: the dependent FMA chains, held to the twin at short step counts
+    # (where a wrong count or a dropped y shows) and at 10^3 steps, timed
+    # at 10^6
+    p2 = {"ns_per_step": {}, "rel_err": {}, "layout": {}}
+    for rows in CHAIN_ROWS:
+        for nc in (1, 4):
+            key = f"rows{rows}_chains{nc}"
+            cx, cy, layout = chain_case(rows, nc, dev, rows * 10 + nc)
+            rel = 0.0
+            for steps in CHAIN_SHORT_STEPS + (CHAIN_CHECK_STEPS,):
+                got = P.fma_chain(cx, cy, steps)
+                want = P.fma_chain_plain(cx, cy, steps)
+                r = ((got - want).abs() / want.abs()).max().item()
+                check(bool(torch.isfinite(got).all()) and r <= 1e-5,
+                      "fma chain vs plain", case=key, steps=steps,
+                      rel_err=r)
+                rel = max(rel, r)
+            P.fma_chain(cx, cy, CHAIN_STEPS)          # warm the clocks
+            ms = cuda_ms(lambda: P.fma_chain(cx, cy, CHAIN_STEPS), reps=3)
+            p2["ns_per_step"][key] = ms * 1e6 / CHAIN_STEPS
+            p2["rel_err"][key] = rel
+            p2["layout"][key] = layout
+            if (rows, nc) == (24, 4):
+                p2["max_abs_err"] = (got - want).abs().max().item()
+                p2["ms"] = cuda_ms(lambda: P.fma_chain(
+                    cx, cy, CHAIN_CHECK_STEPS), reps=10)
+                p2["plain_ms"] = cuda_ms(lambda: P.fma_chain_plain(
+                    cx, cy, CHAIN_CHECK_STEPS), reps=1)
+                p2["elements"] = cx.numel()
+    ns = p2["ns_per_step"]
+    p2["chains4_over_chains1"] = {
+        f"rows{r}": ns[f"rows{r}_chains4"] / ns[f"rows{r}_chains1"]
+        for r in CHAIN_ROWS}
+    return {"p1": p1, "p2": p2}
+
+
+def chain_bound(elements: int, steps: int) -> dict:
+    """P2's least time: one FMA (2 FLOPs) per element and step at the
+    card's float32 rate, or its bytes (x, y read, the result written)."""
+    t_ops = 2.0 * elements * steps / PEAK_FLOPS * 1e3
+    t_bytes = 3 * 4 * elements / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this "
@@ -1292,15 +1572,20 @@ def run(dev: torch.device) -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
 
+    from mpc_blaster_tpu_torch.ops import probes as P
     KERNEL_WRAPPERS.update({w: getattr(K, w) for w in WRAPPERS})
+    PROBE_WRAPPERS.update({w: getattr(P, w) for w in PROBES})
 
-    # ---- phase 1: build the kernel library from the checkout ----
-    so, secs, build_log = K.build_library()
-    ptxas = [ln.strip() for ln in build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    K._library()
-    log("build", library=str(so.relative_to(REPO)), nvcc_s=secs,
-        ptxas=ptxas)
+    # ---- phase 1: build both kernel libraries from the checkout, one
+    # nvcc for each source, started together ----
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(lib.build_library) for lib in (K, P)]
+        built = [b.result() for b in builds]
+    for (so, secs, build_log), lib in zip(built, (K, P)):
+        lib._library()
+        log("build", library=str(so.relative_to(REPO)), nvcc_s=secs,
+            ptxas=[ln.strip() for ln in build_log.splitlines()
+                   if "registers" in ln or "spill" in ln])
 
     wall('1 build')
     # ---- phase 2: each kernel mode vs its plain twin on the card ----
@@ -1314,6 +1599,11 @@ def run(dev: torch.device) -> int:
     free = qp._replace(lbx=-inf, ubx=inf, ubu=torch.full_like(qp.ubu,
                                                               float("inf")))
     rows.append(compare_kernel("n8_b3_inf_bounds", free, K))
+    log("kernel_vs_plain", **rows[-1])
+    # the sweeps' shape (phase 17: N=60, several waves of blocks, the
+    # deployed "safe" budget)
+    rows.append(compare_kernel("n60_b256", blaster_qps(60, 256, dev), K,
+                               check_iters=(1, SAFE_ITERS, FULL_ITERS)))
     log("kernel_vs_plain", **rows[-1])
     cost_rows = [compare_fuse_cost(n, N, B, dev, K)
                  for n, N, B in (("n8_b3", 8, 3), ("n20_b1024", 20, BATCH))]
@@ -1761,6 +2051,125 @@ def run(dev: torch.device) -> int:
             **long_loop[N])
     wall("15 long horizons")
 
+    # phase 16: the one-launch tick over a batch (K6 at B > 1): the
+    # kernel vs its twin (one spec per problem), its time beside K5 at
+    # the same shape, then the batched "xla" tick over the deployed
+    # "safe" solver, one fuse_lin launch per tick
+    kb_rows = [compare_fuse_lin_batched("n20_b64", 20, 64, dev, K, 23)]
+    for r in kb_rows:
+        log("fuse_lin_batched_vs_plain", **r)
+    kb_time = compare_fuse_lin_batched(f"n20_b{BATCH}", 20, BATCH, dev, K,
+                                       24, time_iters=(SAFE_ITERS,
+                                                       FULL_ITERS))
+    log("fuse_lin_batched_time", **kb_time)
+    ocp16 = simulation_ocp(20, solver=cfg.deployed_solver("safe")).ocp
+    xstep16 = batched_rti_step(ocp16, device=dev)
+    (u0s, states, diag, ms16), c16 = counted(
+        {"fused_rti_solve": TICKS}, "batched xla tick, pallas_fused",
+        lambda: run_batched_ticks(xstep16, spec20, x0s, TICKS, ocp16),
+        instances={"fused_rti_solve[17x6 blaster]": TICKS})
+    check(bool(torch.isfinite(u0s).all() & torch.isfinite(states.xbar).all()
+               & torch.isfinite(diag.qp_kkt_eq).all()),
+          "batched xla fused tick finite")
+    busy16 = device_busy(
+        lambda: run_batched_ticks(xstep16, spec20, x0s, 3, ocp16))
+    xla_fused = {"N": 20, "B": BATCH, "ticks": TICKS, "iters": SAFE_ITERS,
+                 "launches": c16["fused_rti_solve"],
+                 "launches_per_tick": c16["fused_rti_solve"] / TICKS,
+                 "ms_per_tick": ms16, "solves_per_s": BATCH * 1000.0 / ms16,
+                 "kkt_eq_max": diag.qp_kkt_eq.max().item(),
+                 "bound_viol_max": diag.bound_viol.max().item(),
+                 "profiler_window_3_ticks": busy16}
+    log("batched_xla_fused_tick", **xla_fused)
+    wall("16 one-launch tick over a batch")
+
+    # phase 17: the scenario sweeps on the simulation preset under
+    # deployed_solver("safe") (swapped to "pallas": one plain launch per
+    # tick for the whole batch). Every entry point here is called
+    # without device=: the port's default is the card.
+    from mpc_blaster_tpu_torch.sim import scenarios as S
+    from mpc_blaster_tpu_torch.sim.closedloop import run_preset
+    pre17 = cfg.simulation_preset()
+    ocp17 = dataclasses.replace(pre17.ocp,
+                                solver=cfg.deployed_solver("safe"))
+    bare = run_preset(cfg.simulation_preset(), n_steps=1)
+    spec17 = build_spec(ocp17, yref=pre17.loop.yref)
+    scen = S.sample_scenarios(batch=8, seed=1, wind_max=0.8)
+    on_card = {"run_preset": bare.xs.device.type,
+               "build_spec": spec17.Q.device.type,
+               "sample_scenarios": scen.x0.device.type}
+    check(set(on_card.values()) == {"cuda"}, "the default device is the "
+          "card", devices=on_card)
+    sweeps = {}
+    for name, fn in (
+            ("wind_blind", lambda: S.disturbance_sweep(
+                spec17, ocp17, scen, n_steps=SWEEP_TICKS)),
+            ("wind_offset_free", lambda: S.disturbance_sweep(
+                spec17, ocp17, scen, n_steps=SWEEP_TICKS,
+                offset_free=True)),
+            ("fault_blind", lambda: S.fault_sweep(
+                spec17, ocp17, FAULT_DERATE, n_steps=SWEEP_TICKS)),
+            ("fault_offset_free", lambda: S.fault_sweep(
+                spec17, ocp17, FAULT_DERATE, n_steps=SWEEP_TICKS,
+                offset_free=True))):
+        (res, ms), c17 = counted(
+            {"box_qp_solve": SWEEP_TICKS}, f"sweep {name}",
+            lambda: timed(fn, SWEEP_TICKS),
+            instances={"box_qp_solve[17x6]": SWEEP_TICKS})
+        err = res.pos_err.cpu().numpy()
+        jax_err = np.asarray(SWEEP_JAX[name]["pos_err_m"])
+        finite = bool(torch.isfinite(res.final_states).all())
+        # a scenario the JAX run leaves more than 1 m off has diverged:
+        # where a diverging loop ends is set by f32 rounding, so it is
+        # held to the JAX test's criterion (> 1 m) below, not to the run
+        held = jax_err <= 1.0
+        check(finite and res.final_states.device.type == "cuda"
+              and bool((np.abs(err[held] - jax_err[held]) <= 5e-2).all()),
+              "sweep vs the JAX run", case=name, pos_err=err.tolist(),
+              jax=jax_err.tolist())
+        sweeps[name] = {"B": len(err), "launches": c17["box_qp_solve"],
+                        "ms_per_tick": ms, "pos_err_m": err.tolist(),
+                        "settled": res.settled.cpu().tolist(),
+                        "worst_kkt_eq": res.worst_kkt_eq.max().item(),
+                        "jax": SWEEP_JAX[name]}
+        log("sweep", case=name, N=ocp17.N, ticks=SWEEP_TICKS,
+            iters=SAFE_ITERS, **sweeps[name])
+    e = {k: np.asarray(v["pos_err_m"]) for k, v in sweeps.items()}
+    check(e["wind_blind"].max() < 0.6 and e["wind_blind"].mean() < 0.3,
+          "wind sweep near its targets", pos_err=e["wind_blind"].tolist())
+    check(all(sweeps["wind_offset_free"]["settled"])
+          and e["wind_offset_free"].max() < 0.02, "offset-free sweep "
+          "rejects the wind", pos_err=e["wind_offset_free"].tolist())
+    check(e["fault_blind"][2] > 1.0, "the single-rotor fault defeats the "
+          "blind controller", pos_err=e["fault_blind"].tolist())
+    check(all(sweeps["fault_offset_free"]["settled"])
+          and e["fault_offset_free"].max() < 0.02, "every fault recovers "
+          "with the observer", pos_err=e["fault_offset_free"].tolist())
+    scen_b = S.sample_scenarios(batch=SWEEP_B, seed=2, wind_max=0.8)
+    (res_b, ms_b), c17b = counted(
+        {"box_qp_solve": SWEEP_TIMED_TICKS}, "timed offset-free sweep",
+        lambda: timed(lambda: S.disturbance_sweep(
+            spec17, ocp17, scen_b, n_steps=SWEEP_TIMED_TICKS,
+            offset_free=True), SWEEP_TIMED_TICKS))
+    check(bool(torch.isfinite(res_b.final_states).all()),
+          "timed sweep finite")
+    sweep_timed = {"B": SWEEP_B, "ticks": SWEEP_TIMED_TICKS,
+                   "launches": c17b["box_qp_solve"],
+                   "launches_per_tick": c17b["box_qp_solve"]
+                   / SWEEP_TIMED_TICKS, "ms_per_tick": ms_b,
+                   "solves_per_s": SWEEP_B * 1000.0 / ms_b}
+    log("sweep_timed", case="wind_offset_free", N=ocp17.N,
+        default_device=on_card, **sweep_timed)
+    sweep_launches = (sum(v["launches"] for v in sweeps.values())
+                      + c17b["box_qp_solve"])
+    wall("17 sweeps")
+
+    # phase 18: the probes P1 and P2 against their twins
+    probes = probe_phase(dev)
+    log("probe_smem_capacity", **probes["p1"])
+    log("probe_fma_chain", **probes["p2"])
+    wall("18 probes")
+
     if FAILURES:
         for f in FAILURES:
             log("FAILED", **f)
@@ -1805,9 +2214,13 @@ def run(dev: torch.device) -> int:
                              for r in rs}, **extra}
 
     report = {"kernels": [
-        entry("box_qp_ipm", c3["box_qp_solve"] + c4["box_qp_solve"], rows,
+        entry("box_qp_ipm", c3["box_qp_solve"] + c4["box_qp_solve"]
+              + sweep_launches, rows,
               main_row, launch_bound("plain", 60, 1, FULL_ITERS),
-              max_obj_rel_err=max(r["obj_rel_err"] for r in rows)),
+              max_obj_rel_err=max(r["obj_rel_err"] for r in rows),
+              launches_by_path={"batched_tick": c3["box_qp_solve"],
+                                "closed_loop": c4["box_qp_solve"],
+                                "sweeps": sweep_launches}),
         entry("box_qp_ipm_fuse_cost", fused_launches, cost_rows, cost_main,
               launch_bound("fuse_cost", 20, BATCH, FULL_ITERS),
               ms_6it=cost_main["kernel_ms_6it"],
@@ -1894,6 +2307,41 @@ def run(dev: torch.device) -> int:
                           long_soft["plain_ms_12it"]],
                loop_ms_per_tick={str(k): v["ms_per_tick"]
                                  for k, v in long_loop.items()}),
+        {"name": "box_qp_ipm_fuse_lin_batched", "route": "cuda",
+         "source": KERNEL_SOURCE,
+         "replaces": REPLACES["box_qp_ipm_fuse_lin_batched"],
+         "launches": c16["fused_rti_solve"],
+         "max_abs_err": max(r["max_abs_err_1it"]
+                            for r in kb_rows + [kb_time]),
+         "ms": kb_time["kernel_ms_6it"], "plain_ms": kb_time["plain_ms_6it"],
+         "iters": SAFE_ITERS,
+         **bound_keys(launch_bound("fuse_lin", 20, BATCH, SAFE_ITERS)),
+         "ms_12it": kb_time["kernel_ms"],
+         "plain_ms_12it": kb_time["plain_ms"],
+         "bound_ms_12it": kb_time["bound_ms"],
+         "fuse_cost_ms": {"6": kb_time["fuse_cost_ms_6it"],
+                          "12": kb_time["fuse_cost_ms"]},
+         "tick": xla_fused,
+         "by_shape": {r["case"]: r for r in kb_rows + [kb_time]}},
+        {"name": "probe_smem_capacity", "route": "cuda",
+         "source": PROBE_SOURCE, "replaces": REPLACES["probe_smem_capacity"],
+         "launches": 0, "max_abs_err": probes["p1"]["max_abs_err"],
+         "ms": probes["p1"]["ms"], "plain_ms": probes["p1"]["plain_ms"],
+         "bound_ms": 8.0 / PEAK_BYTES * 1e3, "bound_by": "bytes",
+         "library_ms": None,
+         "optin_bytes": probes["p1"]["optin_bytes"],
+         "largest_bytes": probes["p1"]["largest_bytes"]},
+        {"name": "probe_fma_chain", "route": "cuda", "source": PROBE_SOURCE,
+         "replaces": REPLACES["probe_fma_chain"], "launches": 0,
+         "max_abs_err": probes["p2"]["max_abs_err"],
+         "ms": probes["p2"]["ms"], "plain_ms": probes["p2"]["plain_ms"],
+         **chain_bound(probes["p2"]["elements"], CHAIN_CHECK_STEPS),
+         "library_ms": None, "case": "rows24_chains4",
+         "steps": CHAIN_CHECK_STEPS,
+         "bound_ms_1e6_steps": chain_bound(probes["p2"]["elements"],
+                                           CHAIN_STEPS)["bound_ms"],
+         "ns_per_step": probes["p2"]["ns_per_step"],
+         "chains4_over_chains1": probes["p2"]["chains4_over_chains1"]},
     ]}
     wall("report")
     print(json.dumps(report), flush=True)

@@ -18,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.models.quad13 import Quad13Config
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.qp.data import QPData
@@ -35,6 +36,7 @@ def _fields(d) -> Mapping:
 def _from_numpy(cls, d, device, dtype, dtypes=None):
     f = _fields(d)
     dtypes = dtypes or {}
+    device = resolve_device(device)
     return cls(**{k: torch.as_tensor(np.array(f[k]),
                                      dtype=dtypes.get(k, dtype),
                                      device=device) for k in cls._fields})

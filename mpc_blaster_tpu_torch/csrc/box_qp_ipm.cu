@@ -15,7 +15,10 @@
 //   FUSE_LIN   FUSE_COST's assembly plus a linearization prologue: RK4 of a
 //              rows-form ODE on forward-mode dual numbers gives A, B and c
 //              for every node inside the kernel; deltas out
-//              (pallas_fused_rti_solve, the one-launch B=1 tick).
+//              (pallas_fused_rti_solve: the one-launch B=1 tick, and under
+//              jax.vmap the batched tick over a "pallas_fused" solver;
+//              every per-problem input, the lin record and the workspace
+//              are strided by blockIdx.x, so B > 1 is the same launch).
 //
 // The model's dimensions NX, NU and, in FUSE_LIN, its ODE family are
 // template parameters too, as the Pallas kernel takes its dimensions from

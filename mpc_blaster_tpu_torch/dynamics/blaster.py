@@ -17,6 +17,7 @@ from mpc_blaster_tpu_torch.core.rotations import (
     euler_zyx_to_rot,
     gimbal_rotation,
 )
+from mpc_blaster_tpu_torch.device import resolve_device
 
 
 class BlasterParams(NamedTuple):
@@ -32,6 +33,8 @@ class BlasterParams(NamedTuple):
     @staticmethod
     def from_config(model: cfg.ModelConfig, dtype=torch.float32,
                     device=None) -> "BlasterParams":
+        device = resolve_device(device)
+
         def t(v):
             return torch.as_tensor(v, dtype=dtype, device=device)
         return BlasterParams(
@@ -71,7 +74,7 @@ def unpack_stage_params(p: torch.Tensor):
 def default_stage_params(t_blast: float = 2.2 * 9.81, dtype=torch.float32,
                          device=None) -> torch.Tensor:
     """acados codegen defaults: zero Jacobians, hard-coded T_blast."""
-    p = torch.zeros(cfg.NP, dtype=dtype, device=device)
+    p = torch.zeros(cfg.NP, dtype=dtype, device=resolve_device(device))
     p[-1] = t_blast
     return p
 

@@ -26,6 +26,7 @@ import torch
 
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.core.rotations import quat_mul, quat_to_rot
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, _cross
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
@@ -96,6 +97,8 @@ def quad13_ode(x: torch.Tensor, u: torch.Tensor, p: torch.Tensor,
 
 def _params(c: Quad13Config, dtype=torch.float32, device=None
             ) -> BlasterParams:
+    device = resolve_device(device)
+
     def t(v):
         return torch.as_tensor(v, dtype=dtype, device=device)
     return BlasterParams(
@@ -117,6 +120,8 @@ def build_quad13_spec(c: Quad13Config, target_pos=(0.0, 0.0, 2.0),
     ubx = np.r_[[c.pos_bound] * 2, 2 * c.pos_bound, [1.01] * 4,
                 [c.vel_bound] * 3, [c.rate_bound] * 3]
 
+    device = resolve_device(device)
+
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=device)
@@ -133,7 +138,8 @@ def init_quad13_rti_state(c: Quad13Config, x0, dtype=torch.float32,
                           device=None) -> RTIState:
     """Constant-state, hover-thrust initial trajectory; `x0` may carry
     leading batch axes."""
-    x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+    x0 = torch.as_tensor(x0, dtype=dtype,
+                         device=resolve_device(device, x0))
     lead = x0.shape[:-1]
     u_h = torch.full((QUAD13_NU,), c.mass * c.gravity / 4.0, dtype=dtype,
                      device=x0.device)
@@ -186,7 +192,7 @@ def make_quad13_rti_step(c: Quad13Config, dtype=torch.float32, solver=None,
 
 def hover_state(z: float = 2.0, dtype=torch.float32,
                 device=None) -> torch.Tensor:
-    x = torch.zeros(QUAD13_NX, dtype=dtype, device=device)
+    x = torch.zeros(QUAD13_NX, dtype=dtype, device=resolve_device(device))
     x[2] = z
     x[3] = 1.0
     return x

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 
 
 class OCPSpec(NamedTuple):
@@ -73,6 +74,8 @@ def build_spec(ocp: cfg.OCPConfig, yref=None, stage_params=None,
     stage_params = np.asarray(stage_params, dtype=np.float64)
     if stage_params.ndim == 1:
         stage_params = np.tile(stage_params, (N, 1))
+
+    device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,

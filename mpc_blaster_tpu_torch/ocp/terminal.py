@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
 from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
@@ -52,7 +53,8 @@ def lqr_terminal_weight(ocp: cfg.OCPConfig, spec: OCPSpec, x_eq=None,
     RK4 + jvp linearizer (float32, as the JAX module does), solves the
     DARE with the dt-scaled stage weights (dt Q, dt R, the scaling
     `build_qp` gives the stage costs, so P is in the units of the
-    unscaled terminal slot) in float64, and returns Q_t on `device`.
+    unscaled terminal slot) in float64, and returns Q_t on `device`
+    (default: the spec's device).
 
     `drop`: state indices kept out of the DARE (at the preset's terminal
     diagonal). Default: the POC rows 14:17 when the spec's POC Jacobians
@@ -71,7 +73,7 @@ def lqr_terminal_weight(ocp: cfg.OCPConfig, spec: OCPSpec, x_eq=None,
         j_rows = _np64(spec.stage_params[0, :24])
         drop = list(range(14, cfg.NX)) if not np.any(j_rows) else []
 
-    params = BlasterParams.from_config(ocp.model, torch.float32)
+    params = BlasterParams.from_config(ocp.model, torch.float32, "cpu")
     xb = torch.as_tensor(np.tile(_np64(x_eq), (2, 1)), dtype=torch.float32)
     ub = torch.as_tensor(_np64(u_eq)[None], dtype=torch.float32)
     sp = torch.as_tensor(_np64(spec.stage_params[:1]), dtype=torch.float32)
@@ -89,4 +91,5 @@ def lqr_terminal_weight(ocp: cfg.OCPConfig, spec: OCPSpec, x_eq=None,
     P = 0.5 * (P + P.T)
     Qt = _np64(spec.Q_t).copy()
     Qt[np.ix_(keep, keep)] = P
-    return torch.as_tensor(Qt, dtype=dtype, device=device)
+    return torch.as_tensor(Qt, dtype=dtype,
+                           device=resolve_device(device, spec.Q))

@@ -17,8 +17,11 @@ and the host side of `_pallas_box_qp_solve`:
   - fuse_lin (`pallas_fused_rti_solve`): `fused_rti_solve`, twin
     `fused_rti_solve_plain`. The kernel also linearizes (RK4 of the
     model family's rows-form ODE on dual numbers,
-    `dynamics/fastlin.py::fast_linearize` is the twin): the whole B=1 RTI
-    QP is one launch.
+    `dynamics/fastlin.py::fast_linearize` is the twin): the whole RTI QP
+    is one launch, for one problem (the deployed B=1 tick) or for B
+    problems with their own iterates, stage parameters and specs (the
+    Pallas kernel under `jax.vmap`: the batched `xla` tick over a
+    "pallas_fused" solver).
 
 The kernel is instantiated per model (dimensions and, in fuse_lin, the
 ODE family of `dynamics/fastlin.py::FAMILIES`), as the Pallas kernel takes
@@ -82,11 +85,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -95,6 +93,7 @@ import torch
 
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
 from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
+from mpc_blaster_tpu_torch.ops import nvcc_build
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
 # The 6x6 Huu inverse of the kernel's `chol_inverse`: one implementation,
 # shared with the Riccati IPM.
@@ -130,13 +129,7 @@ _WARM_S_MIN = 1e-5   # _S_MIN * 1e-2, the warm slack floor
 _WARM_FIELDS = ("s_lx", "s_ux", "lam_lx", "lam_ux", "s_lu", "s_uu",
                 "lam_lu", "lam_uu")
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "box_qp_ipm.cu"
-BUILD_DIR = _PKG / "build"
-# No --use_fast_math: the f32 guards rely on IEEE division, square root
-# and rounding (e.g. 1e18 + 1e7 rounds back to 1e18).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "box_qp_ipm.cu"
 
 
 class _Prepped(NamedTuple):
@@ -698,11 +691,9 @@ def _fused_soft_rows(soft, lbx, ubx, lbu, ubu, f: _Fused):
 
 
 def _check_fused_rti(x0, model, stage_params):
-    if x0.ndim != 2 or x0.shape[0] != 1:
-        raise ValueError("fused_rti_solve is the B=1 latency path (got "
-                         f"batch {tuple(x0.shape[:-1])}); use "
-                         "batched_fused_tick or box_qp_solve for batched "
-                         "solves")
+    if x0.ndim != 2 or x0.shape[0] < 1:
+        raise ValueError("fused_rti_solve takes a batch of B >= 1 problems "
+                         f"with x0 (B, nx) (got {tuple(x0.shape)})")
     if model[0] not in FAMILY_IDS:
         raise ValueError(f"unknown model family {model[0]!r} (expected one "
                          f"of {sorted(FAMILY_IDS)})")
@@ -731,47 +722,11 @@ def _check_stream(stream_p, stream_big):
 
 # ------------------------------- the kernel -------------------------------
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
-                           "box-QP IPM kernel is built with nvcc")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _library_path() -> Path:
-    """Path of the built library for the current source and flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libbox_qp_ipm_{h.hexdigest()[:16]}.so"
-
-
 def build_library():
     """Compile `csrc/box_qp_ipm.cu` with nvcc into `build/` (rebuilt when
     the source or flags change). Returns (path, seconds, compiler log);
     seconds is 0.0 when an up-to-date build already existed."""
-    so = _library_path()
-    log = so.with_suffix(".log")
-    if so.exists():
-        return so, 0.0, log.read_text() if log.exists() else ""
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        t0 = time.perf_counter()
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                             capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-        text = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{text}")
-        log.write_text(text)
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, secs, text
+    return nvcc_build.build(SOURCE, "libbox_qp_ipm")
 
 
 @functools.cache
@@ -1109,7 +1064,9 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
     node), the cost gradients, delta bounds and dx0 all happen inside the
     IPM kernel; the counterpart of `pallas_fused_rti_solve`.
 
-    Arguments (leading batch axis B == 1 everywhere): xbar (B, N+1, nx),
+    Arguments (leading batch axis B >= 1 everywhere, one thread block per
+    problem; B > 1 is the Pallas kernel under `jax.vmap`, each problem
+    with its own rows of every argument): xbar (B, N+1, nx),
     ubar (B, N, nu), stage_params (B, N, np) the linearization point and
     the 25-dim POC parameters; x0 (B, nx); Q / R dt-scaled, Q_t unscaled;
     yref_x (B, N, nx), yref_u (B, N, nu), yref_e (B, nx); lbx/ubx (B, nx),

@@ -1,15 +1,18 @@
 """Scenario batching of the RTI tick on one device.
 
 Port of `mpc_blaster_tpu/parallel/mesh.py::batched_rti_step` with its
-three backends:
+three backends, and of `batched_rti_step_per_scenario_spec`:
 
-  - "xla" (the default): the tick of `make_rti_step(ocp)` over the batch.
-    With the presets' `qp_backend="riccati"` that is `build_qp` for every
-    scenario at once and the Riccati IPM of `qp/ipm.py` on its leading
-    batch axes (eager PyTorch, no kernel of ours: launch-bound on the
-    card); a "pallas" solver makes it the "pallas" backend below. The
-    B=1 one-launch tick ("pallas_fused") has no batched form here: use
-    backend="pallas_fused";
+  - "xla" (the default): the tick of `make_rti_step(ocp)` over the batch
+    (the JAX package vmaps it), on the solver's own QP backend. With the
+    presets' `qp_backend="riccati"` that is `build_qp` for every scenario
+    at once and the Riccati IPM of `qp/ipm.py` on its leading batch axes
+    (eager PyTorch, no kernel of ours: launch-bound on the card); a
+    "pallas" solver builds the same QPs and solves them with one launch
+    of the box-QP IPM kernel; a "pallas_fused" solver (every
+    `config.deployed_solver` profile) runs the one-launch tick over the
+    batch: linearization, assembly and solve of all B problems in one
+    launch of the fuse_lin kernel (`sqp/rti.py::fused_qp_solve_batched`);
   - "pallas": the QP assembly runs for every scenario at once
     (`torch.func.vmap` of `build_qp` with the `lin_backend` linearizer),
     then one launch of the box-QP IPM kernel solves the whole batch;
@@ -19,46 +22,79 @@ three backends:
     launch of the fuse_cost kernel (`ops/box_qp_ipm.py::
     batched_fused_tick`).
 
+`batched_rti_step_per_scenario_spec` is the "xla" tick with one spec per
+scenario (targets and gains sweeps): every spec field carries the leading
+batch axis. `batched_rti_step` takes a shared spec: no field carries it.
+Each refuses the other form. `batched_tick`, which both run (and the
+sweeps of `sim/scenarios.py` with per-scenario targets and stage
+parameters but shared gains), takes either form field by field.
+
 Multi-device sharding (`sharded_rti_step`, `sharded_sweep`) ports with
 ROADMAP queue 1 item 13.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.func import vmap
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
 from mpc_blaster_tpu_torch.sqp.rti import (RTIDiagnostics, RTIState,
                                            _bound_violation,
-                                           _check_backend, build_qp,
-                                           make_linearizer, not_ported,
-                                           qp_hessian_R,
-                                           solve_batched_qp)
+                                           _check_backend,
+                                           build_qp, fused_dyn_statics,
+                                           fused_qp_solve_batched,
+                                           make_linearizer, qp_hessian_R,
+                                           solve_batched_qp,
+                                           spec_batch_dims)
 
 
 def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
                      backend: str = "xla", device=None):
-    """The RTI tick over a scenario batch.
+    """The RTI tick over a scenario batch, on `device` (default: the card,
+    `device.py`).
 
     Returns step(spec, states, x0s) -> (u0s, states, diags); `spec` is
-    shared, states/x0s carry a leading batch axis. `backend="xla"` runs
-    the tick of `make_rti_step(ocp)` over the batch (the module
-    docstring), `backend="pallas"` solves the host-built QPs with the
-    box-QP IPM kernel, `backend="pallas_fused"` runs the fuse_cost
-    kernel.
+    shared (no field with a batch axis: `batched_rti_step_per_scenario_spec`
+    takes one spec per scenario), states/x0s carry a leading batch axis. `backend="xla"` runs the tick
+    of `make_rti_step(ocp)` over the batch (the module docstring),
+    `backend="pallas"` solves the host-built QPs with the box-QP IPM
+    kernel, `backend="pallas_fused"` runs the fuse_cost kernel.
     """
+    device = resolve_device(device)
     if backend == "xla":
-        return _batched_rti_step_xla(ocp, dtype=dtype, device=device)
+        return _batched_tick(ocp, dtype, device, per_scenario=False)
     if backend == "pallas":
-        return _batched_rti_step_pallas(ocp, dtype=dtype, device=device)
+        return _batched_tick(_with_backend(ocp, "pallas"), dtype, device,
+                             per_scenario=False)
     if backend == "pallas_fused":
         return _batched_rti_step_pallas_fused(ocp, dtype=dtype,
                                               device=device)
     raise ValueError(f"unknown batched backend {backend!r}")
+
+
+def batched_rti_step_per_scenario_spec(ocp: cfg.OCPConfig,
+                                       dtype=torch.float32, device=None):
+    """Like `batched_rti_step` (the "xla" tick), with one OCPSpec per
+    scenario: every spec field carries the leading batch axis (targets and
+    gains sweeps). On the solver's backend: "riccati" builds the QPs
+    under `vmap` and runs the Riccati IPM on the batch, "pallas" builds
+    them and makes one launch of the box-QP IPM kernel, "pallas_fused"
+    makes one launch of the fuse_lin kernel. A spec field without the
+    batch axis is refused (`batched_rti_step` takes a shared spec)."""
+    return _batched_tick(ocp, dtype, resolve_device(device),
+                         per_scenario=True)
+
+
+def _with_backend(ocp: cfg.OCPConfig, backend: str) -> cfg.OCPConfig:
+    return dataclasses.replace(ocp, solver=dataclasses.replace(
+        ocp.solver, qp_backend=backend))
 
 
 def _batched_diag(spec, sol, new_states) -> RTIDiagnostics:
@@ -69,47 +105,69 @@ def _batched_diag(spec, sol, new_states) -> RTIDiagnostics:
         bound_viol=_bound_violation(spec, new_states))
 
 
-def _batched_rti_step_xla(ocp: cfg.OCPConfig, dtype=torch.float32,
-                          device=None):
-    """`make_rti_step(ocp)`'s tick over a scenario batch (the JAX package
-    vmaps it): the host-built QPs go to the solver's own backend."""
-    solver = ocp.solver
-    if solver.qp_backend == "pallas":
-        return _batched_rti_step_pallas(ocp, dtype=dtype, device=device)
-    _check_backend(solver)
-    if solver.qp_backend == "pallas_fused":
-        raise not_ported("backend='xla' with qp_backend='pallas_fused'",
-                         "batched_xla_fused")
-
-    def solve(qps):
-        return box_qp_solve(qps, iters=solver.ipm_iters, mu0=solver.ipm_mu0,
-                            alpha_frac=solver.ipm_alpha_frac,
-                            reg=solver.ipm_reg, riccati=solver.riccati)
-    return _batched_rti_step_pallas(ocp, dtype=dtype, device=device,
-                                    solve=solve)
-
-
-def _batched_rti_step_pallas(ocp: cfg.OCPConfig, dtype=torch.float32,
-                             device=None, solve=None):
-    """`build_qp` for every scenario at once, then `solve` on the batch of
-    QPs (default: one launch of the box-QP IPM kernel)."""
+def _batched_tick(ocp: cfg.OCPConfig, dtype, device, per_scenario: bool):
+    """`make_rti_step(ocp)`'s tick over a batch (the nominal model), its
+    spec per scenario (every field with the batch axis) or shared (none)."""
     params = BlasterParams.from_config(ocp.model, dtype, device)
-    F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
-    solver = ocp.solver
-    lin = make_linearizer(ocp, params)
-    solve = solve or (lambda qps: solve_batched_qp(qps, solver))
+    tick = batched_tick(ocp.solver, params,
+                        discrete_dynamics(blaster_ode, ocp.dt, num_steps=1),
+                        make_linearizer(ocp, params),
+                        fused_dyn_statics(ocp, 1))
+    want = 0 if per_scenario else None
 
     def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
-        qps = vmap(lambda xb, ub, x: build_qp(
-            spec, RTIState(xb, ub), x, F, params, linearizer=lin,
-            solver=solver))(states.xbar, states.ubar, x0s)
-        sol = solve(qps)
-        new_states = RTIState(xbar=states.xbar + sol.dx,
-                              ubar=states.ubar + sol.du)
-        return new_states.ubar[:, 0], new_states, _batched_diag(
-            spec, sol, new_states)
+        bad = [f for f, d in zip(OCPSpec._fields, spec_batch_dims(spec))
+               if d != want]
+        if bad:
+            raise ValueError(
+                f"spec fields {bad} "
+                + ("lack the per-scenario batch axis" if per_scenario else
+                   "carry a batch axis: use "
+                   "batched_rti_step_per_scenario_spec"))
+        return tick(spec, states, x0s)
 
     return step
+
+
+def batched_tick(solver: cfg.SolverConfig, params: BlasterParams, F, lin,
+                 dyn_statics):
+    """step(spec, states, x0s) -> (u0s, states, diags): the RTI tick over a
+    batch on `solver.qp_backend`, with the controller model `F` (its
+    `linearizer` `lin`, None for jacfwd) on the host backends and the
+    kernel prologue `dyn_statics` on "pallas_fused". Spec fields with a
+    leading batch axis are per problem, the others shared."""
+    _check_backend(solver)
+    if solver.qp_backend == "pallas_fused":
+        def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
+            sol = fused_qp_solve_batched(spec, states, x0s, solver,
+                                         dyn_statics)
+            return _finish(spec, states, sol)
+        return step
+    if solver.qp_backend == "pallas":
+        def solve(qps):
+            return solve_batched_qp(qps, solver)
+    else:
+        def solve(qps):
+            return box_qp_solve(qps, iters=solver.ipm_iters,
+                                mu0=solver.ipm_mu0,
+                                alpha_frac=solver.ipm_alpha_frac,
+                                reg=solver.ipm_reg, riccati=solver.riccati)
+
+    def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
+        qps = vmap(lambda sp, xb, ub, x: build_qp(
+            sp, RTIState(xb, ub), x, F, params, linearizer=lin,
+            solver=solver), in_dims=(spec_batch_dims(spec), 0, 0, 0))(
+                spec, states.xbar, states.ubar, x0s)
+        return _finish(spec, states, solve(qps))
+
+    return step
+
+
+def _finish(spec, states, sol):
+    new_states = RTIState(xbar=states.xbar + sol.dx,
+                          ubar=states.ubar + sol.du)
+    return new_states.ubar[:, 0], new_states, _batched_diag(spec, sol,
+                                                            new_states)
 
 
 def _batched_rti_step_pallas_fused(ocp: cfg.OCPConfig, dtype=torch.float32,

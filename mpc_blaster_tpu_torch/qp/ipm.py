@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
 from mpc_blaster_tpu_torch.qp.riccati import (_mv, _t, riccati_factorize,
                                               riccati_solve_rhs)
@@ -63,6 +64,7 @@ class IpmWarmStart(NamedTuple):
 
     @staticmethod
     def zeros(N: int, nx: int, nu: int, dtype=torch.float32, device=None):
+        device = resolve_device(device)
         zx = torch.zeros((N, nx), dtype=dtype, device=device)
         zu = torch.zeros((N, nu), dtype=dtype, device=device)
         return IpmWarmStart(zx, zx, zx, zx, zu, zu, zu, zu,

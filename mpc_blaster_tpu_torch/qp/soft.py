@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
 from mpc_blaster_tpu_torch.qp.ipm import (_clip, _IpmState, _kkt_residuals,
                                           _where)
@@ -54,6 +55,7 @@ class SoftPenalty(NamedTuple):
 
     @staticmethod
     def hard(shape, dtype=torch.float32, device=None) -> "SoftPenalty":
+        device = resolve_device(device)
         return SoftPenalty(
             Z=torch.ones(shape, dtype=dtype, device=device),
             z=torch.zeros(shape, dtype=dtype, device=device),
@@ -83,6 +85,7 @@ class SoftBounds(NamedTuple):
         scalars or (nx,) vectors; `idx` optionally restricts softening to a
         subset of state components.
         """
+        device = resolve_device(device)
         Zu = Zl if Zu is None else Zu
         zu = zl if zu is None else zu
 

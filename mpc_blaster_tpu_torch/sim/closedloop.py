@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, build_spec, total_cost
@@ -147,6 +148,7 @@ def preset_stage_params(preset: cfg.Preset, dtype=torch.float32,
     from mpc_blaster_tpu_torch.dynamics.blaster import pack_stage_params
     from mpc_blaster_tpu_torch.poc.solver import PocSolver
 
+    device = resolve_device(device)
     solver = PocSolver.from_config(preset.poc).initialise()
     j_mot, j_eul, j_pos = solver.get_jacobians()
     t_blast = (2.2 * 9.81 if quirks.hardcode_t_blast
@@ -166,6 +168,7 @@ def run_preset(preset: cfg.Preset, n_steps: Optional[int] = None,
     JAX package: a warm loop is `make_closed_loop(ocp, n,
     warm_start=True)`."""
     n = n_steps if n_steps is not None else preset.loop.n_steps
+    device = resolve_device(device)
     if stage_params is None and (with_poc or poc_mode == "online"):
         stage_params = preset_stage_params(preset, dtype, device)
     spec = build_spec(preset.ocp, yref=preset.loop.yref,

@@ -10,23 +10,32 @@ is a Python loop of ticks whose tensors stay on the spec's device: under
 kernel with the "blaster_dist" prologue, and the observer update needs no
 host sync.
 
-`fault_sweep` and `disturbance_sweep` vmap the tick over scenarios, each
-with its own disturbance closure; they are not ported yet (ROADMAP queue
-1 item 11) and raise.
+`fault_sweep` and `disturbance_sweep` run a closed loop per scenario.
+The JAX package vmaps a scan of ticks over scenarios, each with its own
+disturbance closure; here they are written batch-explicit: a Python loop
+of ticks over a (B, ...) batch on the spec's device, each tick one
+`parallel/mesh.py::batched_tick` with one spec per scenario (its target
+in `yref`). The disturbances are data: the plant's wind rides in the
+stage-parameter rows 25-27 of `dist_param_ode`, and the observer's six
+estimates in the controller's rows 25-30, so one controller model serves
+the whole batch and a "pallas" tick is one kernel launch for all B.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
+from mpc_blaster_tpu_torch.parallel.mesh import batched_tick
 from mpc_blaster_tpu_torch.sqp.rti import (_check_backend, fused_dyn_statics,
-                                           init_rti_state, not_ported,
+                                           init_rti_state, make_linearizer,
                                            rti_step)
 
 
@@ -58,6 +67,7 @@ def sample_scenarios(batch: int, seed: int = 0, pos_spread: float = 0.4,
               + rng.uniform(-target_spread, target_spread,
                             (batch, 3)).astype(np.float32))
     target[:, 2] = np.clip(target[:, 2], 1.0, 4.5)
+    device = resolve_device(device)
     return ScenarioBatch(*(torch.as_tensor(a, device=device)
                            for a in (x0, wind, target)))
 
@@ -167,19 +177,124 @@ def offset_free_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, wind,
                             d_hist=torch.stack(ds), kkt_eq=torch.stack(eqs))
 
 
+def _sweep(spec: OCPSpec, ocp: cfg.OCPConfig, x0, target, plant_d, derate,
+           n_steps: int, dtype, offset_free: bool, observer_gain: float,
+           torque: bool) -> SweepResult:
+    """The closed loops of a sweep, batch-explicit on the spec's device.
+
+    x0, target: (B, nx), (B, 3); plant_d: (B, 6) the plant's force and
+    torque accelerations (rows 25-30 of `dist_param_ode`); derate: (B, 4)
+    rotor effectiveness. With `offset_free` the observer innovates the
+    force estimate (and the torque estimate when `torque`) from the
+    velocity residuals and the controller predicts with `dist_param_ode`
+    carrying the estimates, linearized with jacfwd; blind, it predicts
+    with the nominal model and `solver.lin_backend`.
+    """
+    device = spec.Q.device
+    solver = ocp.solver
+    _check_backend(solver)
+    if solver.qp_backend == "pallas_fused":
+        # the JAX rule: sweeps solve on the batched kernel, never the
+        # one-launch tick (its B=1 offset-free form is offset_free_loop)
+        solver = dataclasses.replace(solver, qp_backend="pallas")
+    params = BlasterParams.from_config(ocp.model, dtype, device)
+    F_dist = discrete_dynamics(dist_param_ode, ocp.dt, num_steps=1)
+    if offset_free:
+        # lin_backend is honoured on the nominal model only
+        step = batched_tick(solver, params, F_dist, None, None)
+    else:
+        F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
+        step = batched_tick(solver, params, F,
+                            make_linearizer(ocp, params), None)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    x, target, plant_d, derate = t(x0), t(target), t(plant_d), t(derate)
+    B, N = x.shape[0], spec.horizon
+    yref_x = spec.yref_x.expand(B, N, cfg.NX).clone()
+    yref_x[:, :, 0:3] = target[:, None]
+    yref_e = spec.yref_e.expand(B, cfg.NX).clone()
+    yref_e[:, 0:3] = target
+    spec_b = spec._replace(yref_x=yref_x, yref_e=yref_e)
+    plant_p = spec.stage_params[0].clone()
+    plant_p[-1] = 2.2 * 9.81
+    plant_p = plant_p.expand(B, plant_p.shape[0])
+    pp_plant = torch.cat([plant_p, plant_d], 1)
+    vF = torch.func.vmap(lambda xx, uu, pp: F_dist(xx, uu, pp, params))
+
+    st = init_rti_state(ocp, x, dtype)
+    d_v = torch.zeros(B, 3, dtype=dtype, device=device)
+    d_w = torch.zeros(B, 3, dtype=dtype, device=device)
+    pred = x[:, 6:12]
+    eqs = []
+    for _ in range(n_steps):
+        if offset_free:
+            # innovation: the part of v_dot (omega_dot) the model missed
+            d_v = d_v + observer_gain * (x[:, 6:9] - pred[:, 0:3]) / ocp.dt
+            if torque:
+                d_w = d_w + observer_gain * (x[:, 9:12] - pred[:, 3:6]) \
+                    / ocp.dt
+            d = torch.cat([d_v, d_w], 1)
+            spec_t = spec_b._replace(stage_params=torch.cat(
+                [spec.stage_params.expand(B, N, spec.stage_params.shape[-1]),
+                 d[:, None].expand(B, N, 6)], 2))
+        else:
+            spec_t = spec_b
+        u0, st, diag = step(spec_t, st, x)
+        u_eff = torch.cat([u0[:, 0:4] * derate, u0[:, 4:]], 1)
+        x_next = vF(x, u_eff, pp_plant)
+        if offset_free:
+            pred = vF(x, u0, torch.cat([plant_p, d], 1))[:, 6:12]
+        x = x_next
+        eqs.append(diag.qp_kkt_eq)
+    err = torch.linalg.norm(x[:, 0:3] - target, dim=-1)
+    return SweepResult(final_states=x, pos_err=err,
+                       worst_kkt_eq=torch.stack(eqs).amax(0),
+                       settled=err < 0.25)
+
+
 def fault_sweep(spec: OCPSpec, ocp: cfg.OCPConfig, derate, n_steps: int = 150,
                 dtype=torch.float32, offset_free: bool = False,
-                observer_gain: float = 0.5, hover=(0.0, 0.0, 3.5)):
-    """Fault injection and recovery over a batch of rotor deratings: not
-    ported yet (it vmaps the tick over scenarios with a disturbance
-    closure each; the port writes it batch-explicit)."""
-    raise not_ported("fault_sweep", "sweeps")
+                observer_gain: float = 0.5, hover=(0.0, 0.0, 3.5)
+                ) -> SweepResult:
+    """Fault injection and recovery over a batch of rotor deratings, on
+    the spec's device.
+
+    derate: (B, 4) per-scenario rotor effectiveness in (0, 1]: the plant
+    multiplies each rotor's commanded thrust by it; the controller is not
+    told. Every scenario starts at rest at `hover`, its target.
+    offset_free=True runs the six-channel (force + torque) constant-
+    disturbance observer: a derated rotor gives both a thrust deficit and
+    a moment imbalance, whose estimates enter the prediction model (the
+    JAX docstring: the force-only observer diverges on a 30% single-rotor
+    loss). A "pallas_fused" solver is swapped to "pallas".
+    """
+    device = spec.Q.device
+    derate = torch.as_tensor(derate, dtype=dtype, device=device)
+    B = derate.shape[0]
+    target = torch.as_tensor(hover, dtype=dtype, device=device).expand(B, 3)
+    x0 = torch.zeros(B, cfg.NX, dtype=dtype, device=device)
+    x0[:, 0:3] = target
+    return _sweep(spec, ocp, x0, target,
+                  torch.zeros(B, 6, dtype=dtype, device=device), derate,
+                  n_steps, dtype, offset_free, observer_gain, torque=True)
 
 
 def disturbance_sweep(spec: OCPSpec, ocp: cfg.OCPConfig,
                       scenarios: ScenarioBatch, n_steps: int = 120,
                       dtype=torch.float32, offset_free: bool = False,
-                      observer_gain: float = 0.5):
-    """Closed loop per wind / x0 / target scenario: not ported yet (see
-    `fault_sweep`)."""
-    raise not_ported("disturbance_sweep", "sweeps")
+                      observer_gain: float = 0.5) -> SweepResult:
+    """Closed loop per wind / x0 / target scenario, on the spec's device:
+    the controller is blind to the wind and the per-scenario target enters
+    through yref. offset_free=True turns on the force-only constant-
+    disturbance observer (its torque rows stay zero): each tick the
+    velocity residual innovates the acceleration estimate and the
+    controller plans against it. A "pallas_fused" solver is swapped to
+    "pallas"."""
+    device = spec.Q.device
+    wind = torch.as_tensor(scenarios.wind, dtype=dtype, device=device)
+    B = wind.shape[0]
+    plant_d = torch.cat([wind, torch.zeros_like(wind)], 1)
+    return _sweep(spec, ocp, scenarios.x0, scenarios.target, plant_d,
+                  torch.ones(B, 4, dtype=dtype, device=device), n_steps,
+                  dtype, offset_free, observer_gain, torque=False)

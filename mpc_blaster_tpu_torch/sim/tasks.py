@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, build_spec
@@ -135,6 +136,7 @@ def run_figure8(preset: Optional[cfg.Preset] = None, n_steps: int = 240,
     on `device`."""
     preset = preset or cfg.simulation_preset()
     ocp = preset.ocp
+    device = resolve_device(device)
     refs = figure8_refs(n_steps + ocp.N + 1, ocp.dt, **fig_kwargs)
     spec = build_spec(ocp, dtype=dtype, device=device)
     run = make_tracking_loop(ocp, n_steps, dtype=dtype,
@@ -156,6 +158,7 @@ def run_blasting(preset: Optional[cfg.Preset] = None, n_steps: int = 200,
 
     preset = preset or cfg.simulation_preset()
     ocp = preset.ocp
+    device = resolve_device(device)
     solver = PocSolver.from_config(preset.poc)
     solver.solve_jacobians([0.0, 0.0, 0.0], [0.0, 0.0], [0.0, 0.0, 3.5])
     j_mot, j_eul, j_pos = solver.get_jacobians()

@@ -30,6 +30,7 @@ import torch
 from torch.func import vmap
 
 from mpc_blaster_tpu_torch import config as cfg
+from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import (discrete_dynamics,
                                                         discrete_jacobians)
@@ -47,11 +48,6 @@ _TODO = {
     "condensed": "queue 1 item 12 (qp/condense.py)",
     "online": "queue 1 item 8 (online POC re-linearization)",
     "jac_refresh": "queue 1 item 12 (Jacobian-reuse ticks)",
-    "batched_xla_fused": "queue 1 item 7 (the B=1 one-launch tick over a "
-                         "batch; backend='pallas_fused' is the batched "
-                         "fused tick)",
-    "sweeps": "queue 1 item 11 (fault_sweep / disturbance_sweep, batch-"
-              "explicit with the disturbance carried as data)",
     "blast_scan": "queue 1 item 11 (the blast scan with the online POC "
                   "modes, plant_poc='exact', select_poc_mode / "
                   "select_carry_frac)",
@@ -84,9 +80,12 @@ class RTIDiagnostics(NamedTuple):
 
 def _bound_violation(spec: OCPSpec, state: RTIState) -> torch.Tensor:
     """Worst box-bound violation of an iterate (0 when feasible); leading
-    batch axes of the state are reduced per problem."""
-    vx = torch.maximum(spec.lbx - state.xbar, state.xbar - spec.ubx)
-    vu = torch.maximum(spec.lbu - state.ubar, state.ubar - spec.ubu)
+    batch axes of the state are reduced per problem, and the boxes may
+    carry the same batch axes (one box per problem)."""
+    lbx, ubx = spec.lbx.unsqueeze(-2), spec.ubx.unsqueeze(-2)
+    lbu, ubu = spec.lbu.unsqueeze(-2), spec.ubu.unsqueeze(-2)
+    vx = torch.maximum(lbx - state.xbar, state.xbar - ubx)
+    vu = torch.maximum(lbu - state.ubar, state.ubar - ubu)
     return torch.clamp(torch.maximum(vx.amax((-2, -1)), vu.amax((-2, -1))),
                        min=0.0)
 
@@ -105,7 +104,8 @@ def init_rti_state(ocp: cfg.OCPConfig, x0, dtype=torch.float32,
                    device=None) -> RTIState:
     """Constant-state, hover-thrust initial trajectory. `x0` may carry
     leading batch axes, which the iterate then carries too."""
-    x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+    x0 = torch.as_tensor(x0, dtype=dtype,
+                         device=resolve_device(device, x0))
     N = ocp.N
     hover = ocp.model.mass * ocp.model.gravity / 4.0
     u_hover = torch.zeros(cfg.NU, dtype=dtype, device=x0.device)
@@ -169,15 +169,39 @@ def _unbatch1(sol):
     return type(sol)(*(None if a is None else a[0] for a in sol))
 
 
-def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
-                    solver: cfg.SolverConfig, dyn_statics,
-                    warm: Optional[IpmWarmStart] = None, skip=None,
-                    soft=None):
-    """One-launch RTI QP solve: linearization, cost gradients, delta bounds
-    and dx0 are all assembled inside the IPM kernel from the iterate and
-    the raw spec tensors; `warm` blends a slack/dual warm start (K3),
-    `soft` (a `qp/soft.py::SoftBounds`) softens bounds (K4). Returns the
-    delta-form solution."""
+# Dimensions of an unbatched spec's fields; a field with one more carries a
+# leading batch axis (one row per problem).
+_SPEC_NDIM = OCPSpec(Q=2, R=2, Q_t=2, yref_x=2, yref_u=2, yref_e=1, lbx=1,
+                     ubx=1, lbu=1, ubu=1, stage_params=2, dt=0)
+
+
+def spec_batch_dims(spec: OCPSpec) -> OCPSpec:
+    """Per field, 0 where it carries a leading batch axis and None where
+    it is shared: the `in_dims` of a `vmap` over a batch of problems."""
+    return OCPSpec(*(0 if a.ndim > n else None
+                     for a, n in zip(spec, _SPEC_NDIM)))
+
+
+def batch_spec(spec: OCPSpec, B: int) -> OCPSpec:
+    """`spec` with a leading batch axis of B on every field: per-problem
+    fields keep their rows, shared ones are broadcast (views)."""
+    return OCPSpec(*(a if d == 0 else a.expand(B, *a.shape)
+                     for a, d in zip(spec, spec_batch_dims(spec))))
+
+
+def fused_qp_solve_batched(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
+                           solver: cfg.SolverConfig, dyn_statics,
+                           warm: Optional[IpmWarmStart] = None, skip=None,
+                           soft=None):
+    """One-launch RTI QP solve of B problems: linearization, cost
+    gradients, delta bounds and dx0 are all assembled inside the IPM
+    kernel (one thread block per problem) from the iterates and the raw
+    spec tensors. `state` and `x0` carry the batch axis; each spec field
+    either carries it too (one spec per problem) or is shared. `warm` (an
+    IpmWarmStart with the batch axis) blends a slack/dual warm start (K3),
+    `soft` (a `qp/soft.py::SoftBounds`) softens bounds (K4). This is what
+    `jax.vmap` of the JAX package's `_fused_qp_solve` computes. Returns
+    the delta-form solution with the batch axis."""
     from mpc_blaster_tpu_torch.ops.box_qp_ipm import fused_rti_solve
     if dyn_statics is None:
         raise ValueError(
@@ -185,19 +209,30 @@ def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
             "build ticks via make_rti_step/closed_loop, or pass "
             "dyn_statics=fused_dyn_statics(ocp, num_steps)")
     model, dt, nsteps = dyn_statics
-    dtw = spec.dt
-    Rh = qp_hessian_R(spec, solver)   # QP-only floor (gradient keeps R)
-    Rg = (dtw * spec.R)[None] if solver.qp_r_floor is not None else None
-    sol = fused_rti_solve(
-        state.xbar[None], state.ubar[None], spec.stage_params[None],
-        x0[None], (dtw * spec.Q)[None], spec.Q_t[None], (dtw * Rh)[None],
-        spec.yref_x[None], spec.yref_u[None], spec.yref_e[None],
-        spec.lbx[None], spec.ubx[None], spec.lbu[None], spec.ubu[None],
+    B = x0.shape[0]
+    s = batch_spec(spec, B)
+    dtw = s.dt.reshape(B, 1, 1)
+    Rh = qp_hessian_R(s, solver)   # QP-only floor (gradient keeps R)
+    Rg = dtw * s.R if solver.qp_r_floor is not None else None
+    return fused_rti_solve(
+        state.xbar, state.ubar, s.stage_params, x0, dtw * s.Q, s.Q_t,
+        dtw * Rh, s.yref_x, s.yref_u, s.yref_e, s.lbx, s.ubx, s.lbu, s.ubu,
         model=model, dt=dt, num_steps=nsteps, iters=solver.ipm_iters,
         mu0=solver.ipm_mu0, alpha_frac=solver.ipm_alpha_frac,
-        reg=max(solver.ipm_reg, 1e-6), warm=_batch1(warm), soft=soft,
-        R_grad=Rg, skip=skip)
-    return _unbatch1(sol)
+        reg=max(solver.ipm_reg, 1e-6), warm=warm, soft=soft, R_grad=Rg,
+        skip=skip)
+
+
+def _fused_qp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
+                    solver: cfg.SolverConfig, dyn_statics,
+                    warm: Optional[IpmWarmStart] = None, skip=None,
+                    soft=None):
+    """`fused_qp_solve_batched` of one problem (the deployed B=1 tick):
+    unbatched spec, iterate, x0 and warm start; returns the delta-form
+    solution."""
+    return _unbatch1(fused_qp_solve_batched(
+        spec, _batch1(state), x0[None], solver, dyn_statics,
+        warm=_batch1(warm), skip=skip, soft=soft))
 
 
 def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
@@ -208,8 +243,8 @@ def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
         return spec.R
     fl = torch.as_tensor(solver.qp_r_floor, dtype=spec.R.dtype,
                          device=spec.R.device)
-    d = torch.diagonal(spec.R)
-    return spec.R + torch.diag(torch.clamp(fl - d, min=0.0))
+    d = torch.diagonal(spec.R, dim1=-2, dim2=-1)
+    return spec.R + torch.diag_embed(torch.clamp(fl - d, min=0.0))
 
 
 def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
@@ -365,6 +400,7 @@ class WatchdogState(NamedTuple):
 
     @staticmethod
     def init(dtype=torch.float32, device=None) -> "WatchdogState":
+        device = resolve_device(device)
         return WatchdogState(
             ema_eq=torch.zeros((), dtype=dtype, device=device),
             trips=torch.zeros((), dtype=torch.int32, device=device),
@@ -485,7 +521,8 @@ def rti_step_soft(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
 def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
                   num_steps: int = 1, device=None):
     """Build `step(spec, state, x0) -> (u0, state, diag)` closed over the
-    static configuration."""
+    static configuration, for specs and states on `device` (default: the
+    card, `device.py`)."""
     params = BlasterParams.from_config(ocp.model, dtype, device)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=num_steps)
     solver = ocp.solver

@@ -21,6 +21,10 @@ from mpc_blaster_tpu import config as cfg
 from mpc_blaster_tpu.sim.closedloop import run_preset as jrun_preset
 from mpc_blaster_tpu_torch.sim.closedloop import run_preset
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -42,7 +46,8 @@ def test_closed_loop_matches_jax():
     positions 1e-2 m and cost 0.25 relative (each under 3x the gap)."""
     pre = _pallas_preset()
     rj = jrun_preset(pre, n_steps=5, dtype=jnp.float32, with_poc=True)
-    rt = run_preset(pre, n_steps=5, dtype=torch.float32, with_poc=True)
+    rt = run_preset(pre, n_steps=5, dtype=torch.float32, with_poc=True,
+                    device=DEV)
     xs_j, xs_t = np.asarray(rj.xs), rt.xs.numpy()
     assert xs_t.shape == xs_j.shape == (6, cfg.NX)
     assert np.isfinite(xs_t).all() and torch.isfinite(rt.us).all()
@@ -62,11 +67,11 @@ def test_preset_stage_params_match_jax():
     pre = cfg.simulation_preset()
     for jdt, tdt in ((jnp.float64, torch.float64),
                      (jnp.float32, torch.float32)):
-        p = preset_stage_params(pre, tdt)
+        p = preset_stage_params(pre, tdt, device=DEV)
         assert p.dtype == tdt
         np.testing.assert_allclose(p.numpy(), np.asarray(jpsp(pre, jdt)),
                                    rtol=1e-6, atol=1e-9)
-    assert preset_stage_params(cfg.flight_preset()) is None
+    assert preset_stage_params(cfg.flight_preset(), device=DEV) is None
 
 
 def test_convert_round_trips():
@@ -89,17 +94,17 @@ def test_convert_round_trips():
             (qp, convert.qp_from_numpy, convert.qp_to_numpy)):
         src = obj if isinstance(obj, dict) else \
             {k: np.asarray(v) for k, v in obj._asdict().items()}
-        out = back(fwd(obj, dtype=torch.float64))
+        out = back(fwd(obj, dtype=torch.float64, device=DEV))
         assert out.keys() == src.keys()
         for k in src:
             np.testing.assert_array_equal(out[k], src[k], err_msg=k)
-    spec = convert.spec_from_numpy(js)
+    spec = convert.spec_from_numpy(js, device=DEV)
     assert spec.horizon == 8 and spec.Q.dtype == torch.float32
 
 
 PORT_MODULES = [
     "mpc_blaster_tpu_torch", "mpc_blaster_tpu_torch.config",
-    "mpc_blaster_tpu_torch.convert",
+    "mpc_blaster_tpu_torch.convert", "mpc_blaster_tpu_torch.device",
     "mpc_blaster_tpu_torch.core.rotations", "mpc_blaster_tpu_torch.core.htm",
     "mpc_blaster_tpu_torch.dynamics.blaster",
     "mpc_blaster_tpu_torch.dynamics.fastlin",
@@ -109,7 +114,9 @@ PORT_MODULES = [
     "mpc_blaster_tpu_torch.models.quad13", "mpc_blaster_tpu_torch.qp.data",
     "mpc_blaster_tpu_torch.qp.smallalg", "mpc_blaster_tpu_torch.qp.riccati",
     "mpc_blaster_tpu_torch.qp.ipm", "mpc_blaster_tpu_torch.qp.soft",
-    "mpc_blaster_tpu_torch.ops.box_qp_ipm", "mpc_blaster_tpu_torch.sqp.rti",
+    "mpc_blaster_tpu_torch.ops.box_qp_ipm",
+    "mpc_blaster_tpu_torch.ops.nvcc_build", "mpc_blaster_tpu_torch.ops.probes",
+    "mpc_blaster_tpu_torch.sqp.rti",
     "mpc_blaster_tpu_torch.sim.closedloop",
     "mpc_blaster_tpu_torch.sim.scenarios", "mpc_blaster_tpu_torch.sim.tasks",
     "mpc_blaster_tpu_torch.parallel.mesh",
@@ -144,6 +151,45 @@ def test_port_imports_no_jax():
     subpackages = {m for m in found if (REPO / m.replace(".", "/")).is_dir()}
     assert set(found) - subpackages <= set(PORT_MODULES), found
     _imports_clean(PORT_MODULES + ["chip_smoke"])
+
+
+def test_default_device_is_the_card():
+    """The port runs on the CUDA card unless asked for the CPU
+    (`device.py`): an explicit device is used as given, a tensor the
+    caller hands in keeps its device, and the default is the card. On a
+    machine without one, a bare entry point raises and says how to ask
+    for the CPU; it never falls back to it."""
+    import numpy as np
+    from mpc_blaster_tpu_torch import config as tcfg
+    from mpc_blaster_tpu_torch.device import resolve_device
+    from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    from mpc_blaster_tpu_torch.parallel.mesh import batched_rti_step
+    from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
+    from mpc_blaster_tpu_torch.sim.scenarios import sample_scenarios
+    from mpc_blaster_tpu_torch.sqp.rti import init_rti_state, make_rti_step
+    t = torch.zeros(1)
+    assert resolve_device("cpu", None) == torch.device("cpu")
+    assert resolve_device(None, np.zeros(1), t) == t.device
+    pre = tcfg.simulation_preset()
+    ocp = pre.ocp
+    # a tensor's device wins over the default
+    assert init_rti_state(ocp, torch.zeros(cfg.NX)).xbar.device == t.device
+    bare = [lambda: run_preset(pre, n_steps=1),
+            lambda: build_spec(ocp), lambda: sample_scenarios(2),
+            lambda: make_rti_step(ocp), lambda: batched_rti_step(ocp),
+            lambda: BlasterParams.from_config(ocp.model),
+            lambda: init_rti_state(ocp, np.zeros(cfg.NX)),
+            lambda: IpmWarmStart.zeros(ocp.N, cfg.NX, cfg.NU)]
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        assert run_preset(pre, n_steps=1).xs.device.type == "cuda"
+    else:
+        for call in bare:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call()
+    res = run_preset(pre, n_steps=1, device="cpu")
+    assert res.xs.device.type == "cpu" and torch.isfinite(res.xs).all()
 
 
 @pytest.mark.parametrize("module", PORT_MODULES + ["chip_smoke"])
@@ -216,12 +262,14 @@ def test_out_of_slice_qp_backends_refused(backend):
                                   pre.ocp.solver, qp_backend=backend))
     pre = dataclasses.replace(pre, ocp=ocp)
     if backend == "condensed":
-        _refused(lambda: make_rti_step(ocp))
-        _refused(lambda: run_preset(pre, n_steps=1))
+        _refused(lambda: make_rti_step(ocp, device=DEV))
+        _refused(lambda: run_preset(pre, n_steps=1, device=DEV))
         return
-    assert jrun_preset is not None and make_rti_step(ocp) is not None
+    assert jrun_preset is not None and make_rti_step(ocp,
+                                                     device=DEV) is not None
     rj = jrun_preset(pre, n_steps=3, dtype=jnp.float64, with_poc=True)
-    rt = run_preset(pre, n_steps=3, dtype=torch.float64, with_poc=True)
+    rt = run_preset(pre, n_steps=3, dtype=torch.float64, with_poc=True,
+                    device=DEV)
     assert rt.us.dtype == torch.float64
     np.testing.assert_allclose(rt.us[0].numpy(), np.asarray(rj.us[0]),
                                rtol=0, atol=1e-9)
@@ -239,7 +287,7 @@ def test_out_of_slice_options_refused():
                                                solve_qp_backend)
     pre = _pallas_preset()
     ocp = pre.ocp
-    spec = build_spec(ocp)
+    spec = build_spec(ocp, device=DEV)
     x0 = torch.zeros(cfg.NX)
     # warm chains with Jacobian reuse (rti_step_warm_jacreuse) stay out
     _refused(lambda: closed_loop(spec, ocp, x0, 1, warm_start=True,
@@ -258,14 +306,17 @@ def test_out_of_slice_options_refused():
     from mpc_blaster_tpu_torch.sqp.rti import init_rti_state
     x_out = x0.clone()
     x_out[0], x_out[2] = 2.4, 2.0
-    soft = SoftBounds.state_bounds(ocp.N, cfg.NX, cfg.NU, Zl=1e3, zl=1e2)
+    soft = SoftBounds.state_bounds(ocp.N, cfg.NX, cfg.NU, Zl=1e3, zl=1e2,
+                                   device=DEV)
     u0, _, diag, res = rti_step_soft(
-        spec, init_rti_state(ocp, x_out), x_out,
-        BlasterParams.from_config(ocp.model), discrete_dynamics(
+        spec, init_rti_state(ocp, x_out, device=DEV), x_out,
+        BlasterParams.from_config(ocp.model, device=DEV), discrete_dynamics(
             blaster_ode, ocp.dt), ocp.solver, soft)
     assert torch.isfinite(u0).all() and float(res.t_ux[0, 0]) > 0.5
-    for step in (batched_rti_step(ocp), batched_rti_step(ocp,
-                                                         backend="xla")):
-        u0s, _, _ = step(spec, init_rti_state(ocp, x0[None].repeat(2, 1)),
+    for step in (batched_rti_step(ocp, device=DEV), batched_rti_step(ocp,
+                                                         backend="xla",
+                                                         device=DEV)):
+        u0s, _, _ = step(spec, init_rti_state(ocp, x0[None].repeat(2, 1),
+                                              device=DEV),
                          x0[None].repeat(2, 1))
         assert u0s.shape == (2, cfg.NU) and torch.isfinite(u0s).all()

@@ -22,6 +22,10 @@ from mpc_blaster_tpu_torch.core import rotations as trot
 from mpc_blaster_tpu_torch.dynamics import blaster as tbl
 from mpc_blaster_tpu_torch.dynamics import integrators as tint
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 DTYPES = [(np.float64, torch.float64, jnp.float64, 1e-10),
           (np.float32, torch.float32, jnp.float32, 1e-5)]
 DTYPE_IDS = ["f64", "f32"]
@@ -109,7 +113,7 @@ def _xup(npd, n=4, seed=4):
 def _params(jd, td):
     m = cfg.simulation_preset().ocp.model
     return jbl.BlasterParams.from_config(m, jd), \
-        tbl.BlasterParams.from_config(m, td)
+        tbl.BlasterParams.from_config(m, td, device=DEV)
 
 
 def test_stage_params_pack_unpack():
@@ -124,7 +128,7 @@ def test_stage_params_pack_unpack():
                     tbl.unpack_stage_params(pt)):
         _close(a, b, 0.0)
     _close(jbl.default_stage_params(dtype=jnp.float64),
-           tbl.default_stage_params(dtype=torch.float64), 0.0)
+           tbl.default_stage_params(dtype=torch.float64, device=DEV), 0.0)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=DTYPE_IDS)

@@ -6,8 +6,10 @@ each mode's warm-start blend (K3) with its valid=0, NaN and skip
 semantics; the soft-bound instantiations (K4) of the plain and fuse_lin
 modes, with the all-hard case against the hard kernel; the instantiations
 for other models: the plain mode at 13x4 (the quad13 model) and the
-fuse_lin mode with the "quad13" and "blaster_dist" prologues; and the
-plain mode at long horizons (K7, N=120 and 240).
+fuse_lin mode with the "quad13" and "blaster_dist" prologues; the
+plain mode at long horizons (K7, N=120 and 240); the fuse_lin mode over a
+batch with one spec per problem (K6 at B > 1); and the hardware probes
+P1 and P2 (`ops/probes.py`).
 
 Needs the card (marker `cuda`; skipped without one) and imports no JAX, so
 it also runs where only the port's dependencies are installed:
@@ -452,3 +454,61 @@ def test_long_horizon_kernel_matches_plain_on_gpu(cuda_device, N):
         if iters > 1:
             torch.testing.assert_close(sk.kkt_eq, sp.kkt_eq, rtol=0.2,
                                        atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 6])
+def test_fuse_lin_batched_kernel_matches_plain_on_gpu(cuda_device, iters):
+    """K6 over a batch: B=5 problems in one launch, each with its own
+    iterate, stage parameters (T_blast) and targets (yref z); the
+    prologue, one iteration and the full budget as at B=1."""
+    B = 5
+    ocp, spec, xbar, ubar, x0, args = _fused_inputs(cuda_device, B=B)
+    model, dt, nsteps = fused_dyn_statics(ocp)
+    dz = torch.linspace(-0.4, 0.4, B, device=cuda_device)
+    args = list(args)
+    args[3] = args[3].clone()
+    args[3][:, :, 2] += dz[:, None]
+    args[5] = args[5].clone()
+    args[5][:, 2] += dz
+    sp = spec.stage_params.expand(B, *spec.stage_params.shape).clone()
+    sp[:, :, 24] *= torch.linspace(0.98, 1.02, B, device=cuda_device)[:, None]
+    kw = dict(model=model, dt=dt, num_steps=nsteps, iters=iters,
+              return_lin=True)
+    n0 = K.fused_rti_solve.launches
+    sk, lin_k = K.fused_rti_solve(xbar, ubar, sp, x0, *args, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_rti_solve.launches == n0 + 1
+    spl, lin_p = K.fused_rti_solve_plain(xbar, ubar, sp, x0, *args, **kw)
+    qp = _fused_qp((xbar, ubar, x0, args), *lin_p)
+    _solve_check(sk, spl, lin_k, lin_p, qp, iters)
+    torch.testing.assert_close(sk.kkt_eq, spl.kkt_eq, rtol=0.2, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_probes_match_plain_on_gpu(cuda_device):
+    """P1 reads back 3x at 16 KB and at the card's opt-in ceiling, and
+    raises one word above it (and the next launch is clean); P2 equals
+    its twin within 1e-5 relative after 1, 3 and 17 steps (where the
+    result still depends on y and on the count) and 10^3 steps, 1 and 4
+    chains."""
+    from mpc_blaster_tpu_torch.ops import probes as P
+    optin = P.smem_optin_max(cuda_device)
+    assert optin >= 48 * 1024
+    x = torch.tensor([1.25], device=cuda_device)
+    for nb in (16 * 1024, optin):
+        assert P.smem_capacity(x, nb).item() == 3.75
+    with pytest.raises(RuntimeError, match="probe_smem_capacity"):
+        P.smem_capacity(x, optin + 4)
+    rng = np.random.default_rng(0)
+    for nc in (1, 4):
+        xs, ys = (torch.as_tensor(rng.uniform(0.4, 0.6, (nc, 768)),
+                                  dtype=torch.float32, device=cuda_device)
+                  for _ in range(2))
+        for steps in (1, 3, 17, 1000):
+            n0 = P.fma_chain.launches
+            got = P.fma_chain(xs, ys, steps)
+            torch.cuda.synchronize()
+            assert P.fma_chain.launches == n0 + 1
+            want = P.fma_chain_plain(xs, ys, steps)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0)

@@ -25,6 +25,10 @@ from mpc_blaster_tpu_torch.dynamics.fastlin import (fast_linearize,
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.sqp.rti import _linearize_nodes, make_linearizer
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 PRECS = {"f64": (jnp.float64, torch.float64, np.float64),
          "f32": (jnp.float32, torch.float32, np.float32)}
 
@@ -117,7 +121,7 @@ def test_fast_linearize_matches_port_jacfwd(case):
     prec, num_steps = case
     _, tdt, npdt = PRECS[prec]
     pre = cfg.simulation_preset()
-    tp = BlasterParams.from_config(pre.ocp.model, tdt)
+    tp = BlasterParams.from_config(pre.ocp.model, tdt, device=DEV)
     xbar, ubar, sp = (torch.as_tensor(a.astype(npdt))
                       for a in _blaster_inputs(12 if prec == "f32" else 8,
                                                seed=3))
@@ -133,7 +137,7 @@ def test_fast_linearize_batched_matches_single():
     """Leading batch axes (the batched fused tick) give each trajectory's
     own linearization, with the stage parameters shared."""
     pre = cfg.simulation_preset()
-    tp = BlasterParams.from_config(pre.ocp.model, torch.float64)
+    tp = BlasterParams.from_config(pre.ocp.model, torch.float64, device=DEV)
     ins = [_blaster_inputs(6, seed=s) for s in (1, 2)]
     sp = torch.as_tensor(ins[0][2])
     xbs = torch.as_tensor(np.stack([i[0] for i in ins]))
@@ -147,7 +151,7 @@ def test_fast_linearize_batched_matches_single():
 
 def test_make_linearizer_fused_and_unknown():
     pre = cfg.simulation_preset()
-    tp = BlasterParams.from_config(pre.ocp.model, torch.float64)
+    tp = BlasterParams.from_config(pre.ocp.model, torch.float64, device=DEV)
     ocp = dataclasses.replace(pre.ocp, N=6, Tf=0.2, solver=dataclasses.replace(
         pre.ocp.solver, lin_backend="fused"))
     lin = make_linearizer(ocp, tp)

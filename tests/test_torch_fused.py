@@ -42,6 +42,10 @@ from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 from mpc_blaster_tpu_torch.parallel.mesh import batched_rti_step
 from mpc_blaster_tpu_torch.sqp import rti as trti
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 
 def _ocp(N=8, ipm_iters=6, backend="pallas_fused", **kw):
     base = jcfg.simulation_preset().ocp
@@ -55,7 +59,8 @@ def _ocp(N=8, ipm_iters=6, backend="pallas_fused", **kw):
 def _spec_pair(ocp, yref=True):
     js = jbuild_spec(ocp, yref=(np.asarray(jcfg.simulation_preset().loop.yref)
                                 if yref else None), dtype=jnp.float32)
-    ts = spec_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()})
+    ts = spec_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()},
+                         device=DEV)
     return js, ts
 
 
@@ -77,8 +82,8 @@ def _batched_pair(ocp, B=3):
     jst = jax.vmap(lambda x: jrti.init_rti_state(ocp, x))(jnp.asarray(x0s))
     j = jbatched(ocp, jit=False, backend="pallas_fused")(
         js, jst, jnp.asarray(x0s))
-    t = batched_rti_step(ocp, backend="pallas_fused")(
-        ts, trti.init_rti_state(ocp, torch.as_tensor(x0s)),
+    t = batched_rti_step(ocp, backend="pallas_fused", device=DEV)(
+        ts, trti.init_rti_state(ocp, torch.as_tensor(x0s), device=DEV),
         torch.as_tensor(x0s))
     return js, jst, x0s, j, t
 
@@ -133,8 +138,8 @@ def test_batched_fused_chain_stays_finite():
     ocp = _ocp()
     _, ts = _spec_pair(ocp, yref=False)
     x0 = torch.as_tensor(_x0s(2))
-    states = trti.init_rti_state(ocp, x0)
-    step = batched_rti_step(ocp, backend="pallas_fused")
+    states = trti.init_rti_state(ocp, x0, device=DEV)
+    step = batched_rti_step(ocp, backend="pallas_fused", device=DEV)
     eqs = []
     for _ in range(3):
         _, states, dg = step(ts, states, x0)
@@ -156,10 +161,13 @@ def test_qp_r_floor_hessian_only():
         ocp0.solver, qp_r_floor=(0.0,) * 6))
     _, ts = _spec_pair(ocp0, yref=False)
     x0 = torch.as_tensor(_x0s(2))
-    st = trti.init_rti_state(ocp0, x0)
-    u0, s0, _ = batched_rti_step(ocp0, backend="pallas_fused")(ts, st, x0)
-    uf, sf, _ = batched_rti_step(floored, backend="pallas_fused")(ts, st, x0)
-    uz, _, _ = batched_rti_step(zero, backend="pallas_fused")(ts, st, x0)
+    st = trti.init_rti_state(ocp0, x0, device=DEV)
+    u0, s0, _ = batched_rti_step(ocp0, backend="pallas_fused",
+                                 device=DEV)(ts, st, x0)
+    uf, sf, _ = batched_rti_step(floored, backend="pallas_fused",
+                                 device=DEV)(ts, st, x0)
+    uz, _, _ = batched_rti_step(zero, backend="pallas_fused",
+                                device=DEV)(ts, st, x0)
     assert torch.equal(uz, u0)
     d0 = (s0.ubar[:, :, 4:6] - st.ubar[:, :, 4:6]).abs().max()
     df = (sf.ubar[:, :, 4:6] - st.ubar[:, :, 4:6]).abs().max()
@@ -173,8 +181,8 @@ def test_qp_r_floor_hessian_only():
     jst = jrti.init_rti_state(floored, jnp.asarray(x0))
     u_j, _, _ = jrti.make_rti_step(floored, jit=False)(js, jst,
                                                        jnp.asarray(x0))
-    u_t, _, _ = trti.make_rti_step(floored)(
-        ts, rti_state_from_numpy(_np(jst)), torch.as_tensor(x0))
+    u_t, _, _ = trti.make_rti_step(floored, device=DEV)(
+        ts, rti_state_from_numpy(_np(jst), device=DEV), torch.as_tensor(x0))
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=0,
                                atol=2e-3)
 
@@ -191,8 +199,8 @@ def test_fused_tick_matches_jax(ipm_iters):
     u_j, st_j, dg_j = jrti.make_rti_step(ocp, jit=False)(js, jst,
                                                          jnp.asarray(x0))
     n0 = K.fused_rti_solve.launches
-    u_t, st_t, dg_t = trti.make_rti_step(ocp)(
-        ts, rti_state_from_numpy(_np(jst)), torch.as_tensor(x0))
+    u_t, st_t, dg_t = trti.make_rti_step(ocp, device=DEV)(
+        ts, rti_state_from_numpy(_np(jst), device=DEV), torch.as_tensor(x0))
     assert K.fused_rti_solve.launches == n0   # CPU: the plain twin
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=0,
                                atol=2e-3)
@@ -230,8 +238,8 @@ def test_fused_lin_backend_on_pallas_matches_jax():
     jst = jrti.init_rti_state(ocp, jnp.asarray(x0))
     u_j, st_j, _ = jrti.make_rti_step(ocp, jit=False)(js, jst,
                                                       jnp.asarray(x0))
-    u_t, st_t, _ = trti.make_rti_step(ocp)(
-        ts, rti_state_from_numpy(_np(jst)), torch.as_tensor(x0))
+    u_t, st_t, _ = trti.make_rti_step(ocp, device=DEV)(
+        ts, rti_state_from_numpy(_np(jst), device=DEV), torch.as_tensor(x0))
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=0,
                                atol=2e-3)
     np.testing.assert_allclose(st_t.ubar.numpy(), np.asarray(st_j.ubar),
@@ -252,7 +260,8 @@ def test_fused_closed_loop_matches_jax():
     pre = dataclasses.replace(pre, ocp=dataclasses.replace(
         pre.ocp, N=8, Tf=8 / 30.0, solver=cfg.deployed_solver("safe")))
     rj = jrun_preset(pre, n_steps=5, dtype=jnp.float32, with_poc=True)
-    rt = run_preset(pre, n_steps=5, dtype=torch.float32, with_poc=True)
+    rt = run_preset(pre, n_steps=5, dtype=torch.float32, with_poc=True,
+                    device=DEV)
     xs_j, xs_t = np.asarray(rj.xs), rt.xs.numpy()
     assert xs_t.shape == xs_j.shape == (6, jcfg.NX)
     assert np.isfinite(xs_t).all() and torch.isfinite(rt.us).all()
@@ -268,7 +277,7 @@ def test_fused_wrappers_run_plain_twins_on_cpu():
     ocp = _ocp()
     _, ts = _spec_pair(ocp)
     x0 = torch.as_tensor(_x0s(1))
-    st = trti.init_rti_state(ocp, x0)
+    st = trti.init_rti_state(ocp, x0, device=DEV)
     model, dt, ns = trti.fused_dyn_statics(ocp)
     args = (st.xbar, st.ubar, ts.stage_params[None], x0,
             (ts.dt * ts.Q)[None], ts.Q_t[None], (ts.dt * ts.R)[None],
@@ -284,7 +293,8 @@ def test_fused_wrappers_run_plain_twins_on_cpu():
     from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
     from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
     xp, A, Bm = fast_linearize(st.xbar, st.ubar, ts.stage_params,
-                               BlasterParams.from_config(ocp.model), dt)
+                               BlasterParams.from_config(ocp.model,
+                                                         device=DEV), dt)
     fargs = (torch.cat([A, Bm], -1), xp - st.xbar[:, 1:], *args[:2],
              *args[3:])
     n0 = K.batched_fused_tick.launches
@@ -298,7 +308,8 @@ def test_fused_wrappers_run_plain_twins_on_cpu():
 
 
 def test_fused_refusals():
-    """B != 1 on the one-launch tick, missing dynamics statics, an unknown
+    """An x0 without the batch axis on the one-launch tick (B = 2 runs,
+    each problem as its own B=1 solve), missing dynamics statics, an unknown
     family or too few stage parameters for one ("blaster_dist" reads rows
     25-30; it and "quad13" run since the fuse_lin kernel has their
     prologues), soft bounds with a warm start and with the "blaster_dist"
@@ -311,14 +322,20 @@ def test_fused_refusals():
     ocp = _ocp()
     _, ts = _spec_pair(ocp)
     x0 = torch.as_tensor(_x0s(2))
-    st = trti.init_rti_state(ocp, x0)
+    st = trti.init_rti_state(ocp, x0, device=DEV)
     model, dt, ns = trti.fused_dyn_statics(ocp)
     args = (st.xbar, st.ubar, ts.stage_params.expand(2, -1, -1), x0,
             *(a.expand(2, *a.shape) for a in (
                 ts.dt * ts.Q, ts.Q_t, ts.dt * ts.R, ts.yref_x, ts.yref_u,
                 ts.yref_e, ts.lbx, ts.ubx, ts.lbu, ts.ubu)))
-    with pytest.raises(ValueError, match="B=1"):
-        K.fused_rti_solve(*args, model=model, dt=dt)
+    two = K.fused_rti_solve(*args, model=model, dt=dt, iters=2)
+    for i in range(2):
+        solo = K.fused_rti_solve(*(a[i:i + 1] for a in args), model=model,
+                                 dt=dt, iters=2)
+        torch.testing.assert_close(two.du[i:i + 1], solo.du, rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="B >= 1"):
+        K.fused_rti_solve(*args[:3], x0[0], *args[4:], model=model, dt=dt)
     one = tuple(a[:1] for a in args)
     with pytest.raises(ValueError, match="unknown model family"):
         K.fused_rti_solve(*one, model=("quad14",) + model[1:], dt=dt)
@@ -332,21 +349,22 @@ def test_fused_refusals():
     torch.testing.assert_close(a.du, b.du, rtol=0, atol=1e-5)
     # a warm start must carry the launch's batch axis (valid (B,))
     with pytest.raises(ValueError, match="warm.valid"):
-        K._warm_args(trti.IpmWarmStart.zeros(8, 17, 6), 1, 8, 17, 6,
+        K._warm_args(trti.IpmWarmStart.zeros(8, 17, 6,
+                                             device=DEV), 1, 8, 17, 6,
                      x0.device)
     from mpc_blaster_tpu_torch.qp.soft import SoftBounds
-    soft = SoftBounds.state_bounds(ocp.N, 17, 6, Zl=1e3, zl=1e2)
+    soft = SoftBounds.state_bounds(ocp.N, 17, 6, Zl=1e3, zl=1e2, device=DEV)
     with pytest.raises(ValueError, match="soft bounds do not support"):
         K.fused_rti_solve(*one, model=model, dt=dt, soft=soft,
                           warm=trti.IpmWarmStart(*(
                               a[None] for a in trti.IpmWarmStart.zeros(
-                                  ocp.N, 17, 6))))
+                                  ocp.N, 17, 6, device=DEV))))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
         K.fused_rti_solve(*one[:2], sp31, *one[3:], dt=dt, soft=soft,
                           model=("blaster_dist",) + model[1:])
     with pytest.raises(ValueError, match="dyn_statics"):
         trti.rti_step(ts, _first(st), x0[0], BlasterParams.from_config(
-            ocp.model), None, ocp.solver)
+            ocp.model, device=DEV), None, ocp.solver)
     assert dataclasses.asdict(cfg.deployed_solver("fastest")) == \
         dataclasses.asdict(jcfg.deployed_solver("fastest"))
     for profile, iters in (("safe", 6), ("fast", 4)):

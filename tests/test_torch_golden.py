@@ -26,6 +26,10 @@ import torch
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.sim.closedloop import run_preset
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 GOLDEN = Path(__file__).resolve().parent / "golden"
 POS_ATOL, STATE_ATOL, U_ATOL = 1e-4, 2e-2, 0.5
 
@@ -33,7 +37,7 @@ POS_ATOL, STATE_ATOL, U_ATOL = 1e-4, 2e-2, 0.5
 def _check(preset, name, n_steps, with_poc):
     g = np.load(GOLDEN / name)
     res = run_preset(preset, n_steps=n_steps, dtype=torch.float64,
-                     with_poc=with_poc)
+                     with_poc=with_poc, device=DEV)
     xs, us = res.xs.numpy(), res.us.numpy()
     assert xs.shape == g["xs"][:n_steps + 1].shape
     np.testing.assert_allclose(xs[:, 0:3], g["xs"][:n_steps + 1, 0:3],

@@ -33,6 +33,10 @@ from mpc_blaster_tpu.qp.data import qp_objective
 from mpc_blaster_tpu_torch.convert import qp_from_numpy
 from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 
 def _blaster_qps(B=2, N=8):
     """Linearized BLASTER QPs at different states (the JAX package's
@@ -57,7 +61,8 @@ def _blaster_qps(B=2, N=8):
 
 
 def _to_torch(jd):
-    return qp_from_numpy({k: np.asarray(v) for k, v in jd._asdict().items()})
+    return qp_from_numpy({k: np.asarray(v) for k, v in jd._asdict().items()},
+                         device=DEV)
 
 
 def _objectives(jd, sol):

@@ -27,13 +27,17 @@ from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
 from mpc_blaster_tpu_torch.qp.riccati import lqr_kkt_residuals, lqr_solve
 from test_qp import _check_box_kkt, dense_equality_solve, random_qp
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 ATOL = 1e-10
 
 
 def _t(jd):
     """The port's float64 QPData from a JAX one."""
     return qp_from_numpy({k: np.asarray(v) for k, v in jd._asdict().items()},
-                         dtype=torch.float64)
+                         dtype=torch.float64, device=DEV)
 
 
 def _close(t, j, atol=ATOL, err_msg=""):
@@ -150,7 +154,8 @@ def test_ipm_float32_floors_match_jax():
     (measured 6.6e-7 on du; bound 1e-4)."""
     data, _ = _active_box(random_qp(seed=3), 0.4, 5.0)
     d32 = jax.tree.map(lambda a: a.astype(jnp.float32), data)
-    t32 = qp_from_numpy({k: np.asarray(v) for k, v in d32._asdict().items()})
+    t32 = qp_from_numpy({k: np.asarray(v) for k, v in d32._asdict().items()},
+                        device=DEV)
     sol = box_qp_solve(t32, iters=15)
     ref = jipm.box_qp_solve(d32, iters=15)
     assert sol.du.dtype == torch.float32

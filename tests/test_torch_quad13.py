@@ -22,6 +22,7 @@ Tolerances and why:
     as tests/test_quad13.py:90-91.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import jax.numpy as jnp
@@ -49,6 +50,10 @@ from mpc_blaster_tpu_torch.qp.data import qp_objective
 from test_torch_ipm import (_assert_full_solve_parity,
                             _assert_one_iteration_parity)
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 
 def _np(x):
     return {k: np.asarray(v) for k, v in x._asdict().items()}
@@ -69,7 +74,8 @@ def test_quad13_ode_rk4_and_spec_match_jax():
     tc = TQ.Quad13Config()
     assert dataclasses.asdict(tc) == dataclasses.asdict(c)
     assert (TQ.QUAD13_NX, TQ.QUAD13_NU) == (JQ.QUAD13_NX, JQ.QUAD13_NU)
-    jp, tp = JQ._params(c, jnp.float64), TQ._params(tc, torch.float64)
+    jp, tp = JQ._params(c, jnp.float64), TQ._params(tc, torch.float64,
+                                                    device=DEV)
     Fj, Ft = jdd(JQ.quad13_ode, c.dt), discrete_dynamics(TQ.quad13_ode,
                                                         tc.dt)
     p0 = np.zeros(1)
@@ -87,20 +93,21 @@ def test_quad13_ode_rk4_and_spec_match_jax():
             np.asarray(Fj(jx, ju, jnp.asarray(p0), jp)), rtol=0, atol=1e-12)
     # the hover trim is an equilibrium
     u_h = torch.full((4,), tc.mass * tc.gravity / 4.0, dtype=torch.float64)
-    xd = TQ.quad13_ode(TQ.hover_state(2.0, torch.float64), u_h,
+    xd = TQ.quad13_ode(TQ.hover_state(2.0, torch.float64, device=DEV), u_h,
                        torch.zeros(1, dtype=torch.float64), tp)
     assert xd.abs().max().item() < 1e-12
     js = JQ.build_quad13_spec(c, target_pos=(0.3, -0.2, 1.5),
                               dtype=jnp.float64)
     ts = TQ.build_quad13_spec(tc, target_pos=(0.3, -0.2, 1.5),
-                              dtype=torch.float64)
+                              dtype=torch.float64, device=DEV)
     for k, v in _np(js).items():
         np.testing.assert_allclose(getattr(ts, k).numpy(), v, rtol=0,
                                    atol=1e-12, err_msg=k)
     st_j = JQ.init_quad13_rti_state(c, JQ.hover_state(1.0, jnp.float64),
                                     jnp.float64)
-    st_t = TQ.init_quad13_rti_state(tc, TQ.hover_state(1.0, torch.float64),
-                                    torch.float64)
+    st_t = TQ.init_quad13_rti_state(tc, TQ.hover_state(1.0, torch.float64,
+                                                       device=DEV),
+                                    torch.float64, device=DEV)
     for k, v in _np(st_j).items():
         np.testing.assert_array_equal(getattr(st_t, k).numpy(), v)
     assert TQ.quad13_dyn_statics(tc, 2) == JQ.quad13_dyn_statics(c, 2)
@@ -133,7 +140,10 @@ def test_plain_twin_13x4_matches_pallas(quad13_qps, iters):
     assert K.box_qp_solve.launches == n0
 
 
+@functools.cache
 def _fused_args(N=8, z=1.7):
+    """The fused arguments at a perturbed hover (JAX and port copies),
+    built once for the module: the JAX build dispatches op by op."""
     c = JQ.Quad13Config(N=N, Tf=N / 30.0)
     js = JQ.build_quad13_spec(c, dtype=jnp.float32)
     x0 = JQ.hover_state(z)
@@ -198,9 +208,9 @@ def test_quad13_riccati_tick_matches_jax_f64():
     u_j, st_j, dg_j = JQ.make_quad13_rti_step(
         c, dtype=jnp.float64, solver=sv)(js, jst, x0)
     u_t, st_t, dg_t = TQ.make_quad13_rti_step(
-        tc, dtype=torch.float64, solver=tsv)(
-        spec_from_numpy(_np(js), dtype=torch.float64),
-        rti_state_from_numpy(_np(jst), dtype=torch.float64),
+        tc, dtype=torch.float64, solver=tsv, device=DEV)(
+        spec_from_numpy(_np(js), dtype=torch.float64, device=DEV),
+        rti_state_from_numpy(_np(jst), dtype=torch.float64, device=DEV),
         torch.as_tensor(np.array(x0)))
     assert u_t.dtype == torch.float64
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=0,
@@ -217,14 +227,15 @@ def test_quad13_kernel_backends_match_riccati():
     (the 13x4 plain twin here) and "pallas_fused" (the quad13 fuse_lin
     twin) against "riccati", float32."""
     tc = TQ.Quad13Config(N=8)
-    spec = TQ.build_quad13_spec(tc, target_pos=(0.0, 0.0, 1.4))
-    x0 = TQ.hover_state(1.0)
-    st = TQ.init_quad13_rti_state(tc, x0)
+    spec = TQ.build_quad13_spec(tc, target_pos=(0.0, 0.0, 1.4), device=DEV)
+    x0 = TQ.hover_state(1.0, device=DEV)
+    st = TQ.init_quad13_rti_state(tc, x0, device=DEV)
     outs = {}
     for backend in ("riccati", "pallas", "pallas_fused"):
         sv = dataclasses.replace(cfg.SolverConfig(), qp_backend=backend,
                                  ipm_iters=8)
-        u0, _, diag = TQ.make_quad13_rti_step(tc, solver=sv)(spec, st, x0)
+        u0, _, diag = TQ.make_quad13_rti_step(tc, solver=sv,
+                                              device=DEV)(spec, st, x0)
         assert torch.isfinite(u0).all()
         assert float(diag.qp_kkt_eq) < 1e-2
         outs[backend] = u0.numpy()
@@ -239,7 +250,7 @@ def test_quad13_refusals_and_config_round_trip(quad13_qps):
     a ValueError; the config survives its numpy round trip."""
     _, td = quad13_qps
     from mpc_blaster_tpu_torch.qp.soft import SoftBounds
-    soft = SoftBounds.state_bounds(8, 13, 4, Zl=1e3, zl=1e2)
+    soft = SoftBounds.state_bounds(8, 13, 4, Zl=1e3, zl=1e2, device=DEV)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
         K.box_qp_solve(td, iters=1, soft=soft)
     c, js, st, jargs, targs, kw = _fused_args()

@@ -33,6 +33,10 @@ from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.parallel.mesh import batched_rti_step
 from mpc_blaster_tpu_torch.sqp import rti as trti
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 
 def _ocp(N=8, ipm_iters=6):
     base = cfg.simulation_preset().ocp
@@ -54,7 +58,7 @@ def _spec_pair(ocp, jdtype=jnp.float32, tdtype=torch.float32):
     pre = cfg.simulation_preset()
     js = jbuild_spec(ocp, yref=np.asarray(pre.loop.yref), dtype=jdtype)
     ts = spec_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()},
-                         dtype=tdtype)
+                         dtype=tdtype, device=DEV)
     return js, ts
 
 
@@ -76,16 +80,17 @@ def test_build_qp_matches_jax(prec):
     jst = jrti.RTIState(
         xbar=jst.xbar + jnp.asarray(rng.normal(0, 0.05, jst.xbar.shape), jdt),
         ubar=jst.ubar + jnp.asarray(rng.normal(0, 0.5, jst.ubar.shape), jdt))
-    tst = rti_state_from_numpy(_np(jst), dtype=tdt)
+    tst = rti_state_from_numpy(_np(jst), dtype=tdt, device=DEV)
     np.testing.assert_array_equal(
-        trti.init_rti_state(ocp, torch.as_tensor(x0), tdt).ubar.numpy(),
+        trti.init_rti_state(ocp, torch.as_tensor(x0), tdt,
+                            device=DEV).ubar.numpy(),
         np.asarray(jrti.init_rti_state(ocp, jnp.asarray(x0), jdt).ubar))
     F, P = jdd(jode, ocp.dt), JBP.from_config(ocp.model, jdt)
     jq = jax.jit(lambda st, x: jrti.build_qp(js, st, x, F, P))(
         jst, jnp.asarray(x0))
     tq = trti.build_qp(ts, tst, torch.as_tensor(x0),
                        discrete_dynamics(blaster_ode, ocp.dt),
-                       BlasterParams.from_config(ocp.model, tdt))
+                       BlasterParams.from_config(ocp.model, tdt, device=DEV))
     tq = qp_to_numpy(tq)
     rtol, atol = (1e-12, 1e-10) if prec == "f64" else (1e-6, 1e-6)
     for f, a in _np(jq).items():
@@ -109,8 +114,8 @@ def test_rti_step_matches_jax_one_iteration():
     x0 = _x0s(1)[0]
     jst = jrti.init_rti_state(ocp, jnp.asarray(x0))
     u_j, st_j, dg_j = jrti.make_rti_step(ocp)(js, jst, jnp.asarray(x0))
-    step = trti.make_rti_step(ocp)
-    u_t, st_t, dg_t = step(ts, rti_state_from_numpy(_np(jst)),
+    step = trti.make_rti_step(ocp, device=DEV)
+    u_t, st_t, dg_t = step(ts, rti_state_from_numpy(_np(jst), device=DEV),
                            torch.as_tensor(x0))
     np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=0,
                                atol=2e-3)
@@ -135,8 +140,8 @@ def test_batched_rti_step_matches_jax(ipm_iters):
     jst = jax.vmap(lambda x: jrti.init_rti_state(ocp, x))(jnp.asarray(x0s))
     u_j, st_j, dg_j = jbatched(ocp, jit=False, backend="pallas")(
         js, jst, jnp.asarray(x0s))
-    u_t, st_t, dg_t = batched_rti_step(ocp, backend="pallas")(
-        ts, trti.init_rti_state(ocp, torch.as_tensor(x0s)),
+    u_t, st_t, dg_t = batched_rti_step(ocp, backend="pallas", device=DEV)(
+        ts, trti.init_rti_state(ocp, torch.as_tensor(x0s), device=DEV),
         torch.as_tensor(x0s))
     assert u_t.shape == (3, cfg.NU) and st_t.xbar.shape == st_j.xbar.shape
     if ipm_iters == 1:

@@ -50,6 +50,11 @@ from mpc_blaster_tpu_torch.ocp import terminal as TT
 from mpc_blaster_tpu_torch.sim import scenarios as TS
 
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
+
 def _np(x):
     return {k: np.asarray(v) for k, v in x._asdict().items()}
 
@@ -74,11 +79,12 @@ def _tocp(N, backend="riccati", iters=6):
 def _spec_pair(ocp, dtype=jnp.float32, tdtype=torch.float32):
     js = jbuild_spec(ocp, yref=np.asarray(jcfg.simulation_preset().loop.yref),
                      dtype=dtype)
-    return js, spec_from_numpy(_np(js), dtype=tdtype)
+    return js, spec_from_numpy(_np(js), dtype=tdtype, device=DEV)
 
 
 def test_sample_scenarios_and_disturbance_odes_match_jax():
-    a, b = JS.sample_scenarios(5, seed=3), TS.sample_scenarios(5, seed=3)
+    a, b = JS.sample_scenarios(5, seed=3), TS.sample_scenarios(5, seed=3,
+                                                               device=DEV)
     for f in a._fields:
         np.testing.assert_array_equal(getattr(b, f).numpy(),
                                       np.asarray(getattr(a, f)), err_msg=f)
@@ -89,7 +95,7 @@ def test_sample_scenarios_and_disturbance_odes_match_jax():
     d = rng.normal(0, 0.5, 6)
     jp = JBP.from_config(jcfg.simulation_preset().ocp.model, jnp.float64)
     tp = BlasterParams.from_config(cfg.simulation_preset().ocp.model,
-                                   torch.float64)
+                                   torch.float64, device=DEV)
     J, T = (jnp.asarray, torch.as_tensor)
     for jf, tf in (
             (lambda: JS._windy_plant_ode(J(x), J(u), J(p[:25]), jp,
@@ -148,7 +154,7 @@ def test_offset_free_loop_riccati_matches_jax_f64():
     # the observer has learned the wind (tests/test_scenarios.py)
     np.testing.assert_allclose(rt.d_hist[-1, 0:3].numpy(), wind, atol=0.05)
     back = offset_free_from_numpy(offset_free_to_numpy(rt),
-                                  dtype=torch.float64)
+                                  dtype=torch.float64, device=DEV)
     for f in rt._fields:
         assert torch.equal(getattr(back, f), getattr(rt, f)), f
 
@@ -222,11 +228,19 @@ def test_fused_twin_blaster_dist_matches_pallas(iters):
 
 
 def test_sweeps_refused():
+    """The sweeps run since they were ported (tests/test_torch_sweeps.py
+    holds them against the JAX package): a "pallas_fused" solver is
+    swapped to "pallas" as in the JAX package, never refused, so both
+    give the same sweep bit for bit; a QP backend the port lacks is still
+    refused."""
     _, ts = _spec_pair(_ocp(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        TS.fault_sweep(ts, _tocp(8), torch.ones(2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        TS.disturbance_sweep(ts, _tocp(8), TS.sample_scenarios(2))
+    scen = TS.sample_scenarios(2, device=DEV)
+    a = TS.disturbance_sweep(ts, _tocp(8, "pallas_fused", 1), scen,
+                             n_steps=1)
+    b = TS.disturbance_sweep(ts, _tocp(8, "pallas", 1), scen, n_steps=1)
+    assert torch.equal(a.final_states, b.final_states)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+        TS.fault_sweep(ts, _tocp(8, "condensed"), torch.ones(2, 4))
 
 
 def jax_offset_free_numbers():

@@ -51,6 +51,10 @@ from test_qp import random_qp
 from test_qp_soft import all_hard, bind_controls
 from test_torch_ipm import _blaster_qps, _to_torch
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 REPO = Path(__file__).resolve().parents[1]
 NX, NU = 17, 6
 
@@ -62,11 +66,12 @@ def _np(tree):
 def _soft_t(js, dtype=torch.float32):
     """The port's SoftBounds with the JAX one's numbers."""
     return convert.soft_from_numpy(
-        {g: p._asdict() for g, p in _np(js)._asdict().items()}, dtype=dtype)
+        {g: p._asdict() for g, p in _np(js)._asdict().items()}, dtype=dtype,
+        device=DEV)
 
 
 def _qp_t(jd, dtype=torch.float64):
-    return convert.qp_from_numpy(_np(jd)._asdict(), dtype=dtype)
+    return convert.qp_from_numpy(_np(jd)._asdict(), dtype=dtype, device=DEV)
 
 
 # ------------------------------ qp/soft.py ---------------------------------
@@ -267,7 +272,7 @@ def test_all_hard_soft_twin_is_the_hard_twin(out_of_box):
     """An all-hard SoftBounds through the soft twins equals the hard twins
     bit for bit after one iteration: plain mode and the fuse_lin twin."""
     jd, js, td, ts = out_of_box
-    hard = tsoft.SoftBounds(*(tsoft.SoftPenalty.hard((8, w))
+    hard = tsoft.SoftBounds(*(tsoft.SoftPenalty.hard((8, w), device=DEV)
                               for w in (NX, NX, NU, NU)))
     a = K.box_qp_solve_plain(td, iters=1)
     b = K.box_qp_solve_plain(td, iters=1, soft=hard)
@@ -292,10 +297,10 @@ def _fused_args(N=8):
     ocp = dataclasses.replace(pre.ocp, N=N, Tf=N / 30.0)
     yref = np.zeros(NX + NU)
     yref[2] = 2.0
-    spec = build_spec(ocp, yref=yref)
+    spec = build_spec(ocp, yref=yref, device=DEV)
     x0 = torch.zeros(1, NX)
     x0[0, 0], x0[0, 2] = 2.4, 2.0
-    st = init_rti_state(ocp, x0)
+    st = init_rti_state(ocp, x0, device=DEV)
 
     def bc(a):
         return a.expand(1, *a.shape)
@@ -331,7 +336,7 @@ def test_soft_rejects_warm(out_of_box):
     from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
     jd, js, td, ts = out_of_box
     w2 = IpmWarmStart(*(a.expand(2, *a.shape)
-                        for a in IpmWarmStart.zeros(8, NX, NU)))
+                        for a in IpmWarmStart.zeros(8, NX, NU, device=DEV)))
     for fn in (K.box_qp_solve, K.box_qp_solve_plain):
         with pytest.raises(ValueError, match="soft bounds do not support"
                                              ".*warm"):
@@ -362,7 +367,7 @@ def test_soft_convert_round_trip():
             np.testing.assert_array_equal(out[g][f], v, err_msg=f"{g}.{f}")
     # the port's own constructor gives the same numbers
     tb = tsoft.SoftBounds.state_bounds(8, NX, NU, Zl=np.arange(NX) + 1.0,
-                                       zl=2.0, Zu=3.0, idx=(0, 4))
+                                       zl=2.0, Zu=3.0, idx=(0, 4), device=DEV)
     for g, pen in convert.soft_to_numpy(tb).items():
         for f, v in pen.items():
             np.testing.assert_array_equal(v, out[g][f], err_msg=f"{g}.{f}")
@@ -391,9 +396,9 @@ def _soft_tick_setup(N, dtype_j, dtype_t):
                                        dtype=dtype_j)
     jside = (jbuild(ocp, yref=yref, dtype=dtype_j), jnp.asarray(x0, dtype_j),
              JP.from_config(ocp.model, dtype_j), jdd(jode, ocp.dt), js)
-    tside = (build_spec(ocp, yref=yref, dtype=dtype_t),
+    tside = (build_spec(ocp, yref=yref, dtype=dtype_t, device=DEV),
              torch.as_tensor(x0, dtype=dtype_t),
-             BlasterParams.from_config(ocp.model, dtype_t),
+             BlasterParams.from_config(ocp.model, dtype_t, device=DEV),
              discrete_dynamics(blaster_ode, ocp.dt), _soft_t(js, dtype_t))
     return ocp, jside, tside
 
@@ -413,7 +418,8 @@ def test_rti_step_soft_riccati_matches_jax():
     step = jax.jit(lambda sp, st, x, so: jstep(sp, st, x, jp, jF, ocp.solver,
                                                 so))
     jst, st = jinit(ocp, jx0, jnp.float64), init_rti_state(ocp, x0,
-                                                            torch.float64)
+                                                            torch.float64,
+                                                            device=DEV)
     for _ in range(6):
         ju, jst, jdg, jres = step(jspec, jst, jx0, js)
         u, st, dg, res = rti_step_soft(spec, st, x0, P, F, ocp.solver, ts)
@@ -456,7 +462,7 @@ def soft_ticks_f32():
                                  ipm_iters=6, lin_backend=lb)
         o = dataclasses.replace(ocp, solver=sv)
         out[backend] = rti_step_soft(
-            spec, init_rti_state(o, x0), x0, P, F, sv, ts,
+            spec, init_rti_state(o, x0, device=DEV), x0, P, F, sv, ts,
             linearizer=make_linearizer(o, P),
             dyn_statics=fused_dyn_statics(o))
     # on the CPU the wrappers ran the plain twins: no kernel launch counted
@@ -520,10 +526,10 @@ def test_batched_xla_matches_jax():
     jx = jnp.asarray(x0s)
     jst = jax.vmap(lambda x: jinit(ocp, x, jnp.float64))(jx)
     jstep = jbatched(ocp, dtype=jnp.float64)
-    spec = build_spec(ocp, yref=pre.loop.yref, dtype=torch.float64)
+    spec = build_spec(ocp, yref=pre.loop.yref, dtype=torch.float64, device=DEV)
     tx = torch.as_tensor(x0s)
-    st = init_rti_state(ocp, tx, torch.float64)
-    step = batched_rti_step(ocp, dtype=torch.float64)
+    st = init_rti_state(ocp, tx, torch.float64, device=DEV)
+    step = batched_rti_step(ocp, dtype=torch.float64, device=DEV)
     for tick in range(2):
         ju, jst, jdg = jstep(jspec, jst, jx)
         u, st, dg = step(spec, st, tx)
@@ -541,7 +547,9 @@ def test_batched_xla_matches_jax():
 def test_batched_xla_kernel_solvers():
     """The "xla" tick with a kernel backend in the solver: "pallas" is the
     batched `pallas` tick (plain twin on the CPU; N=8, B=2), bit for bit;
-    the B=1 one-launch tick ("pallas_fused") is refused as not ported."""
+    "pallas_fused" runs the one-launch tick over the batch, each problem
+    as its own B=1 tick (the fuse_lin twin; within 1e-5: the batched and
+    the single twin round alike but for the batched products' order)."""
     from mpc_blaster_tpu_torch.ocp.spec import build_spec
     from mpc_blaster_tpu_torch.parallel.mesh import batched_rti_step
     from mpc_blaster_tpu_torch.sqp.rti import init_rti_state
@@ -554,14 +562,23 @@ def test_batched_xla_kernel_solvers():
             pre.ocp, N=8, Tf=8 / 30.0, solver=dataclasses.replace(
                 pre.ocp.solver, qp_backend=backend, ipm_iters=4))
     ocp = ocp_with("pallas")
-    spec = build_spec(ocp, yref=pre.loop.yref)
-    st = init_rti_state(ocp, x0s)
-    u, new, dg = batched_rti_step(ocp)(spec, st, x0s)
-    u2, new2, _ = batched_rti_step(ocp, backend="pallas")(spec, st, x0s)
+    spec = build_spec(ocp, yref=pre.loop.yref, device=DEV)
+    st = init_rti_state(ocp, x0s, device=DEV)
+    u, new, dg = batched_rti_step(ocp, device=DEV)(spec, st, x0s)
+    u2, new2, _ = batched_rti_step(ocp, backend="pallas", device=DEV)(
+        spec, st, x0s)
     assert torch.equal(u, u2) and torch.equal(new.xbar, new2.xbar)
     assert dg.qp_kkt_eq.shape == (2,) and torch.isfinite(u).all()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        batched_rti_step(ocp_with("pallas_fused"))
+    from mpc_blaster_tpu_torch.sqp.rti import make_rti_step
+    fused = ocp_with("pallas_fused")
+    u, new, dg = batched_rti_step(fused, device=DEV)(spec, st, x0s)
+    one = make_rti_step(fused, device=DEV)
+    for i in range(2):
+        ui, sti, dgi = one(spec, type(st)(st.xbar[i], st.ubar[i]), x0s[i])
+        torch.testing.assert_close(u[i], ui, rtol=0, atol=1e-5)
+        torch.testing.assert_close(new.xbar[i], sti.xbar, rtol=0, atol=1e-5)
+        torch.testing.assert_close(dg.qp_kkt_eq[i], dgi.qp_kkt_eq, rtol=1e-4,
+                                   atol=1e-7)
 
 
 # ------------------------ chip_smoke's soft-loop bounds ---------------------

@@ -40,6 +40,10 @@ from test_torch_cuda import _blaster_qps as _port_blaster_qps
 from test_torch_ipm import (_assert_full_solve_parity,
                             _assert_one_iteration_parity)
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 
 @functools.cache
 def _case(N, soft, B=2):
@@ -61,7 +65,7 @@ def _case(N, soft, B=2):
                                        dtype=jnp.float32)
     ts = convert.soft_from_numpy(
         {g: {k: np.asarray(v) for k, v in p._asdict().items()}
-         for g, p in js._asdict().items()})
+         for g, p in js._asdict().items()}, device=DEV)
     return jd, js, td, ts
 
 
@@ -168,8 +172,18 @@ def jax_long_horizon_positions(N: int) -> np.ndarray:
         dataclasses.replace(pre.ocp.solver, qp_backend="riccati",
                             ipm_iters=12)))
     res = run_preset(dataclasses.replace(pre, ocp=ocp), n_steps=20,
-                     dtype=jnp.float32, with_poc=True)
+                     dtype=jnp.float32, with_poc=True,
+                     stage_params=_jax_poc_stage_params())
     return np.asarray(res.xs)[::5, 0:3]
+
+
+@functools.cache
+def _jax_poc_stage_params():
+    """The preset's POC Jacobians as the JAX package's `run_preset(
+    with_poc=True)` solves them (they do not depend on N), solved once
+    for the module."""
+    from mpc_blaster_tpu.sim.closedloop import preset_stage_params
+    return preset_stage_params(jcfg.simulation_preset(), jnp.float32)
 
 
 @pytest.mark.parametrize("N", [120, 240])

@@ -32,6 +32,11 @@ from mpc_blaster_tpu_torch.convert import (spec_from_numpy,
                                            tracking_to_numpy)
 from mpc_blaster_tpu_torch.sim import tasks as TK
 
+
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 GOLDEN = "tests/golden/figure8_120.npz"
 
 
@@ -59,19 +64,20 @@ def test_tracking_loop_riccati_matches_jax_f64(warm):
         js, jnp.asarray(x0), jnp.asarray(refs))
     rt = TK.make_tracking_loop(tocp, 10, dtype=torch.float64,
                                warm_start=warm)(
-        spec_from_numpy(_np(js), dtype=torch.float64), x0, refs)
+        spec_from_numpy(_np(js), dtype=torch.float64, device=DEV), x0, refs)
     assert rt.xs.shape == (11, 17) and rt.refs.shape == (10, 17)
     np.testing.assert_allclose(rt.xs[:, 0:3].numpy(),
                                np.asarray(rj.xs)[:, 0:3], rtol=0, atol=1e-4)
     np.testing.assert_array_equal(rt.refs.numpy(), np.asarray(rj.refs))
-    back = tracking_from_numpy(tracking_to_numpy(rt), dtype=torch.float64)
+    back = tracking_from_numpy(tracking_to_numpy(rt), dtype=torch.float64,
+                               device=DEV)
     for f in rt._fields:
         assert torch.equal(getattr(back, f), getattr(rt, f)), f
 
 
 def test_run_figure8_f32_matches_jax():
     rj = JK.run_figure8(n_steps=15, dtype=jnp.float32)
-    rt = TK.run_figure8(n_steps=15, dtype=torch.float32)
+    rt = TK.run_figure8(n_steps=15, dtype=torch.float32, device=DEV)
     assert rt.xs.dtype == torch.float32 and rt.xs.shape == (16, 17)
     np.testing.assert_allclose(rt.xs[:, 0:3].numpy(),
                                np.asarray(rj.xs)[:, 0:3], rtol=0, atol=1e-4)
@@ -81,13 +87,13 @@ def test_run_figure8_f32_matches_jax():
 @pytest.mark.slow
 def test_run_figure8_golden_f32():
     g = np.load(GOLDEN)
-    rt = TK.run_figure8(n_steps=120, dtype=torch.float32)
+    rt = TK.run_figure8(n_steps=120, dtype=torch.float32, device=DEV)
     assert np.abs(rt.xs[:, 0:3].numpy() - g["xs"][:, 0:3]).max() < 5e-2
 
 
 def test_run_blasting_matches_jax_f64():
     (rj, sj) = JK.run_blasting(n_steps=3, dtype=jnp.float64)
-    (rt, st) = TK.run_blasting(n_steps=3, dtype=torch.float64)
+    (rt, st) = TK.run_blasting(n_steps=3, dtype=torch.float64, device=DEV)
     np.testing.assert_allclose(rt.xs.numpy(), np.asarray(rj.xs), rtol=0,
                                atol=1e-4)
     for a, b in zip(st.get_jacobians(), sj.get_jacobians()):

@@ -59,6 +59,10 @@ from mpc_blaster_tpu_torch.qp import ipm as tipm
 from mpc_blaster_tpu_torch.sqp import rti as trti
 from test_qp import random_qp
 
+# The port runs on the CUDA card unless asked for the CPU; these tests
+# ask for it.
+DEV = torch.device("cpu")
+
 NX, NU = jcfg.NX, jcfg.NU
 
 
@@ -75,7 +79,7 @@ def _close(t, j, atol, err_msg="", rtol=0):
 
 def _qp64(seed, bound_scale=2.0):
     jd = random_qp(seed=seed, bound_scale=bound_scale)
-    return jd, convert.qp_from_numpy(_np(jd), dtype=torch.float64)
+    return jd, convert.qp_from_numpy(_np(jd), dtype=torch.float64, device=DEV)
 
 
 def test_box_qp_solve_warm_matches_jax():
@@ -88,7 +92,7 @@ def test_box_qp_solve_warm_matches_jax():
     jd2, td2 = jd1._replace(q=1.1 * jd1.q), td1._replace(q=1.1 * td1.q)
     j1 = jipm.box_qp_solve(jd1, iters=10)
     wj = jipm.warm_start_from(j1)
-    wt = convert.warm_from_numpy(_np(wj), dtype=torch.float64)
+    wt = convert.warm_from_numpy(_np(wj), dtype=torch.float64, device=DEV)
     sj = jipm.box_qp_solve(jd2, iters=5, warm=wj)
     st = tipm.box_qp_solve(td2, iters=5, warm=wt)
     for f in ("dx", "du", "s_lx", "lam_uu", "mu", "kkt_eq"):
@@ -108,7 +112,7 @@ def test_box_qp_solve_warm_matches_jax():
     sj = jipm.box_qp_solve(jd2, iters=5, warm=jipm.IpmWarmStart(**{
         k: jnp.asarray(v) for k, v in poison.items()}))
     st = tipm.box_qp_solve(td2, iters=5, warm=convert.warm_from_numpy(
-        poison, dtype=torch.float64))
+        poison, dtype=torch.float64, device=DEV))
     assert torch.isfinite(st.du).all()
     _close(st.du, sj.du, 1e-10)
     nan = wt._replace(**{f: torch.full_like(getattr(wt, f), float("nan"))
@@ -204,7 +208,8 @@ def fcase():
 
 
 def _tw(w, sl=slice(None)):
-    return convert.warm_from_numpy({k: v[sl] for k, v in w.items()})
+    return convert.warm_from_numpy({k: v[sl] for k, v in w.items()},
+                                   device=DEV)
 
 
 def _jw(w, sl=slice(None)):
@@ -232,7 +237,7 @@ def _solve_both(fc, mode, iters, warm_slice=slice(None), eps=1e-7):
     warms = {"twin": _tw(w, sl), "cold": None,
              "moved": _tw(_moved(w, eps), sl)}
     if mode == "plain":
-        tq = convert.qp_from_numpy(_np(jq))
+        tq = convert.qp_from_numpy(_np(jq), device=DEV)
         sj = JP.pallas_box_qp_solve(jq, interpret=True, warm=_jw(w, sl), **kw)
         out = {k: K.box_qp_solve_plain(tq, warm=v, **kw)
                for k, v in warms.items()}
@@ -331,7 +336,7 @@ def test_warm_wrappers_run_plain_twins_and_never_alias(fcase):
     counted, warm or cold), and no output shares storage with a warm
     input, even with the raw chain's un-shifted, un-recentred warm start
     (warm_start_from hands the previous outputs straight back)."""
-    tq = convert.qp_from_numpy(_np(fcase["qp"]))
+    tq = convert.qp_from_numpy(_np(fcase["qp"]), device=DEV)
     n0, w0 = K.box_qp_solve.launches, K.box_qp_solve.warm_launches
     prev = K.box_qp_solve(tq, iters=2)
     warm = tipm.warm_start_from(prev)   # the raw chain: previous outputs
@@ -373,11 +378,11 @@ def test_rti_step_warm_matches_jax(backend):
     ocp = _warm_ocp(backend, warm_shift=f64)
     pre = jcfg.simulation_preset()
     js = jbuild_spec(ocp, yref=np.asarray(pre.loop.yref), dtype=jdt)
-    ts = convert.spec_from_numpy(_np(js), dtype=tdt)
+    ts = convert.spec_from_numpy(_np(js), dtype=tdt, device=DEV)
     P = JBP.from_config(ocp.model, jdt)
     F = jdd(jode, ocp.dt)
     jlin = jrti.make_linearizer(ocp, P)
-    tP = BlasterParams.from_config(ocp.model, tdt)
+    tP = BlasterParams.from_config(ocp.model, tdt, device=DEV)
     tF = discrete_dynamics(blaster_ode, ocp.dt)
     tlin = trti.make_linearizer(ocp, tP)
     dyn = trti.fused_dyn_statics(ocp) if not f64 else None
@@ -391,8 +396,8 @@ def test_rti_step_warm_matches_jax(backend):
                                               ocp.solver, linearizer=jlin,
                                               dyn_statics=dyn)
         ut, stt, wt, dt_ = trti.rti_step_warm(
-            ts, convert.rti_state_from_numpy(_np(st), dtype=tdt),
-            convert.warm_from_numpy(_np(warm), dtype=tdt),
+            ts, convert.rti_state_from_numpy(_np(st), dtype=tdt, device=DEV),
+            convert.warm_from_numpy(_np(warm), dtype=tdt, device=DEV),
             torch.as_tensor(x0, dtype=tdt), tP, tF, ocp.solver,
             linearizer=tlin, dyn_statics=dyn)
         assert float(wt.valid) == 1.0 and torch.isfinite(ut).all()
@@ -434,8 +439,8 @@ def _wd_setup(iters=4, dtype=torch.float32, **sv_kw):
                              qp_backend="riccati", lin_backend="fused",
                              warm_mode="full", warm_shift=False, **sv_kw)
     ocp = dataclasses.replace(ocp, solver=sv)
-    spec = build_spec(ocp, yref=preset.loop.yref, dtype=dtype)
-    params = BlasterParams.from_config(ocp.model, dtype)
+    spec = build_spec(ocp, yref=preset.loop.yref, dtype=dtype, device=DEV)
+    params = BlasterParams.from_config(ocp.model, dtype, device=DEV)
     F = discrete_dynamics(blaster_ode, ocp.dt)
     return ocp, spec, params, F, trti.make_linearizer(ocp, params), sv
 
@@ -449,10 +454,10 @@ def test_watchdog_trips_out_of_envelope():
     ocp, spec, params, F, lin, sv = _wd_setup()
     x0 = torch.zeros(NX)
     x0[2] = -1.0
-    st = trti.init_rti_state(ocp, x0)
-    warm = tipm.IpmWarmStart.zeros(WD_N, NX, NU)._replace(
+    st = trti.init_rti_state(ocp, x0, device=DEV)
+    warm = tipm.IpmWarmStart.zeros(WD_N, NX, NU, device=DEV)._replace(
         valid=torch.tensor(1.0))
-    wd0 = trti.WatchdogState.init()
+    wd0 = trti.WatchdogState.init(device=DEV)
     u_g, st_g, _, wd1, diag_g = trti.rti_step_warm_guarded(
         spec, st, warm, wd0, x0, params, F, sv, linearizer=lin)
     assert (int(wd1.trips), int(wd1.hold)) == (1, 10)
@@ -491,9 +496,9 @@ def test_watchdog_quiet_on_deployed_chain():
     sv = dataclasses.replace(sv, warm_mode="primal", warm_shift=True)
     x = torch.zeros(NX)
     x[2] = 0.5
-    st = trti.init_rti_state(ocp, x)
-    warm = tipm.IpmWarmStart.zeros(WD_N, NX, NU)
-    wd = trti.WatchdogState.init()
+    st = trti.init_rti_state(ocp, x, device=DEV)
+    warm = tipm.IpmWarmStart.zeros(WD_N, NX, NU, device=DEV)
+    wd = trti.WatchdogState.init(device=DEV)
     plant_p = spec.stage_params[0].clone()
     plant_p[-1] = 2.2 * 9.81
     for _ in range(80):
@@ -535,12 +540,12 @@ def test_convert_warm_and_watchdog_round_trips():
     w = jipm.IpmWarmStart.zeros(4, NX, NU, jnp.float64)._replace(
         s_lx=jnp.arange(4 * NX, dtype=jnp.float64).reshape(4, NX))
     out = convert.warm_to_numpy(convert.warm_from_numpy(
-        _np(w), dtype=torch.float64))
+        _np(w), dtype=torch.float64, device=DEV))
     for k, v in _np(w).items():
         np.testing.assert_array_equal(out[k], v, err_msg=k)
     wd = jrti.WatchdogState(ema_eq=jnp.asarray(0.25), trips=jnp.asarray(
         3, jnp.int32), hold=jnp.asarray(7, jnp.int32))
-    t = convert.watchdog_from_numpy(_np(wd))
+    t = convert.watchdog_from_numpy(_np(wd), device=DEV)
     assert t.trips.dtype == torch.int32 and t.ema_eq.dtype == torch.float32
     assert convert.watchdog_to_numpy(t) == {"ema_eq": np.float32(0.25),
                                            "trips": 3, "hold": 7}
@@ -570,7 +575,8 @@ def test_fastest_closed_loop_matches_jax():
     rj = jmcl(ocp, 6, warm_start=True)(js, jnp.asarray(pre.loop.x0,
                                                       jnp.float32))
     ts = build_spec(ocp, yref=pre.loop.yref,
-                    stage_params=preset_stage_params(pre))
+                    stage_params=preset_stage_params(pre, device=DEV),
+                    device=DEV)
     n0 = K.fused_rti_solve.warm_launches
     rt = make_closed_loop(ocp, 6, warm_start=True)(
         ts, torch.as_tensor(pre.loop.x0, dtype=torch.float32))
