@@ -54,8 +54,10 @@ after:
      under "pallas" (one 13x4 plain launch per tick) and "pallas_fused"
      (one fuse_lin "quad13" launch per tick);
  15. long horizons: the simulation preset at N=120 and N=240 under
-     "pallas", 12 iterations, 20 ticks from the ground (the kernel has one
-     layout for every N, so the solver's streaming flags select nothing);
+     "pallas", 12 iterations, 20 ticks from the ground (N chooses the
+     kernel's layout, so the solver's streaming flags select nothing: the
+     factor stacks are resident in shared memory at N=120 and stay in
+     the global workspace at N=240);
  16. the one-launch tick over a batch (kernel K6 at B > 1): the fuse_lin
      kernel against its twin at N=20, B=64 with one spec per problem,
      timed at N=20, B=1024 beside the fuse_cost kernel (K5) on the same
@@ -79,7 +81,13 @@ after:
      step, and 4 chains against 1).
 
 Each phase's wall seconds and the running total are printed ("wall"
-lines).
+lines). Phase 1 also prints each IPM instantiation's launch plan at N=20,
+30, 60, 120 and 240 (13x4: N=20): the layout, threads, dynamic shared
+bytes, the compiled kernel's registers and local bytes, blocks per SM and
+the waves of a launch at B=1, 256 and 1024 on the card's SMs. Every IPM
+launch of phases 2-17 is held to its layout: resident (the Riccati
+factor stacks in shared memory) at every N <= 120, global at phase 2c's
+and phase 15's N=240 (the wrappers' `by_layout` counts).
 
 Every phase prints one line; any failure raises and the exit code is
 non-zero. Without a CUDA device it fails before printing any result; it
@@ -491,8 +499,40 @@ def reset_counts():
         fn.launches = 0
         fn.warm_launches = 0
         fn.by_instance = {}
+        fn.by_layout = {}
     for fn in PROBE_WRAPPERS.values():
         fn.launches = 0
+
+
+def layout_counts() -> dict:
+    """The IPM launches per layout ("resident", "global") over every
+    wrapper, the non-zero ones."""
+    out: dict = {}
+    for fn in KERNEL_WRAPPERS.values():
+        for k, v in fn.by_layout.items():
+            if v:
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def layouts_only(what: str, layout: str, fn):
+    """Run fn with the layout counts at 0 and check that every IPM launch
+    in it took `layout` (the factor stacks resident in shared memory at
+    N <= 120, in the global workspace at N=240)."""
+    for w in KERNEL_WRAPPERS.values():
+        w.by_layout = {}
+    out = fn()
+    got = layout_counts()
+    check(set(got) == {layout}, f"{what} layout", got=got, want=layout)
+    return out
+
+
+def launch_keys(K, N, mode, nx=17, nu=6, family=None, soft=False) -> dict:
+    """A report entry's launch: the plan's layout, threads and dynamic
+    shared bytes; the compiled kernel's registers and blocks per SM."""
+    info = K.kernel_info(N, mode, nx, nu, family, soft)
+    return {k: info[k] for k in ("layout", "threads", "smem_bytes",
+                                 "blocks_per_sm", "registers")}
 
 
 def instance_counts() -> dict:
@@ -1587,8 +1627,21 @@ def run(dev: torch.device) -> int:
             ptxas=[ln.strip() for ln in build_log.splitlines()
                    if "registers" in ln or "spill" in ln])
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nx, nu, mode, family, soft in sorted(
+            K.BUILT, key=lambda b: (b[0], b[2], str(b[3]), b[4])):
+        for N in ((20, 30, 60, 120, 240) if nx == 17 else (20,)):
+            info = K.kernel_info(N, mode, nx, nu, family, soft)
+            check(info["layout"] == ("global" if N > 120 else "resident"),
+                  "launch plan layout", N=N, **info)
+            log("launch_plan", instance=K.instance_name(nx, nu, family, soft),
+                mode=K._MODE_NAMES[mode], N=N, **info,
+                waves={str(B): -(-B // (info["blocks_per_sm"] * sms))
+                       for B in (1, 256, BATCH)})
     wall('1 build')
     # ---- phase 2: each kernel mode vs its plain twin on the card ----
+    for w in KERNEL_WRAPPERS.values():
+        w.by_layout = {}
     rows = []
     for name, N, B in (("n8_b3", 8, 3), ("n20_b1024", 20, BATCH),
                        ("n60_b1", 60, 1)):
@@ -1633,23 +1686,30 @@ def run(dev: torch.device) -> int:
                      ("fuse_lin_n60_b1", "fuse_lin", 60, 1, False))]
     for r in soft_rows:
         log("soft_vs_plain", **r)
+    lay = layout_counts()
+    check(set(lay) == {"resident"}, "phases 2-2b layout", got=lay,
+          want="resident")
     wall("2b soft kernel vs twin")
     # ---- phase 2c: the other models' instantiations and long horizons ----
-    q13_rows = [compare_kernel(n, quad13_qps(N, B, dev), K,
-                               time_iters=(SAFE_ITERS, FULL_ITERS))
-                for n, N, B in (("q13_n8_b3", 8, 3),
-                                ("q13_n20_b1024", 20, BATCH),
-                                ("q13_n20_b1", 20, 1))]
+    q13_rows = layouts_only("phase 2c 13x4", "resident", lambda: [
+        compare_kernel(n, quad13_qps(N, B, dev), K,
+                       time_iters=(SAFE_ITERS, FULL_ITERS))
+        for n, N, B in (("q13_n8_b3", 8, 3), ("q13_n20_b1024", 20, BATCH),
+                        ("q13_n20_b1", 20, 1))])
     for r in q13_rows:
         log("kernel_13x4_vs_plain", **r)
-    fam_rows = {fam: [compare_fuse_lin(f"{fam}_n{N}_b1", N, dev, K, fam)
-                      for N in Ns]
-                for fam, Ns in (("quad13", (8, 20)),
-                                ("blaster_dist", (8, 30)))}
+    fam_rows = layouts_only("phase 2c families", "resident", lambda: {
+        fam: [compare_fuse_lin(f"{fam}_n{N}_b1", N, dev, K, fam)
+              for N in Ns]
+        for fam, Ns in (("quad13", (8, 20)), ("blaster_dist", (8, 30)))})
     for r in fam_rows["quad13"] + fam_rows["blaster_dist"]:
         log("fuse_lin_family_vs_plain", **r)
-    # K7: the plain kernel at long horizons (one layout for every N)
-    long_rows = [compare_kernel(n, blaster_qps(N, B, dev), K)
+    # K7: the plain kernel at long horizons (N=120 resident, N=240 in the
+    # global layout)
+    long_rows = [layouts_only(f"long horizon {n}",
+                              "resident" if N <= 120 else "global",
+                              lambda N=N, B=B, n=n: compare_kernel(
+                                  n, blaster_qps(N, B, dev), K))
                  for n, N, B in (("n120_b1", 120, 1), ("n240_b1", 240, 1),
                                  ("n240_b256", 240, 256))]
     for r in long_rows:
@@ -1658,7 +1718,9 @@ def run(dev: torch.device) -> int:
     # twin's mu 363, measured on an H100), so the spread rule's converged
     # check does not apply; 12 iterations meet the plain tolerance (0.35
     # of it, same run)
-    long_soft = compare_soft("plain_n120_b1", "plain", 120, 1, dev, K)
+    long_soft = layouts_only("long horizon soft n120", "resident",
+                             lambda: compare_soft("plain_n120_b1", "plain",
+                                                  120, 1, dev, K))
     log("long_horizon_soft_vs_plain", **long_soft)
     wall("2c other models and long horizons vs twin")
 
@@ -1669,9 +1731,11 @@ def run(dev: torch.device) -> int:
     step = batched_rti_step(pre20.ocp, backend="pallas", device=dev)
     pre60 = simulation_ocp(60)
 
-    def counted(expected: dict, what: str, fn, instances=None):
+    def counted(expected: dict, what: str, fn, instances=None,
+                layout="resident"):
         """Run fn with the counts set to 0; check the launches per
-        wrapper (and, where given, per instantiation)."""
+        wrapper (and, where given, per instantiation), and that every IPM
+        launch took `layout`."""
         reset_counts()
         out = fn()
         got = counts()
@@ -1681,6 +1745,10 @@ def run(dev: torch.device) -> int:
             inst = instance_counts()
             check(inst == instances, f"{what} launches per instantiation",
                   got=inst, want=instances)
+        n = sum(got[w] for w in WRAPPERS)
+        lay = layout_counts()
+        check(lay == ({layout: n} if n else {}), f"{what} layout", got=lay,
+              want=layout)
         return out, got
 
     # phase 3: 10 chained batched ticks, N=20, B=1024, backend "pallas"
@@ -2040,7 +2108,8 @@ def run(dev: torch.device) -> int:
         (res_l, ms_l), c15 = counted(
             {"box_qp_solve": LONG_TICKS}, f"long horizon N={N}",
             lambda: timed_closed_loop(pre_l, LONG_TICKS, dev),
-            instances={"box_qp_solve[17x6]": LONG_TICKS})
+            instances={"box_qp_solve[17x6]": LONG_TICKS},
+            layout="resident" if N <= 120 else "global")
         xs_l = res_l.xs.cpu().numpy()
         err = float(np.abs(xs_l[::5, 0:3] - np.asarray(LONG_JAX[N])).max())
         check(bool(np.isfinite(xs_l).all()) and err < 5e-2,
@@ -2055,7 +2124,8 @@ def run(dev: torch.device) -> int:
     # kernel vs its twin (one spec per problem), its time beside K5 at
     # the same shape, then the batched "xla" tick over the deployed
     # "safe" solver, one fuse_lin launch per tick
-    kb_rows = [compare_fuse_lin_batched("n20_b64", 20, 64, dev, K, 23)]
+    kb_rows = layouts_only("phase 16 kernel vs twin", "resident", lambda: [
+        compare_fuse_lin_batched("n20_b64", 20, 64, dev, K, 23)])
     for r in kb_rows:
         log("fuse_lin_batched_vs_plain", **r)
     kb_time = compare_fuse_lin_batched(f"n20_b{BATCH}", 20, BATCH, dev, K,
@@ -2217,12 +2287,14 @@ def run(dev: torch.device) -> int:
         entry("box_qp_ipm", c3["box_qp_solve"] + c4["box_qp_solve"]
               + sweep_launches, rows,
               main_row, launch_bound("plain", 60, 1, FULL_ITERS),
+              **launch_keys(K, 60, K.PLAIN),
               max_obj_rel_err=max(r["obj_rel_err"] for r in rows),
               launches_by_path={"batched_tick": c3["box_qp_solve"],
                                 "closed_loop": c4["box_qp_solve"],
                                 "sweeps": sweep_launches}),
         entry("box_qp_ipm_fuse_cost", fused_launches, cost_rows, cost_main,
               launch_bound("fuse_cost", 20, BATCH, FULL_ITERS),
+              **launch_keys(K, 20, K.FUSE_COST),
               ms_6it=cost_main["kernel_ms_6it"],
               plain_ms_6it=cost_main["plain_ms_6it"],
               tick_ms={str(k): v for k, v in fused_tick_ms.items()}),
@@ -2230,6 +2302,7 @@ def run(dev: torch.device) -> int:
               lin_launches + sum(r["launches"] for r in fig8.values()),
               lin_rows, lin_main,
               launch_bound("fuse_lin", 60, 1, FULL_ITERS),
+              **launch_keys(K, 60, K.FUSE_LIN, family="blaster"),
               ms_6it=lin_main["kernel_ms_6it"],
               plain_ms_6it=lin_main["plain_ms_6it"],
               launches_by_path={"fused_closed_loops": lin_launches,
@@ -2253,6 +2326,7 @@ def run(dev: torch.device) -> int:
          **bound_keys(launch_bound("fuse_lin", 60, 1, FASTEST_ITERS,
                                   warm=True)),
          "cold_ms": warm_main["cold_kernel_ms_3it"],
+         **launch_keys(K, 60, K.FUSE_LIN, family="blaster"),
          "by_shape": {r["case"]: [r["kernel_ms_3it"], r["plain_ms_3it"]]
                       for r in warm_rows},
          "altitude_overshoot_m": alt},
@@ -2263,6 +2337,7 @@ def run(dev: torch.device) -> int:
          "ms": soft_main["kernel_ms"], "plain_ms": soft_main["plain_ms"],
          **bound_keys(soft_main["bound"]),
          "hard_ms": soft_main["hard_kernel_ms"],
+         **launch_keys(K, 60, K.FUSE_LIN, family="blaster", soft=True),
          "ms_12it": soft_main["kernel_ms_12it"],
          "all_hard_bit_exact": all(r["all_hard_bit_exact"]
                                    for r in soft_rows),
@@ -2273,12 +2348,15 @@ def run(dev: torch.device) -> int:
         kentry("box_qp_ipm_13x4", q13["pallas"]["launches"], q13_rows,
                q13_main, SAFE_ITERS,
                launch_bound("plain", 20, 1, SAFE_ITERS, nx=13, nu=4),
+               **launch_keys(K, 20, K.PLAIN, nx=13, nu=4),
                loop_ms_per_tick=q13["pallas"]["ms_per_tick"]),
         kentry("box_qp_ipm_fuse_lin_quad13",
                q13["pallas_fused"]["launches"], fam_rows["quad13"],
                fam_rows["quad13"][-1], SAFE_ITERS,
                launch_bound("fuse_lin", 20, 1, SAFE_ITERS, nx=13, nu=4,
                             family="quad13"),
+               **launch_keys(K, 20, K.FUSE_LIN, nx=13, nu=4,
+                             family="quad13"),
                prologue_max_abs_err=max(
                    max(r["prologue_max_abs_err"].values())
                    for r in fam_rows["quad13"]),
@@ -2288,6 +2366,7 @@ def run(dev: torch.device) -> int:
                SAFE_ITERS,
                launch_bound("fuse_lin", 30, 1, SAFE_ITERS,
                             family="blaster_dist"),
+               **launch_keys(K, 30, K.FUSE_LIN, family="blaster_dist"),
                prologue_max_abs_err=max(
                    max(r["prologue_max_abs_err"].values())
                    for r in fam_rows["blaster_dist"]),
@@ -2296,6 +2375,8 @@ def run(dev: torch.device) -> int:
                sum(v["launches"] for v in long_loop.values()), long_rows,
                long_rows[1], FULL_ITERS,
                launch_bound("plain", 240, 1, FULL_ITERS),
+               **launch_keys(K, 240, K.PLAIN),
+               launch_n120=launch_keys(K, 120, K.PLAIN),
                ms_n120=long_rows[0]["kernel_ms"],
                plain_ms_n120=long_rows[0]["plain_ms"],
                bound_ms_n120=launch_bound("plain", 120, 1,
@@ -2316,6 +2397,7 @@ def run(dev: torch.device) -> int:
          "ms": kb_time["kernel_ms_6it"], "plain_ms": kb_time["plain_ms_6it"],
          "iters": SAFE_ITERS,
          **bound_keys(launch_bound("fuse_lin", 20, BATCH, SAFE_ITERS)),
+         **launch_keys(K, 20, K.FUSE_LIN, family="blaster"),
          "ms_12it": kb_time["kernel_ms"],
          "plain_ms_12it": kb_time["plain_ms"],
          "bound_ms_12it": kb_time["bound_ms"],

@@ -42,9 +42,10 @@
 // the cold value; +inf clips and is taken). The blend runs once per launch,
 // so it is a runtime switch (null warm pointers = cold solve, valid = 0
 // reproduces the cold solve bit for bit), not a template parameter. An
-// optional device flag `skip` makes every block return at once: the
-// divergence watchdog enqueues its cold redo every tick and lets the
-// device decide whether it runs (sqp/rti.py::rti_step_warm_guarded).
+// optional device flag `skip` makes every block return at once, before it
+// touches shared memory: the divergence watchdog enqueues its cold redo
+// every tick and lets the device decide whether it runs
+// (sqp/rti.py::rti_step_warm_guarded).
 //
 // SOFT bounds (kernel K4, the Pallas kernel's static `soft` flag,
 // pallas_ipm.py:249-257 and :457-1034; the acados ns>0 analog of
@@ -65,43 +66,95 @@
 // rounds to sig_s only within one ulp in float32 (measured with numpy:
 // fl(fl(x 1e18) / 1e18) != x for about a tenth of all x), and on a hard row
 // Z t overflows to inf, so every soft term is selected per row, never
-// multiplied by a 0/1 mask. Soft and warm starts do not combine (null
-// warm pointers when the penalty pointers are set).
+// multiplied by a 0/1 mask. The (t, gam) pairs stay in the global
+// workspace. Soft and warm starts do not combine (null warm pointers when
+// the penalty pointers are set).
 //
 // The plain PyTorch twins are ops/box_qp_ipm.py::box_qp_solve_plain,
 // batched_fused_tick_plain and fused_rti_solve_plain (the prologue's twin is
 // dynamics/fastlin.py::fast_linearize); each follows the same operation
 // order.
 //
-// What bounds it on this card: the solve is a chain of O(N * iters) small
-// dependent steps (17x17 products, a 6x6 factorization; 13x13 and 4x4 for
-// QUAD13) -- per problem it is
-// latency-bound, not FLOP- or byte-bound (N=60, 12 iterations is ~60 MFLOP
-// and ~0.3 MB of per-problem state). The Pallas kernel answered that with a
-// batch-on-lanes layout; a warp-wide lane layout would run a B=1 closed-loop
-// solve on one thread. The design here instead gives each problem one thread
-// block: the threads share a stage's products (up to 289 outputs), one
-// thread runs the 6x6 equilibrated Cholesky inverse, block reductions carry
-// the per-problem min/sum/max, and the stage stacks live in a problem-major
-// global workspace (a problem's A/B record, P stack, Z, Hinv and vectors reach
-// ~230 KB at N=60, more than one block's 227 KB of shared memory). A batch of
-// B problems is B blocks, spread over the 132 SMs. The fused modes' assembly
-// is elementwise over the block's threads; the FUSE_LIN prologue gives each
-// thread one (node, tangent column) pair (N * (NX + NU) pairs: 23 per node
-// for BLASTER, 17 for QUAD13), so it needs no jvp and no cross-thread
-// traffic. Shared-memory staging, warp-level factorization and
-// tensor-core products are later work.
+// What bounds it on this card: per problem the solve is a chain of
+// O(N * iters) small dependent steps (17x17 products, a 6x6 factorization;
+// 13x13 and 4x4 for QUAD13) -- latency, not FLOPs or bytes (N=60, 12
+// iterations is ~33 MFLOP and ~0.15 MB of inputs and outputs). The layout
+// shortens that chain and keeps memory latency off it:
+//
+//   - One problem per block of THREADS = 128 threads (four warps,
+//     __launch_bounds__(128, 2)); a batch of B problems is B blocks. A
+//     matrix phase of the Riccati factorization gives each thread a 2x2
+//     tile of its products (P'A, P'B; B'PB, B'PA, A'PA): four independent
+//     17-long sums in registers, each shared-memory operand feeding two
+//     of them (the phases are bound by shared-memory loads, not FMAs).
+//   - The Riccati factor stacks P_0..P_N, Z_0..Z_{N-1} and Hinv_0..Hinv_{N-1}
+//     live in dynamic shared memory (the "resident" layout, opted in up to
+//     232448 B per block, the card's ceiling measured by probe P1) whenever
+//     they fit with the per-stage scratch and the ring: every 17x6 horizon
+//     up to N=128 (103,636 B of stacks at N=60: two blocks per SM). Past
+//     that (17x6 N=240) they stay in the global workspace (the "global"
+//     layout) and the factorization works in a two-slot shared window of
+//     P, Z and Hinv that it copies out. The host's plan (smem_bytes /
+//     resident, box_qp_ipm_plan) picks the layout from N and the
+//     instantiation alone.
+//   - A four-slot ring in shared memory holds, per stage, A_k, B_k and
+//     the vectors the current sweep reads (the right-hand sides, the
+//     shooting residuals, kff, the KKT pass's stage terms and multipliers).
+//     The factorization's threads load A_{k-1}, B_{k-1} into registers at
+//     the top of stage k and store them at its end. The vector sweeps of a
+//     solve, the KKT pass's adjoint sweep and the init rollout run on warp
+//     0 while warps 1-3, idle there, fill the ring: each loads a stage with
+//     coalesced plain loads, waits until its slot is free, stores it and
+//     raises the slot's `full` flag; warp 0 polls the flag and, done with
+//     the stage, raises `empty` (shared-memory flags, ordered by
+//     __threadfence_block). So the sweeping warp never waits on global
+//     memory. (cp.async was measured first: four-byte copies, all a
+//     stage's 17x17 block offers in alignment, took ~90 cycles each of
+//     the sweeping warp's time, more than the stage's arithmetic.)
+//   - In a sweep, lanes 0..NX-1 own the state rows and lanes NX..NX+NU-1
+//     the control rows; the carries stay in registers and reach the other
+//     lanes by __shfl_sync, and every product of a stage is one uniform
+//     instruction stream (a lane-dependent column and stride). The
+//     stage-invariant P_k' req_{k-1} is formed a stage ahead; the KKT
+//     pass's Qs' dx_k + q_k and R' du_k + r_k are formed for all stages by
+//     the block before its sweep. The other warps meet warp 0 at the block
+//     barriers that open and close each sweep.
+//   - The factorization's barrier weights are computed for every row in
+//     one pass before it, and each stage's diagonal terms are loaded one
+//     stage ahead.
+//   - The NU x NU equilibrated Cholesky inverse runs on one warp: a lane
+//     per row of the factor (pivots and rows by shuffles), a lane per
+//     column of its inverse, a lane per entry of the product; warp 0 then
+//     forms Z_k = Hinv_k Hux_k. The fail-safe (the zero matrix for a
+//     non-positive diagonal or a pivot <= 1e-10) is kept; every operation
+//     of the one-thread form is kept, in its order.
+//
+// Block barriers per stage and IPM iteration: 4, all in the factorization
+// (PA|PB; Huu|Hux|A'PA; the Cholesky inverse and Z on warp 0; the
+// symmetrized P_k, computed for a pair (i, j) with i <= j by one thread as
+// 0.5 (Pt_ij + Pt_ji) and written to both entries). The sweeps take none
+// per stage (the ring's flags and __syncwarp); each sweep and each row pass
+// adds two or three barriers per iteration, not per stage. Every output
+// keeps the operation order of the one-thread-per-output form: the same
+// products in the same order, so a fused multiply-add is contracted the
+// same way. The per-problem block sums (complementarity, mu_aff, the
+// inequality count) are reduced over 128 threads in another order than
+// over 256.
 //
 // The long-horizon variants of the Pallas kernel (stream_p / stream_big,
 // pallas_ipm.py:293-393, kernel K7) stream P, the A/B record and the Z
 // gains between HBM and VMEM once an instance outgrows the TPU's resident
-// budget. Here every stage stack already lives in the global workspace,
-// indexed with size_t, and the shared memory does not grow with N, so the
-// one layout above serves every horizon: K7 has no code of its own (the
-// wrappers accept the streaming flags and ignore them).
+// budget. Here the same two layouts serve: resident while the stacks fit
+// in shared memory (N=120), global past it (N=240); the wrappers accept the
+// streaming flags and select nothing with them.
 //
 // Interface: plain C (loaded with ctypes), float32, contiguous problem-major
 // tensors; launches on the caller's stream and returns cudaGetLastError().
+// Before the first launch of an instantiation the host calls
+// box_qp_ipm_set_optin, which opts it in to SMEM_OPTIN bytes of dynamic
+// shared memory; a launch whose plan exceeds that is refused. The
+// FUSE_LIN prologue (`linearize`) is compiled out of line, so that the
+// registers its dual numbers take do not crowd the solve's loops.
 // Build without --use_fast_math: the guards rely on IEEE division, square
 // root, sin/cos/tan and NaN behaviour.
 
@@ -111,8 +164,15 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+// The most dynamic shared memory one block may opt in to on the H100
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin; probe P1 reads it back).
+constexpr long long SMEM_OPTIN = 232448;
+// Tangent columns the FUSE_LIN prologue carries per thread (two
+// independent chains on one value part).
+constexpr int LIN_COLS = 2;
 
 constexpr float BIG = 1e20f;        // slack of a masked (infinite) bound
 constexpr float MTHR = 5e17f;       // |bound| above this is infinite
@@ -155,7 +215,7 @@ struct OpMin {
 template <class Op>
 __device__ float block_reduce(float v, float* red, Op op) {
   for (int o = 16; o > 0; o >>= 1) {
-    v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = op(v, __shfl_xor_sync(FULL, v, o));
   }
   __syncthreads();  // earlier readers of red are done
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
@@ -165,6 +225,43 @@ __device__ float block_reduce(float v, float* red, Op op) {
   return out;
 }
 
+// The per-problem sums keep the summation order of a 256-thread block
+// (SUM_THREADS): thread t carries the partial sums of the virtual threads
+// t and t + 128 (rows t, t + 256, ... and t + 128, t + 384, ...), each is
+// reduced over its virtual warp by the same butterfly, and the eight warp
+// sums are added in order. Rounding then does not depend on the block
+// size: a sum over 128 threads would part from the twin's and the earlier
+// kernels' f32 trajectories on unconverged solves.
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_WARPS = SUM_THREADS / 32;
+static_assert(SUM_THREADS == 2 * THREADS, "two virtual threads per thread");
+
+__device__ float block_sum(const float (&v)[2], float* red) {
+  float a = v[0], b = v[1];
+  for (int o = 16; o > 0; o >>= 1) {
+    a = a + __shfl_xor_sync(FULL, a, o);
+    b = b + __shfl_xor_sync(FULL, b, o);
+  }
+  __syncthreads();  // earlier readers of red are done
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = a;
+    red[WARPS + (threadIdx.x >> 5)] = b;
+  }
+  __syncthreads();
+  float out = red[0];
+  for (int w = 1; w < SUM_WARPS; ++w) out = out + red[w];
+  return out;
+}
+
+// The ring's flags: shared-memory words written by one warp and polled by
+// another, ordered with __threadfence_block on both sides.
+__device__ __forceinline__ int ld_volatile(const int* p) {
+  return *(const volatile int*)p;
+}
+__device__ __forceinline__ void st_volatile(int* p, int v) {
+  *(volatile int*)p = v;
+}
+
 // Floats of the FUSE_LIN prologue's record per problem: A (N, NX, NX),
 // B (N, NX, NU), c (N, NX).
 template <int NX, int NU>
@@ -172,16 +269,84 @@ __host__ __device__ size_t lin_floats(int N) {
   return (size_t)N * (NX * NX + NX * NU + NX);
 }
 
+// The ring: RING_SLOTS slots, each A_k, B_k and the stage's vectors of
+// the sweep that reads it (at most 3 (NX + NU) words, the KKT sweep's).
+constexpr int RING_SLOTS = 4;
+template <int NX, int NU>
+__host__ __device__ constexpr int ring_stage() {
+  return NX * NX + NX * NU + 3 * (NX + NU);
+}
+
+// ---- shared-memory plan -------------------------------------------------
+// Dynamic shared memory of a block: the per-stage scratch (Shared), the A/B
+// ring, then the factor stacks (resident) or the factorization's window
+// (global). Everything is float, so the byte count is 4 x the floats.
+template <int NX, int NU>
+struct Shared {
+  static constexpr int NXX = NX * NX;
+  float PA[NXX];       // P_{k+1}' A_k
+  float APA[NXX];      // A_k' P_{k+1} A_k
+  float PB[NX * NU];   // P_{k+1}' B_k
+  float Hux[NU * NX];  // B_k' P_{k+1} A_k
+  float Huu[NU * NU];
+  float L[NU * NU];    // the Cholesky inverse's factor and its inverse
+  float Li[NU * NU];
+  float red[2 * WARPS];  // block reductions (sums: SUM_WARPS slots)
+  int full[RING_SLOTS];   // the sweep step whose data a slot holds
+  int empty[RING_SLOTS];  // the last step a slot served
+};
+
+template <int NX, int NU>
+__host__ __device__ constexpr int shared_floats() {
+  return 2 * NX * NX + 2 * NX * NU + 3 * NU * NU + 2 * WARPS + 2 * RING_SLOTS;
+}
+static_assert(sizeof(Shared<17, 6>) == 4 * shared_floats<17, 6>(), "");
+static_assert(sizeof(Shared<13, 4>) == 4 * shared_floats<13, 4>(), "");
+
+template <int NX, int NU>
+__host__ __device__ size_t stack_floats(int N) {  // P, Z, Hinv
+  return (size_t)(N + 1) * NX * NX + (size_t)N * NU * NX + (size_t)N * NU * NU;
+}
+
+// the factorization's window of the global layout: two P slots, one Z,
+// one Hinv
+template <int NX, int NU>
+__host__ __device__ constexpr int window_floats() {
+  return 2 * NX * NX + NU * NX + NU * NU;
+}
+
+template <int NX, int NU>
+__host__ __device__ bool resident(int N) {
+  const size_t f = shared_floats<NX, NU>()
+                   + RING_SLOTS * ring_stage<NX, NU>()
+                   + stack_floats<NX, NU>(N);
+  return 4 * f <= (size_t)SMEM_OPTIN;
+}
+
+template <int NX, int NU>
+__host__ __device__ size_t smem_bytes(int N) {
+  const size_t f = shared_floats<NX, NU>()
+                   + RING_SLOTS * ring_stage<NX, NU>()
+                   + (resident<NX, NU>(N) ? stack_floats<NX, NU>(N)
+                                          : (size_t)window_floats<NX, NU>());
+  return 4 * f;
+}
+
+// Global workspace per problem: the iterate and direction vectors, the
+// right-hand sides, the factorization's barrier weights and the KKT pass's
+// stage terms; the fused modes' assembled rows; the soft pairs; the
+// prologue's record when the caller does not keep it; the factor stacks in
+// the global layout.
 template <int NX, int NU>
 __host__ __device__ size_t workspace_floats(int N, int mode, bool soft) {
-  constexpr int NXX = NX * NX;
   const size_t n = N, n1 = N + 1;
-  size_t w = n1 * (NXX + 4 * NX)                  // P, dx, ddx, ddxa, qr
-             + n * (NU * NX + NU * NU + 5 * NU + NX);  // Z, Hinv, kff, du,
-                                                       // ddu, ddua, rr, req
+  size_t w = n1 * 4 * NX                 // dx, ddx, ddxa, qr
+             + n * (5 * NU + 3 * NX + 2 * NU);  // kff du ddu ddua rr; req
+                                                // sgx kx; sgu ku
   if (mode != PLAIN) w += n1 * NX + 2 * n * NX + 3 * n * NU;  // q, r, bounds
   if (mode == FUSE_LIN) w += lin_floats<NX, NU>(N);
   if (soft) w += 4 * n * (NX + NU);  // t, gam of the four groups
+  if (!resident<NX, NU>(N)) w += stack_floats<NX, NU>(N);
   return w;
 }
 
@@ -242,76 +407,106 @@ struct Outputs {
   float* lin;   // FUSE_LIN, optional: (B, lin_floats<NX, NU>(N)) A, B, c
 };
 
-template <int NX, int NU>
-struct Shared {
-  static constexpr int NXX = NX * NX;
-  float Pn[NXX];   // P_{k+1}: the factorization's carry
-  float PA[NXX];
-  float Pt[NXX];
-  float PB[NX * NU];
-  float Huu[NU * NU];
-  float Hux[NU * NX];
-  float Hi[NU * NU];
-  float Zk[NU * NX];
-  float vx[2][NX];  // ping-pong carry of the backward sweeps
-  float wx[NX];
-  float wu[NU];
-  float red[WARPS];
-};
-
-// Fail-safe, Jacobi-equilibrated inverse of the SPD NU x NU Huu (one
-// thread; 6x6 for BLASTER, 4x4 for QUAD13). Returns the zero matrix when a
-// diagonal entry is <= 0 or the minimum Cholesky pivot is <= 1e-10: the
-// stage's gain collapses to 0 instead of blowing the recursion up to
-// inf/NaN.
+// Fail-safe, Jacobi-equilibrated inverse of the SPD NU x NU matrix M (6x6
+// for BLASTER, 4x4 for QUAD13), run by all 32 lanes of one warp. Returns
+// the zero matrix when a diagonal entry is <= 0 or the minimum Cholesky
+// pivot is <= 1e-10: the stage's gain collapses to 0 instead of blowing
+// the recursion up to inf/NaN. Lane r < NU owns row r of the factor L
+// (column j: lane j forms the pivot, every lane takes it and row j's
+// entries by shuffles, lanes r > j their entry); lane c owns column c of
+// L^-1 (forward substitution down the column); lane e the entry e of
+// L^-T L^-1 scaled back. Every operation of the one-thread form, in its
+// order: the same roundings. Ls, Lis: NU x NU shared scratch; out: NU x NU.
 template <int NU>
-__device__ void chol_inverse(const float* M, float* out) {
-  float dscale[NU], L[NU][NU], Li[NU][NU];
-  bool diag_ok = true;
+__device__ void chol_inverse_warp(const float* M, float* Ls, float* Lis,
+                                  float* out, int lane) {
+  const int r = lane < NU ? lane : NU - 1;  // lanes >= NU shadow row NU-1
+  float Mr[NU];
+#pragma unroll
+  for (int c = 0; c < NU; ++c) Mr[c] = M[r * NU + c];
+  const float mrr = M[r * NU + r];
+  const bool diag_ok = __all_sync(FULL, mrr > 0.f);
+  const float ds = sqrtf(nmax(mrr, 1e-30f));  // dscale[r]
+  float dsc[NU];
+#pragma unroll
+  for (int c = 0; c < NU; ++c) dsc[c] = __shfl_sync(FULL, ds, c);
+  float Lr[NU];
+#pragma unroll
+  for (int c = 0; c < NU; ++c) Lr[c] = 0.f;
+  float min_piv = 0.f;
+  // the equilibrated entries of row r, off the pivots' chain
+  const float msd = Mr[r] / (ds * ds);
+  float mst[NU];
+#pragma unroll
+  for (int j = 0; j < NU; ++j) mst[j] = Mr[j] / (ds * dsc[j]);
+#pragma unroll
+  for (int j = 0; j < NU; ++j) {
+    float s = msd;  // lane j: M_jj / (d_j d_j)
+#pragma unroll
+    for (int p = 0; p < j; ++p) s = s - Lr[p] * Lr[p];
+    const float sj = __shfl_sync(FULL, s, j);
+    min_piv = (j == 0) ? sj : nmin(min_piv, sj);
+    const float d = sqrtf(nmax(sj, 1e-12f));
+    const float inv_d = 1.f / d;
+    float tt = mst[j];  // lane r > j: M_rj / (d_r d_j)
+#pragma unroll
+    for (int p = 0; p < j; ++p) {
+      const float ljp = __shfl_sync(FULL, Lr[p], j);
+      tt = tt - Lr[p] * ljp;
+    }
+    if (r == j) {
+      Lr[j] = d;
+    } else if (r > j) {
+      Lr[j] = tt * inv_d;
+    }
+  }
+  if (lane < NU) {
+#pragma unroll
+    for (int c = 0; c < NU; ++c) Ls[r * NU + c] = Lr[c];
+  }
+  __syncwarp();
+  // column c = r of L^-1
+  const int c = r;
+  const float licc = 1.f / Ls[c * NU + c];
+  float Lc[NU];
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
-    diag_ok = diag_ok && (M[i * NU + i] > 0.f);
-    dscale[i] = sqrtf(nmax(M[i * NU + i], 1e-30f));
-  }
-  float min_piv = 0.f;
+    if (i < c) {
+      Lc[i] = 0.f;
+    } else if (i == c) {
+      Lc[i] = licc;
+    } else {
+      float s = Ls[i * NU + c] * licc;
 #pragma unroll
-  for (int j = 0; j < NU; ++j) {
-    float s = M[j * NU + j] / (dscale[j] * dscale[j]);
-#pragma unroll
-    for (int p = 0; p < j; ++p) s = s - L[j][p] * L[j][p];
-    min_piv = (j == 0) ? s : nmin(min_piv, s);
-    const float d = sqrtf(nmax(s, 1e-12f));
-    L[j][j] = d;
-    const float inv_d = 1.f / d;
-#pragma unroll
-    for (int i = j + 1; i < NU; ++i) {
-      float t = M[i * NU + j] / (dscale[i] * dscale[j]);
-#pragma unroll
-      for (int p = 0; p < j; ++p) t = t - L[i][p] * L[j][p];
-      L[i][j] = t * inv_d;
+      for (int k = 0; k < NU; ++k) {
+        if (k > c && k < i) s = s + Ls[i * NU + k] * Lc[k];
+      }
+      Lc[i] = -s / Ls[i * NU + i];
     }
   }
+  if (lane < NU) {
 #pragma unroll
-  for (int j = 0; j < NU; ++j) {
-    Li[j][j] = 1.f / L[j][j];
-#pragma unroll
-    for (int i = j + 1; i < NU; ++i) {
-      float s = L[i][j] * Li[j][j];
-#pragma unroll
-      for (int k = j + 1; k < i; ++k) s = s + L[i][k] * Li[k][j];
-      Li[i][j] = -s / L[i][i];
-    }
+    for (int i = 0; i < NU; ++i) Lis[i * NU + c] = Lc[i];
   }
+  __syncwarp();
   const bool ok = diag_ok && (min_piv > 1e-10f);
 #pragma unroll
-  for (int i = 0; i < NU; ++i) {
+  for (int ro = 0; ro < (NU * NU + 31) / 32; ++ro) {
+    const int e = lane + 32 * ro;
+    if (e < NU * NU) {
+      const int i = e / NU, j = e - i * NU, k0 = i > j ? i : j;
+      float s = Lis[k0 * NU + i] * Lis[k0 * NU + j];
 #pragma unroll
-    for (int j = 0; j < NU; ++j) {
-      const int k0 = i > j ? i : j;
-      float s = Li[k0][i] * Li[k0][j];
+      for (int k = 0; k < NU; ++k) {
+        if (k > k0) s = s + Lis[k * NU + i] * Lis[k * NU + j];
+      }
+      float di = dsc[0], dj = dsc[0];
 #pragma unroll
-      for (int k = k0 + 1; k < NU; ++k) s = s + Li[k][i] * Li[k][j];
-      out[i * NU + j] = ok ? s / (dscale[i] * dscale[j]) : 0.f;
+      for (int q = 1; q < NU; ++q) {
+        di = q == i ? dsc[q] : di;
+        dj = q == j ? dsc[q] : dj;
+      }
+      out[e] = ok ? s / (di * dj) : 0.f;
     }
   }
 }
@@ -329,60 +524,91 @@ __device__ __forceinline__ float clamp_into(float v, float lb, float ub) {
   return clamp_masked(v, lb, ub, lb > -MTHR, ub < MTHR);
 }
 
-// ---- forward-mode dual numbers (value, tangent) ---------------------------
+// ---- forward-mode dual numbers (value, C tangents) ------------------------
 // The tangent rules are JAX's jvp rules (sin' = cos, cos' = -sin,
 // tan' = 1 + tan^2, the quotient rule); the value part is the plain float
-// arithmetic, so ode_rows<float> and the value of ode_rows<Dual> agree.
-struct Dual {
-  float v, d;
+// arithmetic, so ode_rows<float> and the value of ode_rows<DualN<C>> agree.
+// C tangent columns share one value part; each column's arithmetic is the
+// one-column form's, so C independent chains run side by side.
+template <int C>
+struct DualN {
+  float v, d[C];
 };
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
-  return {a.v + b.v, a.d + b.d};
+// a DualN from its value and a function of the column giving each tangent
+template <int C, class F>
+__device__ __forceinline__ DualN<C> dual(float v, F d) {
+  DualN<C> o;
+  o.v = v;
+#pragma unroll
+  for (int c = 0; c < C; ++c) o.d[c] = d(c);
+  return o;
 }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
-  return {a.v - b.v, a.d - b.d};
+template <int C>
+__device__ __forceinline__ DualN<C> operator+(DualN<C> a, DualN<C> b) {
+  return dual<C>(a.v + b.v, [&](int c) { return a.d[c] + b.d[c]; });
 }
-__device__ __forceinline__ Dual operator-(Dual a, float b) {
-  return {a.v - b, a.d};
+template <int C>
+__device__ __forceinline__ DualN<C> operator-(DualN<C> a, DualN<C> b) {
+  return dual<C>(a.v - b.v, [&](int c) { return a.d[c] - b.d[c]; });
 }
-__device__ __forceinline__ Dual operator+(Dual a, float b) {
-  return {a.v + b, a.d};
+template <int C>
+__device__ __forceinline__ DualN<C> operator-(DualN<C> a, float b) {
+  return dual<C>(a.v - b, [&](int c) { return a.d[c]; });
 }
-__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-  return {a.v * b.v, a.d * b.v + a.v * b.d};
+template <int C>
+__device__ __forceinline__ DualN<C> operator+(DualN<C> a, float b) {
+  return dual<C>(a.v + b, [&](int c) { return a.d[c]; });
 }
-__device__ __forceinline__ Dual operator*(Dual a, float b) {
-  return {a.v * b, a.d * b};
+template <int C>
+__device__ __forceinline__ DualN<C> operator-(DualN<C> a) {
+  return dual<C>(-a.v, [&](int c) { return -a.d[c]; });
 }
-__device__ __forceinline__ Dual operator*(float a, Dual b) {
-  return {a * b.v, a * b.d};
+template <int C>
+__device__ __forceinline__ DualN<C> operator*(DualN<C> a, DualN<C> b) {
+  return dual<C>(a.v * b.v,
+                 [&](int c) { return a.d[c] * b.v + a.v * b.d[c]; });
 }
-__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+template <int C>
+__device__ __forceinline__ DualN<C> operator*(DualN<C> a, float b) {
+  return dual<C>(a.v * b, [&](int c) { return a.d[c] * b; });
+}
+template <int C>
+__device__ __forceinline__ DualN<C> operator*(float a, DualN<C> b) {
+  return dual<C>(a * b.v, [&](int c) { return a * b.d[c]; });
+}
+template <int C>
+__device__ __forceinline__ DualN<C> operator/(DualN<C> a, DualN<C> b) {
   const float q = a.v / b.v;
-  return {q, (a.d - q * b.d) / b.v};
+  return dual<C>(q, [&](int c) { return (a.d[c] - q * b.d[c]) / b.v; });
 }
-__device__ __forceinline__ Dual operator/(Dual a, float b) {
-  return {a.v / b, a.d / b};
+template <int C>
+__device__ __forceinline__ DualN<C> operator/(DualN<C> a, float b) {
+  return dual<C>(a.v / b, [&](int c) { return a.d[c] / b; });
 }
 __device__ __forceinline__ float fsin(float x) { return sinf(x); }
 __device__ __forceinline__ float fcos(float x) { return cosf(x); }
 __device__ __forceinline__ float ftan(float x) { return tanf(x); }
-__device__ __forceinline__ Dual fsin(Dual x) {
-  return {sinf(x.v), cosf(x.v) * x.d};
+template <int C>
+__device__ __forceinline__ DualN<C> fsin(DualN<C> x) {
+  const float cv = cosf(x.v);
+  return dual<C>(sinf(x.v), [&](int c) { return cv * x.d[c]; });
 }
-__device__ __forceinline__ Dual fcos(Dual x) {
-  return {cosf(x.v), -sinf(x.v) * x.d};
+template <int C>
+__device__ __forceinline__ DualN<C> fcos(DualN<C> x) {
+  const float ns = -sinf(x.v);
+  return dual<C>(cosf(x.v), [&](int c) { return ns * x.d[c]; });
 }
-__device__ __forceinline__ Dual ftan(Dual x) {
-  const float t = tanf(x.v);
-  return {t, (1.f + t * t) * x.d};
+template <int C>
+__device__ __forceinline__ DualN<C> ftan(DualN<C> x) {
+  const float t = tanf(x.v), f = 1.f + t * t;
+  return dual<C>(t, [&](int c) { return f * x.d[c]; });
 }
 // sqrt' = 1 / (2 sqrt), as PyTorch's forward-mode rule writes it
 __device__ __forceinline__ float fsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ Dual fsqrt(Dual x) {
-  const float s = sqrtf(x.v);
-  return {s, x.d / (2.f * s)};
+template <int C>
+__device__ __forceinline__ DualN<C> fsqrt(DualN<C> x) {
+  const float s = sqrtf(x.v), den = 2.f * s;
+  return dual<C>(s, [&](int c) { return x.d[c] / den; });
 }
 
 // The BLASTER ODE with components as scalars, written once over the scalar
@@ -580,6 +806,9 @@ struct SoftRows<true> {
 template <int MODE, bool SOFT, int NX, int NU, int FAM>
 struct Solver : SoftRows<SOFT> {
   static constexpr int NXX = NX * NX;
+  static constexpr int RING = ring_stage<NX, NU>();
+  static constexpr int NPAIR = NX * (NX + 1) / 2;  // P entries i <= j
+  static constexpr int PR = (NPAIR + THREADS - 1) / THREADS;
   // inputs of this problem
   const float *A, *Bm, *c, *Qs, *Qt, *q, *R, *r, *dx0;
   const float* bnd[4];  // lbx, ubx, lbu, ubu (delta form)
@@ -594,17 +823,23 @@ struct Solver : SoftRows<SOFT> {
   // outputs (slacks/duals double as the iterate's state)
   float *dxb, *dub, *diag;
   float *s[4], *lam[4];
-  // workspace
-  float *P, *Z, *Hinv, *kff, *dx, *du, *ddx, *ddu, *ddxa, *ddua, *qr, *rr,
-      *req;
+  // workspace (global)
+  float *kff, *dx, *du, *ddx, *ddu, *ddxa, *ddua, *qr, *rr, *req, *sgx,
+      *sgu, *kx, *ku;
+  // shared memory: scratch, the A/B ring, the factorization's window
+  // (global layout); the factor stacks (shared or global)
   Shared<NX, NU>& sh;
-  int N, t;
+  float *ring, *win, *Pst, *Zst, *Hst;
+  bool res;
+  int N, t, lane, warp;
+  int pi[PR], pj[PR];  // this thread's (i, j) pairs of the P phase
   float mu0, reg, n_ineq, mu_t;
 
-  __device__ Solver(const Inputs& in, const Outputs& out, Shared<NX, NU>& sh_,
-                    int N_, float mu0_, float reg_)
-      : sh(sh_), N(N_), t(threadIdx.x), mu0(mu0_), reg(reg_), n_ineq(1.f),
-        mu_t(0.f) {
+  __device__ Solver(const Inputs& in, const Outputs& out, float* smem, int N_,
+                    float mu0_, float reg_)
+      : sh(*reinterpret_cast<Shared<NX, NU>*>(smem)), N(N_), t(threadIdx.x),
+        lane(threadIdx.x & 31), warp(threadIdx.x >> 5), mu0(mu0_),
+        reg(reg_), n_ineq(1.f), mu_t(0.f) {
     const size_t b = blockIdx.x, n = N, n1 = N + 1;
     Qs = in.Qs + b * NXX;
     Qt = in.Qt + b * NXX;
@@ -635,19 +870,20 @@ struct Solver : SoftRows<SOFT> {
       wl[g] = warm_use ? in.wl[g] + b * n * w : nullptr;
     }
     float* w = out.work + b * workspace_floats<NX, NU>(N, MODE, SOFT);
-    P = w;        w += n1 * NXX;
     dx = w;       w += n1 * NX;
     ddx = w;      w += n1 * NX;
     ddxa = w;     w += n1 * NX;
     qr = w;       w += n1 * NX;
-    Z = w;        w += n * NU * NX;
-    Hinv = w;     w += n * NU * NU;
     kff = w;      w += n * NU;
     du = w;       w += n * NU;
     ddu = w;      w += n * NU;
     ddua = w;     w += n * NU;
     rr = w;       w += n * NU;
     req = w;      w += n * NX;
+    sgx = w;      w += n * NX;
+    kx = w;       w += n * NX;
+    sgu = w;      w += n * NU;
+    ku = w;       w += n * NU;
     if constexpr (SOFT) {
       for (int g = 0; g < 4; ++g) {
         const size_t wd = g < 2 ? NX : NU;
@@ -681,6 +917,7 @@ struct Solver : SoftRows<SOFT> {
       np = in.np;
       sp = in.sp + b * n * np;
       float* L = out.lin ? out.lin + b * lin_floats<NX, NU>(N) : w;
+      w += lin_floats<NX, NU>(N);
       Aw = L;
       Bw = L + n * NXX;
       cw = Bw + n * NX * NU;
@@ -688,37 +925,250 @@ struct Solver : SoftRows<SOFT> {
       Bm = Bw;
       c = cw;
     }
+    ring = smem + shared_floats<NX, NU>();
+    res = resident<NX, NU>(N);
+    win = nullptr;
+    Pst = res ? ring + RING_SLOTS * RING : w;
+    if (!res) win = ring + RING_SLOTS * RING;
+    Zst = Pst + n1 * NXX;
+    Hst = Zst + n * NU * NX;
+    // pairs of the P phase: the diagonal first (thread t < NX owns (t, t)),
+    // then the strict upper triangle row by row
+#pragma unroll
+    for (int h = 0; h < PR; ++h) {
+      int p = t + h * THREADS, i = 0, j = 0;
+      if (p < NX) {
+        i = j = p;
+      } else if (p < NPAIR) {
+        p -= NX;
+        int len = NX - 1;
+        while (p >= len) {
+          p -= len;
+          ++i;
+          --len;
+        }
+        j = i + 1 + p;
+      }
+      pi[h] = i;
+      pj[h] = j;
+    }
+  }
+
+  // ---- the factor stacks and the A/B ring ----------------------------------
+  // Where the sweeps read stage k's P, Z and Hinv (shared or global) ...
+  __device__ const float* Ps(int k) const { return Pst + (size_t)k * NXX; }
+  __device__ const float* Zs(int k) const {
+    return Zst + (size_t)k * NU * NX;
+  }
+  __device__ const float* Hs(int k) const {
+    return Hst + (size_t)k * NU * NU;
+  }
+  // ... and where the factorization keeps them: the stacks themselves, or
+  // the shared window whose entries it also copies out (global layout)
+  __device__ float* Pw(int k) const {
+    return res ? Pst + (size_t)k * NXX : win + (k & 1) * NXX;
+  }
+  __device__ float* Zw(int k) const {
+    return res ? Zst + (size_t)k * NU * NX : win + 2 * NXX;
+  }
+  __device__ float* Hw(int k) const {
+    return res ? Hst + (size_t)k * NU * NU : win + 2 * NXX + NU * NX;
+  }
+
+  // Slot of sweep step m (or of stage k in the factorization): A_k, B_k,
+  // then the vectors of the sweep.
+  __device__ float* ring_slot(int m) const {
+    return ring + (m & (RING_SLOTS - 1)) * RING;
+  }
+  // The factorization's A_k | B_k: thread t loads words t + h THREADS into
+  // registers a stage ahead and stores them into stage k's slot.
+  static constexpr int AB = NXX + NX * NU;
+  static constexpr int RF = (AB + THREADS - 1) / THREADS;
+  __device__ void ab_load(int k, float (&r)[RF]) const {
+#pragma unroll
+    for (int h = 0; h < RF; ++h) {
+      const int e = t + h * THREADS;
+      r[h] = e >= AB ? 0.f
+             : e < NXX ? A[(size_t)k * NXX + e]
+                       : Bm[(size_t)k * NX * NU + (e - NXX)];
+    }
+  }
+  __device__ void ab_store(int k, const float (&r)[RF]) const {
+    float* dst = ring_slot(k);
+#pragma unroll
+    for (int h = 0; h < RF; ++h) {
+      if (t + h * THREADS < AB) dst[t + h * THREADS] = r[h];
+    }
+  }
+  // The factorization's matrix phases: every product L' R of the stage
+  // (P'A, P'B; B'PB, B'PA, A'PA) is cut into 2x2 tiles of outputs, one
+  // tile per thread, so that each operand loaded from shared memory feeds
+  // two of the tile's four independent chains. Each output is still the
+  // one sum over l = 0..NX-1 in order.
+  static constexpr int HX = (NX + 1) / 2, HU = (NU + 1) / 2;
+  static constexpr int T1A = HX * HX, T1 = T1A + HX * HU;
+  static constexpr int T2U = HU * HU, T2X = HU * HX, T2 = T2U + T2X + HX * HX;
+  static_assert(T1 <= THREADS && T2 <= THREADS, "one tile per thread");
+  // out (h x w, row-major) [i][j] = sum_l lp[l ll + i] rp[l rl + j] on
+  // tile number `tile` (rows 2a, 2a + 1; columns 2b, 2b + 1; an odd edge
+  // repeats its last row or column and does not store it)
+  __device__ static void tile2x2(const float* lp, int ll, const float* rp,
+                                 int rl, int h, int w, int tile, float* out) {
+    const int wp = (w + 1) / 2, a = tile / wp, b = tile - a * wp;
+    const int i0 = 2 * a, j0 = 2 * b;
+    const int i1 = i0 + 1 < h ? i0 + 1 : i0, j1 = j0 + 1 < w ? j0 + 1 : j0;
+    float c00 = lp[i0] * rp[j0], c01 = lp[i0] * rp[j1];
+    float c10 = lp[i1] * rp[j0], c11 = lp[i1] * rp[j1];
+#pragma unroll
+    for (int l = 1; l < NX; ++l) {
+      const float x0 = lp[l * ll + i0], x1 = lp[l * ll + i1];
+      const float y0 = rp[l * rl + j0], y1 = rp[l * rl + j1];
+      c00 += x0 * y0;
+      c01 += x0 * y1;
+      c10 += x1 * y0;
+      c11 += x1 * y1;
+    }
+    out[i0 * w + j0] = c00;
+    if (j1 != j0) out[i0 * w + j1] = c01;
+    if (i1 != i0) {
+      out[i1 * w + j0] = c10;
+      if (j1 != j0) out[i1 * w + j1] = c11;
+    }
+  }
+  enum Vec : int { V_INIT, V_BACK, V_FWD, V_KKT };
+  // Where word e of stage k's slot comes from (nullptr: a word the sweep
+  // does not read).
+  template <int VEC>
+  __device__ const float* ring_src(int k, int e) const {
+    if (e < NXX) return A + (size_t)k * NXX + e;
+    e -= NXX;
+    if (e < NX * NU) return Bm + (size_t)k * NX * NU + e;
+    e -= NX * NU;
+    if constexpr (VEC == V_INIT) {
+      if (e < NX) return c + k * NX + e;
+    } else if constexpr (VEC == V_BACK) {
+      if (e < NX) return req + k * NX + e;
+      if (e < 2 * NX) return qr + k * NX + (e - NX);
+      if (e < 2 * NX + NU) return rr + k * NU + (e - 2 * NX);
+    } else if constexpr (VEC == V_FWD) {
+      if (e < NX) return req + k * NX + e;
+      if (e < NX + NU) return kff + k * NU + (e - NX);
+    } else {
+      if (e < NX) return kx + k * NX + e;
+      if (e < NX + NU) return ku + k * NU + (e - NX);
+      if (k >= 1 && e < 2 * NX + NU) {
+        return lam[0] + (k - 1) * NX + (e - NX - NU);
+      }
+      if (k >= 1 && e < 3 * NX + NU) {
+        return lam[1] + (k - 1) * NX + (e - 2 * NX - NU);
+      }
+      if (e >= 3 * NX + NU && e < 3 * NX + 2 * NU) {
+        return lam[2] + k * NU + (e - 3 * NX - NU);
+      }
+      if (e >= 3 * NX + 2 * NU && e < 3 * NX + 3 * NU) {
+        return lam[3] + k * NU + (e - 3 * NX - 2 * NU);
+      }
+    }
+    return nullptr;
+  }
+
+  // A sweep on warp 0 reads each stage from the ring; warps 1..WARPS-1
+  // fill it. Step m of the sweep visits stage first + m dir. Producer warp
+  // w takes the steps m = w - 1 (mod WARPS - 1): it loads the stage into
+  // registers (coalesced plain loads, started before it waits), waits until
+  // the slot's previous step m - RING_SLOTS has been served, stores it,
+  // and publishes the step in full[slot]. Warp 0 polls full[slot] for the
+  // step, reads the slot and publishes the step in empty[slot].
+  __device__ void sweep_begin() {
+    __syncthreads();  // the ring's previous readers and writers are done
+    if (t < RING_SLOTS) {
+      sh.full[t] = -1;
+      sh.empty[t] = t - RING_SLOTS;
+    }
+    __syncthreads();
+  }
+  template <int VEC>
+  __device__ void produce(int first, int dir) {
+    constexpr int W = (RING + 31) / 32;
+    for (int m = warp - 1; m < N; m += WARPS - 1) {
+      const int k = first + m * dir, s = m & (RING_SLOTS - 1);
+      float r[W];
+#pragma unroll
+      for (int h = 0; h < W; ++h) {
+        const float* p = ring_src<VEC>(k, lane + 32 * h);
+        r[h] = (lane + 32 * h < RING && p) ? *p : 0.f;
+      }
+      while (ld_volatile(&sh.empty[s]) < m - RING_SLOTS) {
+      }
+      __threadfence_block();
+      float* dst = ring_slot(m);
+#pragma unroll
+      for (int h = 0; h < W; ++h) {
+        if (lane + 32 * h < RING) dst[lane + 32 * h] = r[h];
+      }
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) st_volatile(&sh.full[s], m);
+    }
+  }
+  // warp 0: the slot of step m once it is filled
+  __device__ const float* acquire(int m) const {
+    while (ld_volatile(&sh.full[m & (RING_SLOTS - 1)]) != m) {
+    }
+    __threadfence_block();
+    return ring_slot(m);
+  }
+  // warp 0: step m's slot may be refilled
+  __device__ void release(int m) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      st_volatile(&sh.empty[m & (RING_SLOTS - 1)], m);
+    }
   }
 
   // ---- fused assembly ----------------------------------------------------
-  // FUSE_LIN prologue: thread e takes node k = e / C and tangent column
-  // j = e % C, C = NX + NU (j < NX seeds x_j, else u_{j-NX}), runs RK4 of
-  // the family's ODE on duals and writes column j of A_k or B_k; column 0
-  // also writes the shooting defect c_k = x_next - xbar_{k+1}.
-  __device__ void linearize(const Model& md) {
-    constexpr int C = NX + NU;
-    for (int e = t; e < N * C; e += THREADS) {
-      const int k = e / C, j = e - k * C;
-      Dual X[NX], U[NU];
+  // FUSE_LIN prologue: item e takes node k = e / CP and the LIN_COLS
+  // tangent columns j0 .. j0 + LIN_COLS - 1 of that node (C = NX + NU
+  // columns; j < NX seeds x_j, else u_{j-NX}), runs RK4 of the family's ODE
+  // on duals and writes those columns of A_k or B_k; column 0 also writes
+  // the shooting defect c_k = x_next - xbar_{k+1}.
+  __device__ __noinline__ void linearize(const Model& md) {
+    constexpr int C = NX + NU, CP = (C + LIN_COLS - 1) / LIN_COLS;
+    for (int e = t; e < N * CP; e += THREADS) {
+      const int k = e / CP, j0 = (e - k * CP) * LIN_COLS;
+      DualN<LIN_COLS> X[NX], U[NU];
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
-        X[i] = {xbar[k * NX + i], i == j ? 1.f : 0.f};
+        X[i].v = xbar[k * NX + i];
+#pragma unroll
+        for (int h = 0; h < LIN_COLS; ++h) X[i].d[h] = i == j0 + h ? 1.f : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
-        U[i] = {ubar[k * NU + i], NX + i == j ? 1.f : 0.f};
-      }
-      rk4_rows<FAM, NX>(X, U, sp + (size_t)k * np, md);
-      if (j < NX) {
+        U[i].v = ubar[k * NU + i];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) Aw[((size_t)k * NX + i) * NX + j] = X[i].d;
-      } else {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          Bw[((size_t)k * NX + i) * NU + (j - NX)] = X[i].d;
+        for (int h = 0; h < LIN_COLS; ++h) {
+          U[i].d[h] = NX + i == j0 + h ? 1.f : 0.f;
         }
       }
-      if (j == 0) {
+      rk4_rows<FAM, NX>(X, U, sp + (size_t)k * np, md);
+#pragma unroll
+      for (int h = 0; h < LIN_COLS; ++h) {
+        const int j = j0 + h;
+        if (j < NX) {
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            Aw[((size_t)k * NX + i) * NX + j] = X[i].d[h];
+          }
+        } else if (j < C) {
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            Bw[((size_t)k * NX + i) * NU + (j - NX)] = X[i].d[h];
+          }
+        }
+      }
+      if (j0 == 0) {
 #pragma unroll
         for (int i = 0; i < NX; ++i) {
           cw[k * NX + i] = X[i].v - xbar[(k + 1) * NX + i];
@@ -798,14 +1248,35 @@ struct Solver : SoftRows<SOFT> {
   // idx indexes the (N, n) group arrays, vi the primal/direction arrays.
   template <class F>
   __device__ void for_rows(F f) const {
+    for_rows_from(t, THREADS, f);
+  }
+  // rows first, first + step, ...: the rows of virtual thread `first` of
+  // a `step`-thread block
+  template <class F>
+  __device__ void for_rows_from(int first, int step, F f) const {
     const int nxr = N * NX, tot = N * (NX + NU);
-    for (int e = t; e < tot; e += THREADS) {
+#pragma unroll 2
+    for (int e = first; e < tot; e += step) {
       if (e < nxr) {
         f(0, e, e + NX);
       } else {
         f(2, e - nxr, e - nxr);
       }
     }
+  }
+  // A per-problem sum over the rows in the order of a SUM_THREADS-thread
+  // block: term(acc, gb, idx, vi) adds a row's terms to acc (block_sum).
+  template <class F>
+  __device__ float rows_sum(F term) const {
+    float a0 = 0.f, a1 = 0.f;
+    for_rows_from(t, SUM_THREADS, [&](int gb, int idx, int vi) {
+      term(a0, gb, idx, vi);
+    });
+    for_rows_from(t + THREADS, SUM_THREADS, [&](int gb, int idx, int vi) {
+      term(a1, gb, idx, vi);
+    });
+    const float v[2] = {a0, a1};
+    return block_sum(v, sh.red);
   }
 
   __device__ static float sgn(int g) { return (g & 1) ? -1.f : 1.f; }
@@ -931,29 +1402,38 @@ struct Solver : SoftRows<SOFT> {
     return clamp_into(v, lb, ub);
   }
 
-  // rollout (du = 0) with the 10%-inset clamp, centred slacks and duals,
-  // then the warm blend over them
+  // rollout (du = 0) with the 10%-inset clamp, on warp 0 (lane i < NX
+  // carries state i), then centred slacks and duals and the warm blend over
+  // them, on the block
   __device__ void init() {
-    if (t < NX) {
+    sweep_begin();
+    if (warp == 0) {
+      const int xi = lane < NX ? lane : 0;
+      float d;
       if constexpr (MODE == PLAIN) {
-        dx[t] = dx0[t];
+        d = dx0[xi];
       } else {
-        dx[t] = x0[t] - xbar[t];
+        d = x0[xi] - xbar[xi];
       }
+      if (lane < NX) dx[lane] = d;
+      for (int k = 0; k < N; ++k) {
+        const float* slot = acquire(k);
+        const float* Ar = slot + xi * NX;
+        float dv[NX];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) dv[j] = __shfl_sync(FULL, d, j);
+        float a = Ar[0] * dv[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) a += Ar[j] * dv[j];
+        a += slot[NXX + NX * NU + xi];  // c_k
+        release(k);
+        d = clamp_init(a, 0, k * NX + xi);
+        if (lane < NX) dx[(k + 1) * NX + lane] = d;
+      }
+    } else {
+      produce<V_INIT>(0, 1);
     }
     __syncthreads();
-    for (int k = 0; k < N; ++k) {
-      if (t < NX) {
-        const float* Ar = A + (size_t)k * NXX + t * NX;
-        const float* x = dx + k * NX;
-        float a = Ar[0] * x[0];
-        for (int j = 1; j < NX; ++j) a += Ar[j] * x[j];
-        a += c[k * NX + t];
-        const int idx = k * NX + t;
-        dx[(k + 1) * NX + t] = clamp_init(a, 0, idx);
-      }
-      __syncthreads();
-    }
     float cnt = 0.f;
     for_rows([&](int gb, int idx, int vi) {
       float* V = gb ? du : dx;
@@ -991,8 +1471,7 @@ struct Solver : SoftRows<SOFT> {
   }
 
   __device__ float comp_sum() const {
-    float acc = 0.f;
-    for_rows([&](int gb, int idx, int) {
+    return rows_sum([&](float& acc, int gb, int idx, int) {
       for (int g = gb; g < gb + 2; ++g) {
         acc += mask(g, bnd[g][idx]) * s[g][idx] * lam[g][idx];
         if constexpr (SOFT) {
@@ -1000,11 +1479,13 @@ struct Solver : SoftRows<SOFT> {
         }
       }
     });
-    return block_reduce(acc, sh.red, OpSum());
   }
 
   // (stat, eq) of the iterate in dx/du by the adjoint sweep; refreshes req
-  // with the shooting residuals (the next solve's right-hand side).
+  // with the shooting residuals (the next solve's right-hand side). The
+  // block forms the residuals and each stage's Qs' dx_k + q_k and
+  // R' du_k + r_k; warp 0 runs the adjoint sweep (lane i < NX carries the
+  // multiplier i; lane NX + t forms the control stationarity row t).
   __device__ void kkt(float& stat_out, float& eq_out) {
     float eq = 0.f;
     for (int e = t; e < N * NX; e += THREADS) {
@@ -1020,46 +1501,69 @@ struct Solver : SoftRows<SOFT> {
       const float pred = ((a + bu) + c[e]) - dx[e + NX];
       req[e] = pred;
       eq = nmax(eq, fabsf(pred));
+      float g = Qs[i] * x[0];
+      for (int j = 1; j < NX; ++j) g += Qs[j * NX + i] * x[j];
+      kx[e] = g + q[e];
     }
-    if (t < NX) {
-      float a = Qt[t] * dx[N * NX];
-      for (int j = 1; j < NX; ++j) a += Qt[j * NX + t] * dx[N * NX + j];
-      const int l = (N - 1) * NX + t;
-      sh.vx[0][t] = (a + q[N * NX + t]) - (lam[0][l] - lam[1][l]);
+    for (int e = t; e < N * NU; e += THREADS) {
+      const int k = e / NU, i = e - k * NU;
+      const float* u = du + k * NU;
+      float a = R[i] * u[0];
+      for (int j = 1; j < NU; ++j) a += R[j * NU + i] * u[j];
+      ku[e] = a + r[e];
     }
-    __syncthreads();
+    sweep_begin();
     float stat = 0.f;
-    int cur = 0;
-    for (int k = N - 1; k >= 0; --k) {
-      const float* lm = sh.vx[cur];
-      if (t < NU) {
-        const float* Bk = Bm + (size_t)k * NX * NU;
-        float a = R[t] * du[k * NU];
-        for (int j = 1; j < NU; ++j) a += R[j * NU + t] * du[k * NU + j];
-        float bl = Bk[t] * lm[0];
-        for (int j = 1; j < NX; ++j) bl += Bk[j * NU + t] * lm[j];
-        const int l = k * NU + t;
-        const float su = ((a + r[l]) + bl) - (lam[2][l] - lam[3][l]);
-        stat = nmax(stat, fabsf(su));
-      } else if (t >= 32 && t < 32 + NX) {
-        const int i = t - 32;
-        const float* Ak = A + (size_t)k * NXX;
-        float a = Qs[i] * dx[k * NX];
-        for (int j = 1; j < NX; ++j) a += Qs[j * NX + i] * dx[k * NX + j];
-        float al = Ak[i] * lm[0];
-        for (int j = 1; j < NX; ++j) al += Ak[j * NX + i] * lm[j];
-        float ln = (a + q[k * NX + i]) + al;
-        if (k >= 1) {
-          const int l = (k - 1) * NX + i;
-          ln = ln - (lam[0][l] - lam[1][l]);
-        }
-        sh.vx[cur ^ 1][i] = ln;
-      }
-      __syncthreads();
-      cur ^= 1;
+    if (warp == 0) {
+      stat = kkt_sweep();
+    } else {
+      produce<V_KKT>(N - 1, -1);
     }
     stat_out = block_reduce(stat, sh.red, OpMax());
     eq_out = block_reduce(eq, sh.red, OpMax());
+  }
+
+  __device__ float kkt_sweep() {
+    const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
+    const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
+    float lm;
+    {
+      float a = Qt[xi] * dx[N * NX];
+      for (int j = 1; j < NX; ++j) a += Qt[j * NX + xi] * dx[N * NX + j];
+      const int l = (N - 1) * NX + xi;
+      lm = (a + q[N * NX + xi]) - (lam[0][l] - lam[1][l]);
+    }
+    float stat = 0.f;
+    for (int m = 0; m < N; ++m) {
+      const int k = N - 1 - m;
+      const float* Ak = acquire(m);
+      const float* v = Ak + NXX + NX * NU;
+      // Qs' dx_k + q_k or R' du_k + r_k; the multiplier term of the row:
+      // state lane i (lam0 - lam1) of row (k - 1) NX + i, control lane t
+      // (lam2 - lam3) of row k NU + t
+      const float kb = xl ? v[xi] : v[NX + ui];
+      const float lt = xl ? v[NX + NU + xi] - v[2 * NX + NU + xi]
+                          : v[3 * NX + NU + ui] - v[3 * NX + 2 * NU + ui];
+      const float* col = xl ? Ak + xi : Ak + NXX + ui;
+      const int ld = xl ? NX : NU;
+      float lv[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) lv[j] = __shfl_sync(FULL, lm, j);
+      float al = col[0] * lv[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) al += col[j * ld] * lv[j];
+      release(m);
+      if (ul) {
+        const float su = (kb + al) - lt;
+        stat = nmax(stat, fabsf(su));
+      }
+      if (xl) {
+        float y = kb + al;
+        if (k >= 1) y = y - lt;
+        lm = y;
+      }
+    }
+    return stat;
   }
 
   // the factorization's weight of one entry: sig_s, or the eliminated
@@ -1079,84 +1583,150 @@ struct Solver : SoftRows<SOFT> {
     return nmin(sig_fac(gb, idx) + sig_fac(gb + 1, idx), SIGMA_MAX);
   }
 
-  // backward Riccati factorization: P (N+1 stack), Z = Hinv Hux, Hinv
+  // backward Riccati factorization: P (N+1 stack), Z = Hinv Hux, Hinv.
+  // Per stage four phases, each closed by a block barrier: PA|PB; Huu|Hux|
+  // A'PA; the Cholesky inverse and Z on warp 0; the symmetrized P_k.
   __device__ void factorize() {
-    for (int e = t; e < NXX; e += THREADS) {
-      const int i = e / NX, j = e - i * NX;
-      float v = Qt[e];
-      if (i == j) v = v + sig_pair(0, (N - 1) * NX + i);
-      sh.Pn[e] = v;
-      P[(size_t)N * NXX + e] = v;
+    // barrier weights of every row, one pass
+    for (int e = t; e < N * NX; e += THREADS) sgx[e] = sig_pair(0, e);
+    for (int e = t; e < N * NU; e += THREADS) sgu[e] = sig_pair(2, e);
+    {
+      float r[RF];
+      ab_load(N - 1, r);
+      ab_store(N - 1, r);
     }
     __syncthreads();
+    {
+      float* PN = Pw(N);
+      for (int e = t; e < NXX; e += THREADS) {
+        const int i = e / NX, j = e - i * NX;
+        float v = Qt[e];
+        if (i == j) v = v + sgx[(N - 1) * NX + i];
+        PN[e] = v;
+        if (!res) Pst[(size_t)N * NXX + e] = v;
+      }
+    }
+    // thread t < NX owns P's diagonal entry t, thread t < NU Huu's entry
+    // (t, t): their weights, loaded one stage ahead
+    const bool hdiag = t < NU;
+    const int hi = t;
+    float wx_next = (t < NX && N >= 2) ? sgx[(N - 2) * NX + t] : 0.f;
+    float wu_next = hdiag ? sgu[(N - 1) * NU + hi] : 0.f;
+    __syncthreads();
     for (int k = N - 1; k >= 0; --k) {
-      const float* Ak = A + (size_t)k * NXX;
-      const float* Bk = Bm + (size_t)k * NX * NU;
-      for (int e = t; e < NXX + NX * NU; e += THREADS) {
-        if (e < NXX) {  // PA = P' A
-          const int i = e / NX, j = e - i * NX;
-          float a = sh.Pn[i] * Ak[j];
-          for (int l = 1; l < NX; ++l) a += sh.Pn[l * NX + i] * Ak[l * NX + j];
-          sh.PA[e] = a;
-        } else {  // PB = P' B
-          const int e2 = e - NXX, i = e2 / NU, j = e2 - i * NU;
-          float a = sh.Pn[i] * Bk[j];
-          for (int l = 1; l < NX; ++l) a += sh.Pn[l * NX + i] * Bk[l * NU + j];
-          sh.PB[e2] = a;
-        }
+      const float wx_k = wx_next, wu_k = wu_next;
+      float pre[RF];  // A_{k-1}, B_{k-1}, stored into the ring at the end
+      if (k >= 1) {
+        ab_load(k - 1, pre);
+        if (t < NX && k >= 2) wx_next = sgx[(k - 2) * NX + t];
+        if (hdiag) wu_next = sgu[(k - 1) * NU + hi];
+      }
+      const float* Pn = Pw(k + 1);
+      const float* Ak = ring_slot(k);
+      const float* Bk = Ak + NXX;
+      if (t < T1) {  // PA = P' A, PB = P' B (one instruction stream)
+        const bool a = t < T1A;
+        tile2x2(Pn, NX, a ? Ak : Bk, a ? NX : NU, NX, a ? NX : NU,
+                a ? t : t - T1A, a ? sh.PA : sh.PB);
       }
       __syncthreads();
-      for (int e = t; e < NU * NU + NU * NX; e += THREADS) {
-        if (e < NU * NU) {  // Huu = B' P B + R + reg I + diag(sig_u)
-          const int i = e / NU, j = e - i * NU;
-          float a = Bk[i] * sh.PB[j];
-          for (int l = 1; l < NX; ++l) a += Bk[l * NU + i] * sh.PB[l * NU + j];
-          float v = a + R[e];
-          if (i == j) {
+      if (t < T2) {  // B' P B, Hux = B' P A, A' P A
+        const bool u = t < T2U, x = !u && t < T2U + T2X;
+        tile2x2(u || x ? Bk : Ak, u || x ? NU : NX, u ? sh.PB : sh.PA,
+                u ? NU : NX, u || x ? NU : NX, u ? NU : NX,
+                u ? t : x ? t - T2U : t - T2U - T2X,
+                u ? sh.Huu : x ? sh.Hux : sh.APA);
+      }
+      __syncthreads();
+      if (t < NU) {  // Huu row t: + R, and on the diagonal + reg + sig_u
+        for (int j = 0; j < NU; ++j) {
+          float v = sh.Huu[t * NU + j] + R[t * NU + j];
+          if (j == t) {
             v = v + reg;
-            v = v + sig_pair(2, k * NU + i);
+            v = v + wu_k;
           }
-          sh.Huu[e] = v;
-        } else {  // Hux = B' P A
-          const int e2 = e - NU * NU, i = e2 / NX, j = e2 - i * NX;
-          float a = Bk[i] * sh.PA[j];
-          for (int l = 1; l < NX; ++l) a += Bk[l * NU + i] * sh.PA[l * NX + j];
-          sh.Hux[e2] = a;
+          sh.Huu[t * NU + j] = v;
+        }
+      }
+      __syncwarp();
+      if (warp == 0) {  // Hinv, then Z = Hinv' Hux
+        float* Hk = Hw(k);
+        float* Zk = Zw(k);
+        chol_inverse_warp<NU>(sh.Huu, sh.L, sh.Li, Hk, lane);
+        __syncwarp();
+        constexpr int RZ = (NU * NX + 31) / 32;
+        float acc[RZ];
+        int zi[RZ], zj[RZ];
+#pragma unroll
+        for (int h = 0; h < RZ; ++h) {
+          const int e = lane + 32 * h, ee = e < NU * NX ? e : 0;
+          zi[h] = ee / NX;
+          zj[h] = ee - zi[h] * NX;
+          acc[h] = Hk[zi[h]] * sh.Hux[zj[h]];
+        }
+#pragma unroll
+        for (int l = 1; l < NU; ++l) {
+#pragma unroll
+          for (int h = 0; h < RZ; ++h) {
+            acc[h] += Hk[l * NU + zi[h]] * sh.Hux[l * NX + zj[h]];
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < RZ; ++h) {
+          const int e = lane + 32 * h;
+          if (e < NU * NX) {
+            Zk[e] = acc[h];
+            if (!res) Zst[(size_t)k * NU * NX + e] = acc[h];
+          }
+        }
+        if (!res) {
+          for (int e = lane; e < NU * NU; e += 32) {
+            Hst[(size_t)k * NU * NU + e] = Hk[e];
+          }
         }
       }
       __syncthreads();
-      if (t == 0) chol_inverse<NU>(sh.Huu, sh.Hi);
-      __syncthreads();
-      for (int e = t; e < NU * NX + NU * NU; e += THREADS) {
-        if (e < NU * NX) {  // Z = Hinv' Hux
-          const int i = e / NX, j = e - i * NX;
-          float a = sh.Hi[i] * sh.Hux[j];
-          for (int l = 1; l < NU; ++l) a += sh.Hi[l * NU + i] * sh.Hux[l * NX + j];
-          sh.Zk[e] = a;
-          Z[(size_t)k * NU * NX + e] = a;
-        } else {
-          const int e2 = e - NU * NX;
-          Hinv[(size_t)k * NU * NU + e2] = sh.Hi[e2];
+      {  // P_k = sym(Qs + A' P A - Hux' Z (+ diag sig_x))
+        const float* Zk = Zw(k);
+        float* Pk = Pw(k);
+        float h1[PR], h2[PR];
+#pragma unroll
+        for (int h = 0; h < PR; ++h) {
+          const int i = pi[h], j = pj[h];
+          h1[h] = sh.Hux[i] * Zk[j];
+          h2[h] = sh.Hux[j] * Zk[i];
+        }
+#pragma unroll
+        for (int l = 1; l < NU; ++l) {
+#pragma unroll
+          for (int h = 0; h < PR; ++h) {
+            const int i = pi[h], j = pj[h];
+            h1[h] += sh.Hux[l * NX + i] * Zk[l * NX + j];
+            h2[h] += sh.Hux[l * NX + j] * Zk[l * NX + i];
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < PR; ++h) {
+          if (t + h * THREADS < NPAIR) {
+            const int i = pi[h], j = pj[h];
+            const int eij = i * NX + j, eji = j * NX + i;
+            float v1 = (Qs[eij] + sh.APA[eij]) - h1[h];
+            float v2 = (Qs[eji] + sh.APA[eji]) - h2[h];
+            if (k >= 1 && i == j) {
+              v1 = v1 + wx_k;
+              v2 = v2 + wx_k;
+            }
+            const float v = 0.5f * (v1 + v2);
+            Pk[eij] = v;
+            Pk[eji] = v;
+            if (!res) {
+              Pst[(size_t)k * NXX + eij] = v;
+              Pst[(size_t)k * NXX + eji] = v;
+            }
+          }
         }
       }
-      __syncthreads();
-      for (int e = t; e < NXX; e += THREADS) {  // Qs + A' P A - Hux' Z
-        const int i = e / NX, j = e - i * NX;
-        float a = Ak[i] * sh.PA[j];
-        for (int l = 1; l < NX; ++l) a += Ak[l * NX + i] * sh.PA[l * NX + j];
-        float h = sh.Hux[i] * sh.Zk[j];
-        for (int l = 1; l < NU; ++l) h += sh.Hux[l * NX + i] * sh.Zk[l * NX + j];
-        float v = (Qs[e] + a) - h;
-        if (k >= 1 && i == j) v = v + sig_pair(0, (k - 1) * NX + i);
-        sh.Pt[e] = v;
-      }
-      __syncthreads();
-      for (int e = t; e < NXX; e += THREADS) {  // symmetrize
-        const int i = e / NX, j = e - i * NX;
-        const float v = 0.5f * (sh.Pt[i * NX + j] + sh.Pt[j * NX + i]);
-        sh.Pn[e] = v;
-        P[(size_t)k * NXX + e] = v;
-      }
+      if (k >= 1) ab_store(k - 1, pre);
       __syncthreads();
     }
   }
@@ -1212,68 +1782,107 @@ struct Solver : SoftRows<SOFT> {
     __syncthreads();
   }
 
-  // backward + forward sweeps with the current factor -> (dX, dU)
+  // backward + forward sweeps with the current factor -> (dX, dU), on
+  // warp 0; the block meets it at one barrier
   __device__ void solve_rhs(float* dX, float* dU) {
-    if (t < NX) sh.vx[0][t] = qr[N * NX + t];
-    __syncthreads();
-    int cur = 0;
-    for (int k = N - 1; k >= 0; --k) {
-      const float* Ak = A + (size_t)k * NXX;
-      const float* Bk = Bm + (size_t)k * NX * NU;
-      const float* pv = sh.vx[cur];
-      if (t < NX) {  // Pcp = P_{k+1}' req_k + p
-        const float* Pk1 = P + (size_t)(k + 1) * NXX;
-        const float* rq = req + k * NX;
-        float a = Pk1[t] * rq[0];
-        for (int j = 1; j < NX; ++j) a += Pk1[j * NX + t] * rq[j];
-        sh.wx[t] = a + pv[t];
-      }
-      __syncthreads();
-      if (t < NU) {  // Gu = rr_k + B' Pcp
-        float a = Bk[t] * sh.wx[0];
-        for (int j = 1; j < NX; ++j) a += Bk[j * NU + t] * sh.wx[j];
-        sh.wu[t] = rr[k * NU + t] + a;
-      }
-      __syncthreads();
-      if (t < NU) {  // kff = -Hinv' Gu
-        const float* Hk = Hinv + (size_t)k * NU * NU;
-        float a = Hk[t] * sh.wu[0];
-        for (int j = 1; j < NU; ++j) a += Hk[j * NU + t] * sh.wu[j];
-        kff[k * NU + t] = -a;
-      } else if (t >= 32 && t < 32 + NX) {  // p = qr_k + A' Pcp - Z' Gu
-        const int i = t - 32;
-        const float* Zk = Z + (size_t)k * NU * NX;
-        float a = Ak[i] * sh.wx[0];
-        for (int j = 1; j < NX; ++j) a += Ak[j * NX + i] * sh.wx[j];
-        float z = Zk[i] * sh.wu[0];
-        for (int j = 1; j < NU; ++j) z += Zk[j * NX + i] * sh.wu[j];
-        sh.vx[cur ^ 1][i] = (qr[k * NX + i] + a) - z;
-      }
-      __syncthreads();
-      cur ^= 1;
+    sweep_begin();
+    if (warp == 0) {
+      sweep_back();
+    } else {
+      produce<V_BACK>(N - 1, -1);
     }
-    if (t < NX) dX[t] = 0.f;
+    sweep_begin();  // kff is read by the forward sweep's producers
+    if (warp == 0) {
+      sweep_fwd(dX, dU);
+    } else {
+      produce<V_FWD>(0, 1);
+    }
     __syncthreads();
+  }
+
+  // kff_k = -Hinv_k' (rr_k + B_k' Pcp), p_k = qr_k + A_k' Pcp - Z_k' Gu,
+  // Pcp = P_{k+1}' req_k + p_{k+1}: lane i < NX carries p_i, lane NX + t
+  // forms Gu_t and kff_t. P_k' req_{k-1} is formed one stage ahead.
+  __device__ void sweep_back() {
+    const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
+    const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
+    float pv = qr[N * NX + xi];
+    float preq;  // P_{k+1}' req_k, formed a stage ahead
+    {
+      const float* v = acquire(0) + NXX + NX * NU;
+      const float* P1 = Ps(N) + xi;
+      preq = P1[0] * v[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) preq += P1[j * NX] * v[j];
+    }
+    for (int m = 0; m < N; ++m) {
+      const int k = N - 1 - m;
+      const float* Ak = acquire(m);
+      const float* v = Ak + NXX + NX * NU;  // req_k, qr_k, rr_k
+      const float pcp = preq + pv;
+      float w[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) w[j] = __shfl_sync(FULL, pcp, j);
+      if (k > 0) {  // the next stage's P_k' req_{k-1}, off the chain
+        const float* Pk = Ps(k) + xi;
+        const float* vn = acquire(m + 1) + NXX + NX * NU;
+        preq = Pk[0] * vn[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) preq += Pk[j * NX] * vn[j];
+      }
+      // A_k' Pcp (state lanes), B_k' Pcp (control lanes)
+      const float* col = xl ? Ak + xi : Ak + NXX + ui;
+      const int ld = xl ? NX : NU;
+      float g = col[0] * w[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) g += col[j * ld] * w[j];
+      const float gu = v[2 * NX + ui] + g;
+      const float qrk = v[NX + xi];
+      release(m);
+      float u[NU];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) u[j] = __shfl_sync(FULL, gu, NX + j);
+      // Z_k' Gu (state lanes), Hinv_k' Gu (control lanes)
+      const float* c2 = xl ? Zs(k) + xi : Hs(k) + ui;
+      const int l2 = xl ? NX : NU;
+      float z = c2[0] * u[0];
+#pragma unroll
+      for (int j = 1; j < NU; ++j) z += c2[j * l2] * u[j];
+      if (ul) kff[k * NU + ui] = -z;
+      pv = (qrk + g) - z;
+    }
+  }
+
+  // du_k = -Z_k d + kff_k (control lanes), dx_{k+1} = A_k d + B_k du_k +
+  // req_k (state lanes), d = dx_k carried by lanes i < NX
+  __device__ void sweep_fwd(float* dX, float* dU) {
+    const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
+    const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
+    float d = 0.f;
+    if (xl) dX[lane] = 0.f;
     for (int k = 0; k < N; ++k) {
-      const float* d = dX + k * NX;
-      if (t < NU) {  // du = -Z d + kff
-        const float* Zr = Z + ((size_t)k * NU + t) * NX;
-        float a = Zr[0] * d[0];
-        for (int j = 1; j < NX; ++j) a += Zr[j] * d[j];
-        dU[k * NU + t] = -a + kff[k * NU + t];
-      }
-      __syncthreads();
-      if (t < NX) {  // dx_{k+1} = A d + B du + req
-        const float* Ar = A + (size_t)k * NXX + t * NX;
-        const float* Br = Bm + ((size_t)k * NX + t) * NU;
-        const float* u = dU + k * NU;
-        float a = Ar[0] * d[0];
-        for (int j = 1; j < NX; ++j) a += Ar[j] * d[j];
-        float b = Br[0] * u[0];
-        for (int j = 1; j < NU; ++j) b += Br[j] * u[j];
-        dX[(k + 1) * NX + t] = (a + b) + req[k * NX + t];
-      }
-      __syncthreads();
+      const float* Ak = acquire(k);
+      const float* v = Ak + NXX + NX * NU;  // req_k, kff_k
+      float dv[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) dv[j] = __shfl_sync(FULL, d, j);
+      const float* row = xl ? Ak + xi * NX : Zs(k) + ui * NX;
+      float a = row[0] * dv[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) a += row[j] * dv[j];
+      const float dun = -a + v[NX + ui];
+      if (ul) dU[k * NU + ui] = dun;
+      float uv[NU];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) uv[j] = __shfl_sync(FULL, dun, NX + j);
+      const float* brow = Ak + NXX + xi * NU;
+      float bb = brow[0] * uv[0];
+#pragma unroll
+      for (int j = 1; j < NU; ++j) bb += brow[j] * uv[j];
+      const float reqk = v[xi];
+      release(k);
+      d = (a + bb) + reqk;
+      if (xl) dX[(k + 1) * NX + lane] = d;
     }
   }
 
@@ -1308,8 +1917,7 @@ struct Solver : SoftRows<SOFT> {
 
   // complementarity after the affine step (sum over bounds)
   __device__ float mu_aff_sum(float ap, float ad) const {
-    float acc = 0.f;
-    for_rows([&](int gb, int idx, int vi) {
+    return rows_sum([&](float& acc, int gb, int idx, int vi) {
       const float v = (gb ? du : dx)[vi];
       const float da = (gb ? ddua : ddxa)[vi];
       for (int g = gb; g < gb + 2; ++g) {
@@ -1327,7 +1935,6 @@ struct Solver : SoftRows<SOFT> {
                * (lam[g][idx] + ad * dl);
       }
     });
-    return block_reduce(acc, sh.red, OpSum());
   }
 
   // corrector step of the iterate (stage-0 state pinned)
@@ -1421,12 +2028,13 @@ struct Solver : SoftRows<SOFT> {
 };
 
 template <int MODE, bool SOFT, int NX, int NU, int FAM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
                   float mu0, float alpha_frac, float reg) {
   if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
-  __shared__ Shared<NX, NU> sh;
-  Solver<MODE, SOFT, NX, NU, FAM> solver(in, out, sh, N, mu0, reg);
+  extern __shared__ float4 smem4[];
+  Solver<MODE, SOFT, NX, NU, FAM> solver(
+      in, out, reinterpret_cast<float*>(smem4), N, mu0, reg);
   solver.run(iters, alpha_frac, md);
 }
 
@@ -1484,15 +2092,88 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
       }
     }
   }
+  const size_t smem = smem_bytes<NX, NU>(N);
+  if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
   box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>
-      <<<B, THREADS, 0, (cudaStream_t)stream>>>(in, out, md, N, iters, mu0,
-                                                alpha_frac, reg);
+      <<<B, THREADS, smem, (cudaStream_t)stream>>>(in, out, md, N, iters, mu0,
+                                                   alpha_frac, reg);
   return (int)cudaGetLastError();
 }
 
 // The model dimensions the entries take: BLASTER's 17x6 or QUAD13's 13x4.
 bool is_17x6(int nx, int nu) { return nx == 17 && nu == 6; }
 bool is_13x4(int nx, int nu) { return nx == 13 && nu == 4; }
+
+// Calls f.run<MODE, SOFT, NX, NU, FAM>() for a built instantiation, else
+// returns cudaErrorInvalidValue (family is read in FUSE_LIN only).
+template <class F>
+int with_instance(int mode, bool soft, int nx, int nu, int family,
+                  const F& f) {
+  if (is_17x6(nx, nu)) {
+    if (mode == PLAIN) {
+      return soft ? f.template run<PLAIN, true, 17, 6, BLASTER>()
+                  : f.template run<PLAIN, false, 17, 6, BLASTER>();
+    }
+    if (mode == FUSE_COST && !soft) {
+      return f.template run<FUSE_COST, false, 17, 6, BLASTER>();
+    }
+    if (mode == FUSE_LIN && family == BLASTER) {
+      return soft ? f.template run<FUSE_LIN, true, 17, 6, BLASTER>()
+                  : f.template run<FUSE_LIN, false, 17, 6, BLASTER>();
+    }
+    if (mode == FUSE_LIN && family == BLASTER_DIST && !soft) {
+      return f.template run<FUSE_LIN, false, 17, 6, BLASTER_DIST>();
+    }
+  }
+  if (is_13x4(nx, nu) && !soft) {
+    if (mode == PLAIN) return f.template run<PLAIN, false, 13, 4, BLASTER>();
+    if (mode == FUSE_LIN && family == QUAD13) {
+      return f.template run<FUSE_LIN, false, 13, 4, QUAD13>();
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Opts an instantiation in to SMEM_OPTIN bytes of dynamic shared memory and
+// prefers the largest shared-memory carveout (so that two resident blocks
+// share an SM). A refused attribute also sets the runtime's last error:
+// it is cleared, and the error returned.
+struct SetOptin {
+  template <int MODE, bool SOFT, int NX, int NU, int FAM>
+  int run() const {
+    const void* k = (const void*)box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>;
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_OPTIN);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(k,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    }
+    if (e != cudaSuccess) cudaGetLastError();
+    return (int)e;
+  }
+};
+
+// The compiled kernel's registers per thread and local (stack) bytes, and
+// the blocks of it one SM holds at `smem` bytes of dynamic shared memory.
+struct Attrs {
+  long long smem;
+  int *regs, *local_bytes, *blocks_per_sm;
+  template <int MODE, bool SOFT, int NX, int NU, int FAM>
+  int run() const {
+    const void* k = (const void*)box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>;
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, k);
+    if (e == cudaSuccess) {
+      *regs = a.numRegs;
+      *local_bytes = (int)a.localSizeBytes;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, k, THREADS, (size_t)smem);
+    }
+    if (e != cudaSuccess) cudaGetLastError();
+    return (int)e;
+  }
+};
 
 }  // namespace
 
@@ -1507,6 +2188,41 @@ extern "C" long long box_qp_ipm_lin_floats(int N, int nx, int nu) {
   if (is_17x6(nx, nu)) return (long long)lin_floats<17, 6>(N);
   if (is_13x4(nx, nu)) return (long long)lin_floats<13, 4>(N);
   return -1;
+}
+
+// The launch's plan: threads per block, dynamic shared bytes and whether
+// the factor stacks are resident in shared memory. mode and soft do not
+// change it (they are taken so that the query names an instantiation).
+extern "C" int box_qp_ipm_plan(int N, int mode, int soft, int nx, int nu,
+                               int* threads, long long* smem, int* res) {
+  (void)mode;
+  (void)soft;
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  if (is_17x6(nx, nu)) {
+    *smem = (long long)smem_bytes<17, 6>(N);
+    *res = resident<17, 6>(N);
+  } else if (is_13x4(nx, nu)) {
+    *smem = (long long)smem_bytes<13, 4>(N);
+    *res = resident<13, 4>(N);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  *threads = THREADS;
+  return 0;
+}
+
+extern "C" long long box_qp_ipm_smem_optin() { return SMEM_OPTIN; }
+
+extern "C" int box_qp_ipm_set_optin(int mode, int soft, int nx, int nu,
+                                    int family) {
+  return with_instance(mode, soft != 0, nx, nu, family, SetOptin{});
+}
+
+extern "C" int box_qp_ipm_kernel_attrs(int mode, int soft, int nx, int nu,
+                                       int family, long long smem, int* regs,
+                                       int* local_bytes, int* blocks_per_sm) {
+  return with_instance(mode, soft != 0, nx, nu, family,
+                       Attrs{smem, regs, local_bytes, blocks_per_sm});
 }
 
 extern "C" const char* box_qp_ipm_error_string(int err) {

@@ -28,10 +28,20 @@ ODE family of `dynamics/fastlin.py::FAMILIES`), as the Pallas kernel takes
 its dimensions from the arrays: `BUILT` lists the instantiations of
 `csrc/box_qp_ipm.cu`. The wrappers refuse any other combination with
 `NotImplementedError`, on every device (no path of the port uses one).
-The Pallas kernel's long-horizon variants (K7, its `stream_p` /
-`stream_big` switches) have no counterpart: the CUDA kernel keeps every
-stage stack in global memory at any horizon, so one layout serves every
-N (`box_qp_solve` accepts the switches and selects nothing with them).
+
+Each launch follows a plan (`launch_plan`, a plain function of N and the
+instantiation; the library's `box_qp_ipm_plan` returns the same): 128
+threads per problem, and dynamic shared memory that holds the Riccati
+factor stacks (P, Z, Hinv of every stage) where they fit under the card's
+232448-byte opt-in (the "resident" layout: every 17x6 horizon up to
+N=128), else only a window of them, the stacks staying in the global
+workspace ("global": 17x6 at N=240). The wrapper opts each instantiation
+in to that much shared memory once (`box_qp_ipm_set_optin`) and raises
+if the runtime refuses or a plan exceeds it; no option chooses the
+layout. The launches per layout are counted in each wrapper's
+`by_layout`. The Pallas kernel's long-horizon variants (K7, its
+`stream_p` / `stream_big` switches) are these two layouts
+(`box_qp_solve` accepts the switches and selects nothing with them).
 
 One call runs a whole Mehrotra predictor-corrector IPM (Gondzio-clipped
 targets, Riccati factorization and sweeps, fraction-to-boundary steps,
@@ -39,8 +49,8 @@ best-merit tracking) for every problem of a batch. CUDA tensors go to the
 kernel in `csrc/box_qp_ipm.cu` (one launch, every IPM iteration inside
 it; counted in the wrapper's `launches`, per instantiation in its
 `by_instance` (soft launches under keys ending in " soft",
-`instance_name`), and in `warm_launches` when a warm start is given); CPU
-tensors go to the plain twin.
+`instance_name`), per layout in its `by_layout`, and in `warm_launches`
+when a warm start is given); CPU tensors go to the plain twin.
 
 Every wrapper takes `warm=`, an `qp/ipm.py::IpmWarmStart` with a leading
 batch axis (fields (B, N, nx|nu), valid (B,)): per problem with valid >
@@ -66,9 +76,10 @@ Host-side preparation (the K8 part of the Pallas wrapper): +-inf bounds
 become +-1e18 before any subtraction (the kernel derives bound masks from
 |b| > 5e17), the stage-0 state bound row is dropped (dx_0 is pinned),
 everything is cast to contiguous float32, and outputs are fresh tensors
-(never aliases of an input). The Pallas wrapper's 128-lane padding,
-batch-last tiling and VMEM sizing have no counterpart: the kernel takes the
-batch problem-major, one thread block per problem.
+(never aliases of an input). The Pallas wrapper's 128-lane padding and
+batch-last tiling have no counterpart: the kernel takes the batch
+problem-major, one thread block per problem; its VMEM sizing is
+`launch_plan`.
 
 Semantics kept from the Pallas kernel (compare here first on a mismatch):
 slacks floored at s_min=1e-3 at init and eps_s=1e-9 after each step;
@@ -130,6 +141,59 @@ _WARM_FIELDS = ("s_lx", "s_ux", "lam_lx", "lam_ux", "s_lu", "s_uu",
                 "lam_lu", "lam_uu")
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "box_qp_ipm.cu"
+
+# The launch shape of csrc/box_qp_ipm.cu: threads per problem, and the most
+# dynamic shared memory a block may opt in to on the H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin; probe P1 reads it back).
+THREADS = 128
+SMEM_OPTIN = 232448
+RING_SLOTS = 4   # slots of the kernel's ring of stages
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch runs: threads per block, dynamic shared bytes, and
+    whether the factor stacks are resident in shared memory."""
+    threads: int
+    smem_bytes: int
+    resident: bool
+
+    @property
+    def layout(self) -> str:
+        return "resident" if self.resident else "global"
+
+
+def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int
+                ) -> LaunchPlan:
+    """The plan of csrc/box_qp_ipm.cu's launch at horizon N for an nx x nu
+    model (every mode and soft flag share it). Dynamic shared memory, in
+    float32 words: the per-stage scratch (P'A, A'PA, P'B, Hux, Huu, the
+    Cholesky inverse's two factors, two words per warp for the block
+    reductions, the ring's two flags per slot), the ring of RING_SLOTS
+    stages (A_k, B_k and up to 3 (nx + nu) words of the stage's vectors
+    each), then the factor stacks P_0..P_N, Z_0..Z_{N-1},
+    Hinv_0..Hinv_{N-1} where the total fits in SMEM_OPTIN, else the
+    factorization's window (two P slots, one Z, one Hinv)."""
+    if (nx, nu) not in {(b[0], b[1]) for b in BUILT} or N < 1 \
+            or mode not in _MODE_NAMES:
+        raise ValueError(f"no launch plan for N={N}, mode={mode}, "
+                         f"{nx}x{nu}")
+    scratch = (2 * nx * nx + 2 * nx * nu + 3 * nu * nu + 2 * (THREADS // 32)
+               + 2 * RING_SLOTS)
+    ring = RING_SLOTS * (nx * nx + nx * nu + 3 * (nx + nu))
+    stacks = (N + 1) * nx * nx + N * nu * nx + N * nu * nu
+    window = 2 * nx * nx + nu * nx + nu * nu
+    resident = 4 * (scratch + ring + stacks) <= SMEM_OPTIN
+    return LaunchPlan(THREADS, 4 * (scratch + ring
+                                    + (stacks if resident else window)),
+                      resident)
+
+
+def _require_plan(plan: LaunchPlan) -> LaunchPlan:
+    """Refuse a plan the card cannot launch (no fallback)."""
+    if plan.smem_bytes > SMEM_OPTIN:
+        raise RuntimeError(f"box_qp_ipm plan needs {plan.smem_bytes} B of "
+                           f"shared memory, above the {SMEM_OPTIN} B opt-in")
+    return plan
 
 
 class _Prepped(NamedTuple):
@@ -757,7 +821,76 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.box_qp_ipm_lin_floats.restype = ctypes.c_longlong
     lib.box_qp_ipm_error_string.argtypes = [i32]
     lib.box_qp_ipm_error_string.restype = ctypes.c_char_p
+    lib.box_qp_ipm_plan.argtypes = [i32] * 5 + [ptr] * 3
+    lib.box_qp_ipm_plan.restype = i32
+    lib.box_qp_ipm_smem_optin.argtypes = []
+    lib.box_qp_ipm_smem_optin.restype = ctypes.c_longlong
+    lib.box_qp_ipm_set_optin.argtypes = [i32] * 5
+    lib.box_qp_ipm_set_optin.restype = i32
+    lib.box_qp_ipm_kernel_attrs.argtypes = ([i32] * 5 + [ctypes.c_longlong]
+                                            + [ptr] * 3)
+    lib.box_qp_ipm_kernel_attrs.restype = i32
     return lib
+
+
+def library_plan(N: int, mode: int, soft: bool, nx: int, nu: int
+                 ) -> LaunchPlan:
+    """The built library's own plan (`box_qp_ipm_plan`); equals
+    `launch_plan`."""
+    lib = _library()
+    th, res = ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_longlong()
+    rc = lib.box_qp_ipm_plan(N, mode, int(soft), nx, nu, ctypes.byref(th),
+                             ctypes.byref(smem), ctypes.byref(res))
+    _launched(lib, rc, "box_qp_ipm_plan")
+    return LaunchPlan(th.value, smem.value, bool(res.value))
+
+
+_OPTED_IN: set = set()   # (instantiation, device index) opted in
+
+
+def _optin(lib, dev, mode, soft, nx, nu, family):
+    """Opt the instantiation in to SMEM_OPTIN bytes of dynamic shared
+    memory on `dev`, once; raise if the runtime refuses."""
+    key = (mode, bool(soft), nx, nu, family, dev.index)
+    if key in _OPTED_IN:
+        return
+    fam = FAMILY_IDS[family] if family is not None else 0
+    with torch.cuda.device(dev):
+        rc = lib.box_qp_ipm_set_optin(mode, int(soft), nx, nu, fam)
+    if rc != 0:
+        raise RuntimeError(
+            f"box_qp_ipm: the {SMEM_OPTIN} B shared-memory opt-in of "
+            f"{instance_name(nx, nu, family, soft)} {_MODE_NAMES[mode]} was "
+            "refused: " + lib.box_qp_ipm_error_string(rc).decode())
+    _OPTED_IN.add(key)
+
+
+def kernel_info(N: int, mode: int, nx: int, nu: int, family=None,
+                soft: bool = False, device=None) -> dict:
+    """The launch of an instantiation at horizon N on a CUDA device: its
+    plan (layout, threads, dynamic shared bytes) and the compiled kernel's
+    registers per thread, local (stack) bytes and blocks per SM at that
+    shared memory (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    _check_built(nx, nu, mode, family, soft)
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda":
+        raise ValueError(f"kernel_info reads a CUDA device, not {dev}")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    plan = _require_plan(launch_plan(N, mode, soft, nx, nu))
+    lib = _library()
+    _optin(lib, dev, mode, soft, nx, nu, family)
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fam = FAMILY_IDS[family] if family is not None else 0
+    with torch.cuda.device(dev):
+        rc = lib.box_qp_ipm_kernel_attrs(
+            mode, int(soft), nx, nu, fam, plan.smem_bytes,
+            ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
+    _launched(lib, rc, "box_qp_ipm_kernel_attrs")
+    return {"layout": plan.layout, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes, "registers": regs.value,
+            "local_bytes": local.value, "blocks_per_sm": blocks.value}
 
 
 def _stream(dev: torch.device) -> int:
@@ -829,11 +962,21 @@ def instance_name(nx: int, nu: int, family=None, soft=False) -> str:
             + (" soft" if soft else ""))
 
 
-def _count(wrapper, warm, inst):
+def _count(wrapper, warm, inst, plan: LaunchPlan):
     wrapper.launches += 1
     wrapper.by_instance[inst] = wrapper.by_instance.get(inst, 0) + 1
+    wrapper.by_layout[plan.layout] = wrapper.by_layout.get(plan.layout,
+                                                           0) + 1
     if warm is not None:
         wrapper.warm_launches += 1
+
+
+def _prepare_launch(lib, dev, N, mode, soft, nx, nu, family=None
+                    ) -> LaunchPlan:
+    """The launch's plan, checked, with the instantiation opted in."""
+    plan = _require_plan(launch_plan(N, mode, soft, nx, nu))
+    _optin(lib, dev, mode, soft, nx, nu, family)
+    return plan
 
 
 def _soft_args(pens, Bsz, N, nx, nu, dev) -> list:
@@ -880,6 +1023,7 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
         lbu=(Bsz, N, nu), ubu=(Bsz, N, nu), dx0=(Bsz, nx)), dev)
     pens = _soft_rows(soft, _qp_bounds(data))
     lib = _library()
+    plan = _prepare_launch(lib, dev, N, PLAIN, soft is not None, nx, nu)
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu, PLAIN,
                                                 dev, soft is not None)
     # held until the launch is enqueued
@@ -889,7 +1033,8 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
         *_ptrs([*p, dx, du, diag, *sx, *su, work, *wa]),
         Bsz, N, nx, nu, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm")
-    _count(box_qp_solve, warm, instance_name(nx, nu, soft=soft is not None))
+    _count(box_qp_solve, warm, instance_name(nx, nu, soft=soft is not None),
+           plan)
     return _solution(dx, du, diag, sx, su)
 
 
@@ -905,9 +1050,8 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
     with a distinct terminal Q[:, N]; bounds may be +-inf. `warm`, `skip`
     and `soft` as in the module docstring. `stream_p` / `stream_big`
     (bool or None) are `pallas_box_qp_solve`'s long-horizon switches,
-    accepted so that its callers run unchanged; they select nothing: one
-    layout serves every N (every stage stack lives in global memory, and
-    shared memory does not grow with N), so the port's ticks do not pass
+    accepted so that its callers run unchanged; they select nothing: N
+    chooses the layout (`launch_plan`), so the port's ticks do not pass
     `SolverConfig.pallas_stream_*` on. Tensors on a CUDA device run the
     hand-written kernel (one launch; counted in `box_qp_solve.launches`);
     tensors on the CPU run the plain twin.
@@ -930,6 +1074,7 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
 
 box_qp_solve.launches = 0
 box_qp_solve.warm_launches = 0
+box_qp_solve.by_layout = {}      # launches per layout ("resident", "global")
 box_qp_solve.by_instance = {}    # launches per instantiation (instance_name)
 
 
@@ -947,6 +1092,7 @@ def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
                          f"not match B={Bsz}, N={N} on {dev}")
     A, Bm = _f32(AB[..., :nx]), _f32(AB[..., nx:])
     lib = _library()
+    plan = _prepare_launch(lib, dev, N, FUSE_COST, False, nx, nu)
     xn, un, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
                                                 FUSE_COST, dev)
     ins = [A, Bm, _f32(c), f.xbar, f.ubar, f.x0, f.Qs, f.Qt, f.R, f.Rg,
@@ -956,7 +1102,7 @@ def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
         *_ptrs([*ins, xn, un, diag, *sx, *su, work, *wa]),
         Bsz, N, nx, nu, iters, mu0, alpha_frac, reg, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_cost")
-    _count(batched_fused_tick, warm, instance_name(nx, nu))
+    _count(batched_fused_tick, warm, instance_name(nx, nu), plan)
     dg = {"kkt_stat": diag[:, 0], "kkt_eq": diag[:, 1], "mu": diag[:, 2],
           "step_norm_x": diag[:, 3], "step_norm_u": diag[:, 4],
           "bound_viol": diag[:, 5]}
@@ -1004,6 +1150,7 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
 
 batched_fused_tick.launches = 0
 batched_fused_tick.warm_launches = 0
+batched_fused_tick.by_layout = {}      # launches per layout ("resident", "global")
 batched_fused_tick.by_instance = {}
 
 
@@ -1023,6 +1170,8 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
         raise ValueError(f"stage_params {tuple(sp.shape)} on {sp.device}: "
                          f"expected ({Bsz}, {N}, >={np_min}) on {dev}")
     lib = _library()
+    plan = _prepare_launch(lib, dev, N, FUSE_LIN, pens is not None, nx, nu,
+                           model[0])
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
                                                 FUSE_LIN, dev,
                                                 pens is not None)
@@ -1044,7 +1193,7 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
         reg, *consts, num_steps, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_lin")
     _count(fused_rti_solve, warm,
-           instance_name(nx, nu, model[0], pens is not None))
+           instance_name(nx, nu, model[0], pens is not None), plan)
     sol = _solution(dx, du, diag, sx, su)
     if not return_lin:
         return sol
@@ -1105,4 +1254,5 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
 
 fused_rti_solve.launches = 0
 fused_rti_solve.warm_launches = 0
+fused_rti_solve.by_layout = {}      # launches per layout ("resident", "global")
 fused_rti_solve.by_instance = {}

@@ -141,16 +141,16 @@ def _imports_clean(modules):
 
 
 def test_port_imports_no_jax():
-    """Importing every port module and chip_smoke.py loads nothing of JAX
-    or of the JAX package, and the module list above covers every file of
-    the package."""
+    """Importing every port module, chip_smoke.py and kernel_ab.py loads
+    nothing of JAX or of the JAX package, and the module list above covers
+    every file of the package."""
     found = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
         for p in (REPO / "mpc_blaster_tpu_torch").rglob("*.py"))
     subpackages = {m for m in found if (REPO / m.replace(".", "/")).is_dir()}
     assert set(found) - subpackages <= set(PORT_MODULES), found
-    _imports_clean(PORT_MODULES + ["chip_smoke"])
+    _imports_clean(PORT_MODULES + ["chip_smoke", "kernel_ab"])
 
 
 def test_default_device_is_the_card():

@@ -8,8 +8,10 @@ modes, with the all-hard case against the hard kernel; the instantiations
 for other models: the plain mode at 13x4 (the quad13 model) and the
 fuse_lin mode with the "quad13" and "blaster_dist" prologues; the
 plain mode at long horizons (K7, N=120 and 240); the fuse_lin mode over a
-batch with one spec per problem (K6 at B > 1); and the hardware probes
-P1 and P2 (`ops/probes.py`).
+batch with one spec per problem (K6 at B > 1); the launch plan (the
+library's `box_qp_ipm_plan` against `launch_plan`, and a launch of each
+layout, resident and global, against its twin and counted in
+`by_layout`); and the hardware probes P1 and P2 (`ops/probes.py`).
 
 Needs the card (marker `cuda`; skipped without one) and imports no JAX, so
 it also runs where only the port's dependencies are installed:
@@ -512,3 +514,41 @@ def test_probes_match_plain_on_gpu(cuda_device):
             assert P.fma_chain.launches == n0 + 1
             want = P.fma_chain_plain(xs, ys, steps)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_library_plan_matches_launch_plan_on_gpu(cuda_device):
+    """The built library's plan (threads, dynamic shared bytes, layout)
+    equals the wrapper's `launch_plan` at every horizon and model; each
+    instantiation fits under the opt-in at the plan's shared memory."""
+    assert K._library().box_qp_ipm_smem_optin() == K.SMEM_OPTIN
+    for nx, nu, Ns in ((17, 6, (8, 20, 30, 60, 120, 128, 129, 240)),
+                       (13, 4, (8, 20, 237, 238))):
+        for N in Ns:
+            for mode in (K.PLAIN, K.FUSE_LIN):
+                assert K.library_plan(N, mode, False, nx, nu) \
+                    == K.launch_plan(N, mode, False, nx, nu), (nx, N, mode)
+    for nx, nu, mode, family, soft in K.BUILT:
+        info = K.kernel_info(60 if nx == 17 else 20, mode, nx, nu, family,
+                             soft, device=cuda_device)
+        assert info["threads"] == 128 and info["blocks_per_sm"] >= 1, info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,layout", [(20, "resident"), (240, "global")])
+def test_layouts_match_plain_on_gpu(cuda_device, N, layout):
+    """A resident launch (N=20: the factor stacks in shared memory) and a
+    global one (N=240: the stacks in the workspace) each against the twin
+    after one iteration, pointwise, and counted under their layout."""
+    qp = _blaster_qps(cuda_device, B=2, N=N)
+    assert K.launch_plan(N, K.PLAIN, False, 17, 6).layout == layout
+    before = dict(K.box_qp_solve.by_layout)
+    sk = K.box_qp_solve(qp, iters=1)
+    torch.cuda.synchronize()
+    after = K.box_qp_solve.by_layout
+    assert after.get(layout, 0) == before.get(layout, 0) + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    sp = K.box_qp_solve_plain(qp, iters=1)
+    assert (sk.du[:, 0] - sp.du[:, 0]).abs().max().item() <= 2e-3
+    torch.testing.assert_close(sk.du, sp.du, rtol=0, atol=5e-3)
+    torch.testing.assert_close(sk.dx, sp.dx, rtol=0, atol=5e-3)
