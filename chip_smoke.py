@@ -83,7 +83,9 @@ after:
 Each phase's wall seconds and the running total are printed ("wall"
 lines). Phase 1 also prints each IPM instantiation's launch plan at N=20,
 30, 60, 120 and 240 (13x4: N=20): the layout, threads, dynamic shared
-bytes, the compiled kernel's registers and local bytes, blocks per SM and
+bytes (a soft instantiation's soft area in shared memory or the
+workspace), the compiled kernel's registers and local bytes, ptxas's
+registers, stack frame and spill bytes, blocks per SM and
 the waves of a launch at B=1, 256 and 1024 on the card's SMs. Every IPM
 launch of phases 2-17 is held to its layout: resident (the Riccati
 factor stacks in shared memory) at every N <= 120, global at phase 2c's
@@ -135,7 +137,8 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     port's twins on the CPU: 0.0186 m and 0.0139 m) + 5e-2 m, finite
     states. Unguarded, the raw chain's failure is ~200 m;
   - soft bounds (K4), the out-of-box QPs of tests/test_pallas_ipm.py
-    (dx0 pushed 2.2 past the x box, soft position bounds Zl=1e3, zl=1e2):
+    (dx0 pushed 2.2 past the x box, soft position bounds Zl=1e3, zl=1e2,
+    or at N=60 also every state soft, phase 10's rows, the "_all" cases):
     an all-hard SoftBounds through the soft instantiation equals the hard
     kernel after one iteration bit for bit (or within 1e-6 relative where
     nvcc contracts a multiply-add differently in the two instantiations;
@@ -214,6 +217,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -524,6 +528,43 @@ def layouts_only(what: str, layout: str, fn):
     out = fn()
     got = layout_counts()
     check(set(got) == {layout}, f"{what} layout", got=got, want=layout)
+    return out
+
+
+def ptxas_usage(build_log: str) -> dict:
+    """Per entry function of an nvcc -Xptxas -v log: registers, stack frame,
+    spill stores and spill loads (bytes). A device function's properties
+    (the FUSE_LIN prologue, compiled out of line) are not an entry's."""
+    out, entry, props = {}, None, None
+    for ln in build_log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", ln):
+            entry = m[1]
+            out.setdefault(entry, {})
+        elif m := re.search(r"Function properties for (\w+)", ln):
+            props = m[1]
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", ln):
+            if props in out:
+                out[props].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                  spill_loads=int(m[3]))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
+            out[entry]["registers"] = int(m[1])
+    return out
+
+
+def ipm_ptxas_usage(build_log: str) -> dict:
+    """ptxas_usage of the IPM library's kernels by instantiation: (mode,
+    soft, nx, nu, family) as in `BUILT` -> registers, stack and spills."""
+    from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+    fams = {v: k for k, v in K.FAMILY_IDS.items()}
+    out = {}
+    for name, use in ptxas_usage(build_log).items():
+        m = re.search(r"box_qp_ipm_kernelILi(\d)ELb(\d)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d)E", name)
+        if m:
+            mode, soft, nx, nu, fam = (int(g) for g in m.groups())
+            out[(mode, bool(soft), nx, nu,
+                 fams[fam] if mode == K.FUSE_LIN else None)] = use
     return out
 
 
@@ -1153,9 +1194,11 @@ def soft_runners(mode, N, B, dev, K):
                                                   **kw), qp)
 
 
-def compare_soft(name, mode, N, B, dev, K, spread_rule=False):
+def compare_soft(name, mode, N, B, dev, K, spread_rule=False,
+                 idx=(0, 1, 2)):
     """Soft-bound kernel (K4, in one mode) vs its plain twin, and its
-    all-hard case vs the hard kernel; the report row.
+    all-hard case vs the hard kernel; the report row. `idx`: the soft
+    states (soft_specs; None: every state).
 
     spread_rule: the full-budget objective is held within the tolerance
     plus the twin's own spread (the largest objective change of the twin
@@ -1168,7 +1211,7 @@ def compare_soft(name, mode, N, B, dev, K, spread_rule=False):
     twin's own spread (in the row) reaches the tolerance."""
     from mpc_blaster_tpu_torch.qp.soft import soft_qp_objective
     kern, plain, qp = soft_runners(mode, N, B, dev, K)
-    soft, hard = soft_specs(N, dev)
+    soft, hard = soft_specs(N, dev, idx=idx)
     row = {"case": name, "mode": mode, "B": B, "N": N}
     wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
     # the sentinel: all-hard through the soft instantiation = hard kernel
@@ -1626,6 +1669,7 @@ def run(dev: torch.device) -> int:
         log("build", library=str(so.relative_to(REPO)), nvcc_s=secs,
             ptxas=[ln.strip() for ln in build_log.splitlines()
                    if "registers" in ln or "spill" in ln])
+    usage = ipm_ptxas_usage(built[0][2])
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for nx, nu, mode, family, soft in sorted(
@@ -1636,6 +1680,7 @@ def run(dev: torch.device) -> int:
                   "launch plan layout", N=N, **info)
             log("launch_plan", instance=K.instance_name(nx, nu, family, soft),
                 mode=K._MODE_NAMES[mode], N=N, **info,
+                ptxas=usage.get((mode, soft, nx, nu, family)),
                 waves={str(B): -(-B // (info["blocks_per_sm"] * sms))
                        for B in (1, 256, BATCH)})
     wall('1 build')
@@ -1677,13 +1722,17 @@ def run(dev: torch.device) -> int:
         log("warm_vs_plain", **r)
     wall('2 kernel vs twin')
     # ---- phase 2b: the soft-bound kernel (K4) vs its plain twin ----
-    soft_rows = [compare_soft(n, mode, N, B, dev, K, spread_rule=sr)
+    # the "_all" cases: every state soft (phase 10's rows)
+    soft_rows = [compare_soft(n, mode, N, B, dev, K, spread_rule=sr,
+                              idx=None if n.endswith("_all") else (0, 1, 2))
                  for n, mode, N, B, sr in (
                      ("plain_n8_b3", "plain", 8, 3, False),
                      ("plain_n20_b1024", "plain", 20, BATCH, False),
                      ("plain_n60_b1", "plain", 60, 1, True),
+                     ("plain_n60_b1_all", "plain", 60, 1, True),
                      ("fuse_lin_n8_b1", "fuse_lin", 8, 1, False),
-                     ("fuse_lin_n60_b1", "fuse_lin", 60, 1, False))]
+                     ("fuse_lin_n60_b1", "fuse_lin", 60, 1, False),
+                     ("fuse_lin_n60_b1_all", "fuse_lin", 60, 1, False))]
     for r in soft_rows:
         log("soft_vs_plain", **r)
     lay = layout_counts()

@@ -17,16 +17,25 @@ instantiation) are printed; for this checkout's kernel each instantiation's
 launch plan, registers and blocks per SM
 (`ops/box_qp_ipm.py::kernel_info`) at the shapes it is timed at.
 
+The soft-bound shapes (K4) start outside the box (the initial state 2.2
+past the x box) with soft position bounds, or every state soft ("dense",
+the soft closed loop's rows); each has a hard twin shape, the same inputs
+without soft bounds, so that soft over hard is read within one run.
+
 With --stamps the first other checkout's kernel and this one's are also
 built as copies instrumented with clock64() stamps (written under the
 first DIR, never into this checkout): thread 0 of block 0 charges the
 cycles between consecutive stamps to the phase they close (the
 factorization's matrix phases, its block barriers, the Cholesky inverse,
 Z on warp 0, the solves' vector phases or sweeps, their barriers, the
-waits for the cp.async ring, the KKT pass's adjoint sweep, everything
-else), at the plain mode, N=60, B=1, 12 iterations. The stamp sites fit
-the kernel before the shared-memory redesign (one thread per output) and
-after it; a source they do not fit is refused.
+waits for the cp.async ring, the KKT pass's adjoint sweep, each row pass
+of an iteration: the complementarity sum, the factorization's barrier
+weights, the right-hand sides, the step lengths, the affine
+complementarity, the update, the merit; everything else), at the plain
+mode, N=60, B=1: hard at 12 iterations and soft (position bounds, from
+outside the box) at 6. The stamp sites fit the kernel before the
+shared-memory redesign (one thread per output) and after it; a source
+they do not fit is refused.
 
 Prints one JSON object per line and the card's name and power limit;
 with --out also writes them to FILE.
@@ -70,22 +79,33 @@ def load_wrapper(root: Path, name: str):
 # (label, kernel, a function of the device giving a function of a wrapper
 # module that launches once)
 
-def plain(N, B, iters, nx=17, soft=False):
+# soft= of the K4 shapes (inputs pushed outside the box): the soft states,
+# or "hard" for the same inputs without soft bounds
+SOFT_STATES = {"position": (0, 1, 2), "dense": None}
+
+
+def soft_bounds(soft, N, dev):
+    if soft == "hard":
+        return None
+    return S.soft_specs(N, dev, idx=SOFT_STATES[soft])[0]
+
+
+def plain(N, B, iters, nx=17, soft=None):
     def make(dev):
         if nx == 13:
             qp = S.quad13_qps(N, B, dev)
         else:
             qp = S.blaster_qps(N, B, dev)
         sb = None
-        if soft:
+        if soft is not None:
             qp = qp._replace(dx0=qp.dx0.clone())
             qp.dx0[:, 0] += 2.2
-            sb, _ = S.soft_specs(N, dev)
+            sb = soft_bounds(soft, N, dev)
         return lambda M: (lambda: M.box_qp_solve(qp, iters=iters, soft=sb))
     return make
 
 
-def fuse_lin(N, B, iters, family="blaster", soft=False, warm=False):
+def fuse_lin(N, B, iters, family="blaster", soft=None, warm=False):
     def make(dev):
         from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
         w = sb = None
@@ -102,10 +122,10 @@ def fuse_lin(N, B, iters, family="blaster", soft=False, warm=False):
             ocp, sp, xbar, ubar, x0, args, _ = build(
                 N, B, dev, N + 2, **({} if B > 1 else {"family": family}))
             statics = fused_dyn_statics(ocp, family=family)
-        if soft:
+        if soft is not None:
             x0 = x0.clone()
             x0[:, 0] += 2.2
-            sb, _ = S.soft_specs(N, dev)
+            sb = soft_bounds(soft, N, dev)
         model, dt, ns = statics
         kw = dict(model=model, dt=dt, num_steps=ns, iters=iters, warm=w,
                   soft=sb)
@@ -145,10 +165,19 @@ SHAPES = [
     ("K3 fuse_lin warm N=60 B=1 3it", "fuse_lin",
      fuse_lin(60, 1, 3, warm=True)),
     ("K4 fuse_lin soft N=60 B=1 6it", "fuse_lin",
-     fuse_lin(60, 1, 6, soft=True)),
-    ("K4 plain soft N=60 B=1 6it", "plain", plain(60, 1, 6, soft=True)),
+     fuse_lin(60, 1, 6, soft="position")),
+    ("K4 fuse_lin soft dense N=60 B=1 6it", "fuse_lin",
+     fuse_lin(60, 1, 6, soft="dense")),
+    ("K4 fuse_lin hard N=60 B=1 6it", "fuse_lin", fuse_lin(60, 1, 6,
+                                                          soft="hard")),
+    ("K4 plain soft N=60 B=1 6it", "plain", plain(60, 1, 6, soft="position")),
+    ("K4 plain soft dense N=60 B=1 6it", "plain", plain(60, 1, 6,
+                                                        soft="dense")),
+    ("K4 plain hard N=60 B=1 6it", "plain", plain(60, 1, 6, soft="hard")),
     ("K4 plain soft N=20 B=1024 12it", "plain",
-     plain(20, 1024, 12, soft=True)),
+     plain(20, 1024, 12, soft="position")),
+    ("K4 plain hard N=20 B=1024 12it", "plain",
+     plain(20, 1024, 12, soft="hard")),
     ("K5 fuse_cost N=20 B=1024 12it", "fuse_cost", fuse_cost(20, 1024, 12)),
     ("K5 fuse_cost N=20 B=1024 6it", "fuse_cost", fuse_cost(20, 1024, 6)),
     ("K7 N=120 B=1 12it", "plain", plain(120, 1, 12)),
@@ -195,15 +224,31 @@ STAMP_PHASES = ("other", "factorize_matrix", "factorize_barriers",
                 "back_release", "back_pcp_shuffles", "back_next_preq",
                 "back_g_chain", "back_gu_shuffles", "back_z_chain",
                 # inside its one-warp Cholesky inverse
-                "chol_factor", "chol_inverse")
+                "chol_factor", "chol_inverse",
+                # the row passes of an IPM iteration
+                "rows_comp_sum", "rows_weights", "rows_rhs", "rows_alphas",
+                "rows_mu_aff", "rows_update", "rows_merit")
 NSTAMP = len(STAMP_PHASES)
+ROWS = {p: STAMP_PHASES.index(p) for p in STAMP_PHASES if p.startswith("rows")}
+# a launch's first stamp opens the clock: the gap since the previous
+# launch is charged to no phase
 STAMP_STATE = (f"__device__ unsigned long long g_stamp[{NSTAMP}], "
                "g_stamp_last;\n"
                "__device__ __forceinline__ void stamp(int i) {\n"
                "  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
                "    const unsigned long long now = clock64();\n"
-               "    if (g_stamp_last) g_stamp[i] += now - g_stamp_last;\n"
+               "    if (i >= 0) g_stamp[i] += now - g_stamp_last;\n"
                "    g_stamp_last = now;\n  }\n}\n")
+# (call in run(), the phase it is charged to)
+ROW_CALLS = (
+    ("const float mu_cur = comp_sum() / n_ineq;", "rows_comp_sum"),
+    ("rhs_grads(false);", "rows_rhs"),
+    ("alphas(false, 1.f, ddxa, ddua, ap, ad);", "rows_alphas"),
+    ("const float mu_aff = mu_aff_sum(ap, ad) / n_ineq;", "rows_mu_aff"),
+    ("rhs_grads(true);", "rows_rhs"),
+    ("alphas(true, alpha_frac, ddx, ddu, ap, ad);", "rows_alphas"),
+    ("update(ap, ad);", "rows_update"),
+    ("const float m = merit(st, eq);", "rows_merit"))
 
 
 def _once(s, old, new):
@@ -226,8 +271,14 @@ def stamped_source(src: str) -> str:
     is missing."""
     src = _once(src, "namespace {\n", STAMP_STATE + "\nnamespace {\n")
     src = _once(src, "    if constexpr (MODE == FUSE_LIN) linearize(md);\n",
-                "    stamp(0);\n"
+                "    stamp(-1);\n"
                 "    if constexpr (MODE == FUSE_LIN) linearize(md);\n")
+    for call, phase in ROW_CALLS:
+        src = _once(src, f"      {call}\n", f"      stamp(0);\n      {call}\n"
+                    f"      stamp({ROWS[phase]});\n")
+    src = _once(src, "e += THREADS) sgu[e] = sig_pair(2, e);\n",
+                "e += THREADS) sgu[e] = sig_pair(2, e);\n"
+                f"    stamp({ROWS['rows_weights']});\n")
     src = _once(src, "    if (t == 0) {\n      diag[0] = st;\n",
                 "    stamp(0);\n    if (t == 0) {\n      diag[0] = st;\n")
     start = ("  __device__ void factorize() {",
@@ -316,29 +367,42 @@ def stamped_wrapper(root_in: Path, root: Path, name: str):
     return load_wrapper(root, name)
 
 
-def stamps(M, dev, label) -> dict:
-    """Phase split of a stamped kernel's plain mode, N=60, B=1, 12 it."""
+STAMP_CASES = (("plain 17x6 N=60 B=1 12it", 60, 12, None),
+               ("plain 17x6 soft N=60 B=1 6it", 60, 6, "position"))
+
+
+def stamps(M, dev, label) -> list:
+    """Phase split of a stamped kernel's plain mode at N=60, B=1 (hard, 12
+    iterations; soft from outside the box, 6): the cycles of each case's
+    launches, the read before it taken off."""
     lib = M._library()
     lib.box_qp_ipm_stamps.argtypes = [ctypes.c_void_p]
     lib.box_qp_ipm_stamps.restype = ctypes.c_int
-    N, iters = 60, 12
-    run = plain(N, 1, iters)(dev)(M)
-    ms = timed_turns(run, run)
-    run()
-    torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * NSTAMP)()
-    if lib.box_qp_ipm_stamps(ctypes.cast(buf, ctypes.c_void_p)) != 0:
-        raise RuntimeError("reading the stamps failed")
-    cyc = dict(zip(STAMP_PHASES, buf))
-    total = sum(cyc.values())
-    launch_ms = sum(ms["this_ms"]) / 2
-    stage_iters = N * iters
-    return {"kernel": label, "case": f"plain 17x6 N={N} B=1 {iters}it",
-            "cycles": cyc, "launch_ms": launch_ms, "cycles_total": total,
-            "share": {k: v / total for k, v in cyc.items()},
-            "us_per_stage_iteration": {
-                k: v / total * launch_ms * 1e3 / stage_iters
-                for k, v in cyc.items()}}
+
+    def read():
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * NSTAMP)()
+        if lib.box_qp_ipm_stamps(ctypes.cast(buf, ctypes.c_void_p)) != 0:
+            raise RuntimeError("reading the stamps failed")
+        return list(buf)
+
+    out = []
+    for case, N, iters, soft in STAMP_CASES:
+        run = plain(N, 1, iters, soft=soft)(dev)(M)
+        before = read()
+        ms = timed_turns(run, run)
+        cyc = dict(zip(STAMP_PHASES, (a - b for a, b in zip(read(),
+                                                             before))))
+        total = sum(cyc.values())
+        launch_ms = sum(ms["this_ms"]) / 2
+        stage_iters = N * iters
+        out.append({"kernel": label, "case": case, "cycles": cyc,
+                    "launch_ms": launch_ms, "cycles_total": total,
+                    "share": {k: v / total for k, v in cyc.items()},
+                    "us_per_stage_iteration": {
+                        k: v / total * launch_ms * 1e3 / stage_iters
+                        for k, v in cyc.items()}})
+    return out
 
 
 def main() -> int:
@@ -395,7 +459,8 @@ def main() -> int:
                  **timed_turns(launch(O), launch(K)),
                  build_s=time.perf_counter() - t0)
     for who, M in stamped.items():
-        emit("stamps", **stamps(M, dev, who))
+        for row in stamps(M, dev, who):
+            emit("stamps", **row)
     print(smi, flush=True)
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)

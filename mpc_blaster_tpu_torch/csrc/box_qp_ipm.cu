@@ -66,9 +66,26 @@
 // rounds to sig_s only within one ulp in float32 (measured with numpy:
 // fl(fl(x 1e18) / 1e18) != x for about a tenth of all x), and on a hard row
 // Z t overflows to inf, so every soft term is selected per row, never
-// multiplied by a 0/1 mask. The (t, gam) pairs stay in the global
-// workspace. Soft and warm starts do not combine (null warm pointers when
-// the penalty pointers are set).
+// multiplied by a 0/1 mask. Soft and warm starts do not combine (null warm
+// pointers when the penalty pointers are set).
+//
+// The soft instantiations keep a soft area beside the stacks: per bound
+// entry its class (infinite, hard or soft; init classifies every entry
+// once per launch, so no row pass reads a bound or Z to learn it), its
+// pair (t, gam), its penalty (Z, z), its sig_s and the pair's denominator
+// (formed once per iteration by the factorization's weight pass), and
+// four words the row passes hand on: rhs_grads leaves the predictor's w,
+// alphas the affine directions (read by mu_aff_sum and by the corrector's
+// rhs_grads, which forms the targets Ts, Tt once and leaves them with its
+// w), the corrector's alphas the directions that update applies. Every
+// soft term is so formed once per row and iteration, not once per use
+// (about eight times before), with the operations of the one-formula form
+// in their order: the results are the same bits (checked with g++ against
+// tests/cuda_cpu/, tests/test_torch_kernel_cpu.py). The area is sized for
+// every row being soft (10 words and a class byte per entry, so the plan
+// stays a function of N) and lives in dynamic shared memory where it fits
+// beside the stacks (17x6 up to N=61: N=60 takes 227,780 B, one block per
+// SM), else in the global workspace (N=120).
 //
 // The plain PyTorch twins are ops/box_qp_ipm.py::box_qp_solve_plain,
 // batched_fused_tick_plain and fused_rti_solve_plain (the prologue's twin is
@@ -332,11 +349,48 @@ __host__ __device__ size_t smem_bytes(int N) {
   return 4 * f;
 }
 
+// The soft area (SOFT only): per bound entry of the four groups (lx, ux
+// with N NX entries each, lu, uu with N NU each) SOFT_WORDS float fields,
+// one array per field, then one class byte per entry. Sized for every row
+// being soft, so that the plan stays a function of N; in shared memory,
+// after the stacks or the window, where it fits under SMEM_OPTIN, else in
+// the global workspace.
+constexpr int SOFT_WORDS = 10;
+// the fields: the violation pair (t, gam) and the penalty (Z, z) for the
+// launch; sig_s and the eliminated pair's denominator Z + sig_s + gam / t
+// per iteration; four words handed from one row pass to the next (W0-W3)
+enum SoftField : int { F_T, F_GAM, F_Z, F_ZL, F_SS, F_DEN, W0, W1, W2, W3 };
+// a bound entry's class, fixed for the launch: infinite bound, finite hard
+// bound, or soft (finite bound, Z below the sentinel)
+enum RowClass : unsigned char { C_INF = 0, C_HARD = 1, C_SOFT = 2 };
+
+template <int NX, int NU>
+__host__ __device__ size_t soft_entries(int N) {
+  return 2 * (size_t)N * (NX + NU);
+}
+template <int NX, int NU>
+__host__ __device__ size_t soft_floats(int N) {
+  const size_t E = soft_entries<NX, NU>(N);
+  return SOFT_WORDS * E + (E + 3) / 4;
+}
+template <int NX, int NU>
+__host__ __device__ bool soft_resident(int N) {
+  return smem_bytes<NX, NU>(N) + 4 * soft_floats<NX, NU>(N)
+         <= (size_t)SMEM_OPTIN;
+}
+// the launch's dynamic shared bytes
+template <int NX, int NU>
+__host__ __device__ size_t plan_bytes(int N, bool soft) {
+  return smem_bytes<NX, NU>(N)
+         + (soft && soft_resident<NX, NU>(N) ? 4 * soft_floats<NX, NU>(N)
+                                             : 0);
+}
+
 // Global workspace per problem: the iterate and direction vectors, the
 // right-hand sides, the factorization's barrier weights and the KKT pass's
-// stage terms; the fused modes' assembled rows; the soft pairs; the
-// prologue's record when the caller does not keep it; the factor stacks in
-// the global layout.
+// stage terms; the soft area where it is not in shared memory; the fused
+// modes' assembled rows; the prologue's record when the caller does not
+// keep it; the factor stacks in the global layout.
 template <int NX, int NU>
 __host__ __device__ size_t workspace_floats(int N, int mode, bool soft) {
   const size_t n = N, n1 = N + 1;
@@ -345,7 +399,7 @@ __host__ __device__ size_t workspace_floats(int N, int mode, bool soft) {
                                                 // sgx kx; sgu ku
   if (mode != PLAIN) w += n1 * NX + 2 * n * NX + 3 * n * NU;  // q, r, bounds
   if (mode == FUSE_LIN) w += lin_floats<NX, NU>(N);
-  if (soft) w += 4 * n * (NX + NU);  // t, gam of the four groups
+  if (soft && !soft_resident<NX, NU>(N)) w += soft_floats<NX, NU>(N);
   if (!resident<NX, NU>(N)) w += stack_floats<NX, NU>(N);
   return w;
 }
@@ -790,15 +844,18 @@ __device__ __forceinline__ void rk4_rows(T* X, const T* U, const float* P,
   }
 }
 
-// The soft rows of one problem: penalty rows and the violation pairs (in
-// the workspace). Empty unless SOFT, so the hard instantiations carry no
-// extra state (the Solver is the empty base's only user).
+// The soft rows of one problem: the penalty rows (inputs, read once by
+// init) and the soft area (shared memory or the workspace). Empty unless
+// SOFT, so the hard instantiations carry no extra state (the Solver is the
+// empty base's only user).
 template <bool SOFT>
 struct SoftRows {};
 template <>
 struct SoftRows<true> {
   const float *Zg[4], *zg[4];
-  float *tv[4], *gv[4];
+  float* sa;           // SOFT_WORDS fields of E entries
+  unsigned char* cls;  // the entries' RowClass
+  int E;
 };
 
 // One problem's solve, run by one thread block: an NX-state, NU-control
@@ -884,13 +941,16 @@ struct Solver : SoftRows<SOFT> {
     kx = w;       w += n * NX;
     sgu = w;      w += n * NU;
     ku = w;       w += n * NU;
+    [[maybe_unused]] float* soft_g = nullptr;  // the soft area in the workspace
     if constexpr (SOFT) {
       for (int g = 0; g < 4; ++g) {
         const size_t wd = g < 2 ? NX : NU;
         this->Zg[g] = in.Zp[g] + b * n * wd;
         this->zg[g] = in.zp[g] + b * n * wd;
-        this->tv[g] = w;  w += n * wd;
-        this->gv[g] = w;  w += n * wd;
+      }
+      if (!soft_resident<NX, NU>(N)) {
+        soft_g = w;
+        w += soft_floats<NX, NU>(N);
       }
     }
     if constexpr (MODE != PLAIN) {
@@ -932,6 +992,15 @@ struct Solver : SoftRows<SOFT> {
     if (!res) win = ring + RING_SLOTS * RING;
     Zst = Pst + n1 * NXX;
     Hst = Zst + n * NU * NX;
+    if constexpr (SOFT) {
+      this->E = (int)soft_entries<NX, NU>(N);
+      this->sa = soft_g ? soft_g
+                        : ring + RING_SLOTS * RING
+                              + (res ? stack_floats<NX, NU>(N)
+                                     : (size_t)window_floats<NX, NU>());
+      this->cls = reinterpret_cast<unsigned char*>(this->sa
+                                                   + SOFT_WORDS * this->E);
+    }
     // pairs of the P phase: the diagonal first (thread t < NX owns (t, t)),
     // then the strict upper triangle row by row
 #pragma unroll
@@ -1251,11 +1320,12 @@ struct Solver : SoftRows<SOFT> {
     for_rows_from(t, THREADS, f);
   }
   // rows first, first + step, ...: the rows of virtual thread `first` of
-  // a `step`-thread block
+  // a `step`-thread block (two rows at a time; one in SOFT, whose row
+  // passes would spill at two)
   template <class F>
   __device__ void for_rows_from(int first, int step, F f) const {
     const int nxr = N * NX, tot = N * (NX + NU);
-#pragma unroll 2
+#pragma unroll(SOFT ? 1 : 2)
     for (int e = first; e < tot; e += step) {
       if (e < nxr) {
         f(0, e, e + NX);
@@ -1283,13 +1353,8 @@ struct Solver : SoftRows<SOFT> {
   __device__ static float mask(int g, float b) {
     return (g & 1) ? (b < MTHR ? 1.f : 0.f) : (b > -MTHR ? 1.f : 0.f);
   }
-  // slack residual s - sgn (v - b) (- t on a soft row)
+  // slack residual s - sgn (v - b)
   __device__ float rs(int g, int idx, float v) const {
-    if constexpr (SOFT) {
-      if (srow(g, idx)) {
-        return s[g][idx] - (sgn(g) * (v - bnd[g][idx]) + this->tv[g][idx]);
-      }
-    }
     return s[g][idx] - sgn(g) * (v - bnd[g][idx]);
   }
   __device__ float sig(int g, int idx) const {
@@ -1318,68 +1383,81 @@ struct Solver : SoftRows<SOFT> {
   }
 
   // ---- soft rows (SOFT only) ---------------------------------------------
+  // Each bound entry (g, idx) has a slot e in the soft area: its class
+  // (init classifies every entry once per launch), its violation pair and
+  // penalty, and the per-iteration terms the row passes hand on. Every
+  // soft term is formed once per row and iteration, by the pass that first
+  // needs it, in the operation order of the one-formula-per-use form:
+  //   factorize's weight pass   sig_s (every entry) and, on a soft row,
+  //                             den = (Z + sig_s) + gam / t, then
+  //                             sig_eff = sig_s (Z + gam / t) / den;
+  //   rhs_grads, predictor      w for targets (0, 0) -> W0;
+  //   alphas, predictor         the affine directions ds, dl, dt, dg
+  //                             -> W0..W3 (mu_aff_sum reads them);
+  //   rhs_grads, corrector      the targets Ts, Tt and w -> W0..W2;
+  //   alphas, corrector         the directions -> W0..W3 (update reads
+  //                             them).
+  // A hard row of the soft instantiation takes the same slots (sig_s, its
+  // directions and its target) and never the elimination: sig_s itself,
+  // never the formula, whose Z = 1e18 sentinel rounds to sig_s only within
+  // one ulp in float32.
+  __device__ int sent(int g, int idx) const {
+    return g < 2 ? g * N * NX + idx : 2 * N * NX + (g - 2) * N * NU + idx;
+  }
+  __device__ float& sf(int f, int e) const { return this->sa[f * this->E + e]; }
   // A row is soft where its bound is finite and its Z is not the sentinel.
   __device__ bool srow(int g, int idx) const {
-    if constexpr (SOFT) {
-      return mask(g, bnd[g][idx]) > 0.5f && this->Zg[g][idx] < MTHR;
-    }
+    if constexpr (SOFT) return this->cls[sent(g, idx)] == C_SOFT;
     return false;
   }
-  // the eliminated pair's denominator Z + sig_s + sig_t and RHS scalar
-  // w = -r_t + (Ts/s - lam) + (Tt/t - gam) + sig_s r_s of a soft row
-  __device__ void soft_terms(int g, int idx, float r, float Ts, float Tt,
-                             float& den, float& w) const {
-    const float ss = sig(g, idx), sv = s[g][idx], lv = lam[g][idx];
-    const float tt = this->tv[g][idx], gg = this->gv[g][idx], Z = this->Zg[g][idx];
-    den = (Z + ss) + gg / tt;
-    const float r_t = ((this->zg[g][idx] + Z * tt) - lv) - gg;
-    w = ((-r_t + (Ts / sv - lv)) + (Tt / tt - gg)) + ss * r;
-  }
-  // Newton directions (ds, dl, dt, dg) of one bound entry for primal
-  // direction dd under the targets (Ts, Tt); dt = dg = 0 on a hard row,
-  // where ds and dl are `dirs`'
-  __device__ void sdirs(int g, int idx, float v, float dd, float Ts,
-                        float Tt, float& ds, float& dl, float& dt,
-                        float& dg) const {
-    const float m = mask(g, bnd[g][idx]);
-    const float sv = s[g][idx], lv = lam[g][idx];
-    const float r = rs(g, idx, v);
-    float dv = sgn(g) * dd;
-    dt = 0.f;
-    dg = 0.f;
-    if (srow(g, idx)) {
-      float den, w;
-      soft_terms(g, idx, r, Ts, Tt, den, w);
-      const float tt = this->tv[g][idx], gg = this->gv[g][idx];
-      dt = (w - sig(g, idx) * dv) / den;
-      dg = clipf(((Tt - tt * gg) - gg * dt) / tt, -DUAL_CLIP, DUAL_CLIP);
-      dv = dv + dt;
+  // every entry's class, Z and z (before anything reads the class); the
+  // group loop is unrolled, so that no member array is indexed at run time
+  // (that would put the Solver in local memory)
+  __device__ void classify() {
+    if constexpr (SOFT) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int n = N * (g < 2 ? NX : NU);
+        for (int idx = t; idx < n; idx += THREADS) {
+          const int e = sent(g, idx);
+          const float Z = this->Zg[g][idx];
+          this->cls[e] = mask(g, bnd[g][idx]) <= 0.5f ? C_INF
+                         : Z < MTHR                  ? C_SOFT
+                                                     : C_HARD;
+          sf(F_Z, e) = Z;
+          sf(F_ZL, e) = this->zg[g][idx];
+        }
+      }
     }
-    ds = m * (dv - r);
-    dl = m * clipf((Ts - sv * lv - lv * ds) / sv, -DUAL_CLIP, DUAL_CLIP);
   }
-  // the corrector's targets (Ts, Tt) from the affine directions in
-  // ddxa/ddua (0 in the predictor)
-  __device__ void stargets(bool cor, int g, int idx, float v, float dda,
-                           float& Ts, float& Tt) const {
-    Ts = 0.f;
-    Tt = 0.f;
-    if (!cor) return;
-    float ds, dl, dt, dg;
-    sdirs(g, idx, v, dda, 0.f, 0.f, ds, dl, dt, dg);
-    Ts = clipf(mu_t - ds * dl, 0.05f * mu_t, 20.f * mu_t);
-    Tt = clipf(mu_t - dt * dg, 0.05f * mu_t, 20.f * mu_t);
+  // slack residual s - sgn (v - b) (- t on a soft row)
+  __device__ float rs_soft(int g, int idx, int e, bool soft, float v) const {
+    if (soft) {
+      return s[g][idx] - (sgn(g) * (v - bnd[g][idx]) + sf(F_T, e));
+    }
+    return s[g][idx] - sgn(g) * (v - bnd[g][idx]);
+  }
+  // soft stationarity z + Z t - lam - gam of a soft row
+  __device__ float soft_rt(int g, int idx, int e) const {
+    return ((sf(F_ZL, e) + sf(F_Z, e) * sf(F_T, e)) - lam[g][idx])
+           - sf(F_GAM, e);
+  }
+  // the right-hand-side scalar w = -r_t + (Ts/s - lam) + (Tt/t - gam) +
+  // sig_s r of a soft row
+  __device__ float soft_w(int g, int idx, int e, float r, float Ts,
+                          float Tt) const {
+    const float sv = s[g][idx], lv = lam[g][idx];
+    const float tt = sf(F_T, e), gg = sf(F_GAM, e);
+    return ((-soft_rt(g, idx, e) + (Ts / sv - lv)) + (Tt / tt - gg))
+           + sf(F_SS, e) * r;
   }
   // max |z + Z t - lam - gam| over the soft rows (soft stationarity)
   __device__ float soft_rt_max() const {
     float acc = 0.f;
     for_rows([&](int gb, int idx, int) {
       for (int g = gb; g < gb + 2; ++g) {
-        if (srow(g, idx)) {
-          const float r_t = ((this->zg[g][idx] + this->Zg[g][idx] * this->tv[g][idx])
-                             - lam[g][idx]) - this->gv[g][idx];
-          acc = nmax(acc, fabsf(r_t));
-        }
+        const int e = sent(g, idx);
+        if (this->cls[e] == C_SOFT) acc = nmax(acc, fabsf(soft_rt(g, idx, e)));
       }
     });
     return block_reduce(acc, sh.red, OpMax());
@@ -1406,6 +1484,7 @@ struct Solver : SoftRows<SOFT> {
   // carries state i), then centred slacks and duals and the warm blend over
   // them, on the block
   __device__ void init() {
+    classify();
     sweep_begin();
     if (warp == 0) {
       const int xi = lane < NX ? lane : 0;
@@ -1444,10 +1523,11 @@ struct Solver : SoftRows<SOFT> {
         float gap = sgn(g) * (v - b);
         if constexpr (SOFT) {
           // violation pair: O(1) offset on a soft row, inert on a hard one
-          const bool sr = srow(g, idx);
+          const int e = sent(g, idx);
+          const bool sr = this->cls[e] == C_SOFT;
           const float tt = sr ? nmax(-gap, 0.f) + 0.1f : BIG;
-          this->tv[g][idx] = tt;
-          this->gv[g][idx] = sr ? mu0 / tt : 0.f;
+          sf(F_T, e) = tt;
+          sf(F_GAM, e) = sr ? mu0 / tt : 0.f;
           if (sr) gap = gap + tt;
           cnt += sr ? 1.f : 0.f;
         }
@@ -1473,9 +1553,13 @@ struct Solver : SoftRows<SOFT> {
   __device__ float comp_sum() const {
     return rows_sum([&](float& acc, int gb, int idx, int) {
       for (int g = gb; g < gb + 2; ++g) {
-        acc += mask(g, bnd[g][idx]) * s[g][idx] * lam[g][idx];
         if constexpr (SOFT) {
-          if (srow(g, idx)) acc += this->tv[g][idx] * this->gv[g][idx];
+          const int e = sent(g, idx);
+          const unsigned char c = this->cls[e];
+          acc += (c != C_INF ? 1.f : 0.f) * s[g][idx] * lam[g][idx];
+          if (c == C_SOFT) acc += sf(F_T, e) * sf(F_GAM, e);
+        } else {
+          acc += mask(g, bnd[g][idx]) * s[g][idx] * lam[g][idx];
         }
       }
     });
@@ -1567,13 +1651,17 @@ struct Solver : SoftRows<SOFT> {
   }
 
   // the factorization's weight of one entry: sig_s, or the eliminated
-  // sig_eff on a soft row
+  // sig_eff on a soft row; SOFT keeps sig_s and the pair's denominator
   __device__ float sig_fac(int g, int idx) const {
     const float ss = sig(g, idx);
     if constexpr (SOFT) {
-      if (srow(g, idx)) {
-        const float Z = this->Zg[g][idx], st = this->gv[g][idx] / this->tv[g][idx];
-        return ss * (Z + st) / ((Z + ss) + st);
+      const int e = sent(g, idx);
+      sf(F_SS, e) = ss;
+      if (this->cls[e] == C_SOFT) {
+        const float Z = sf(F_Z, e), st = sf(F_GAM, e) / sf(F_T, e);
+        const float den = (Z + ss) + st;
+        sf(F_DEN, e) = den;
+        return ss * (Z + st) / den;
       }
     }
     return ss;
@@ -1740,20 +1828,33 @@ struct Solver : SoftRows<SOFT> {
     }
     for_rows([&](int gb, int idx, int vi) {
       const float* V = gb ? du : dx;
-      const float* DA = gb ? ddua : ddxa;
+      [[maybe_unused]] const float* DA = gb ? ddua : ddxa;
       const float v = V[vi];
       float bsum = 0.f;
       for (int g = gb; g < gb + 2; ++g) {
         float b;
         if constexpr (SOFT) {
-          float Ts, Tt;
-          stargets(cor, g, idx, v, DA[vi], Ts, Tt);
-          const float r = rs(g, idx, v), ss = sig(g, idx);
+          // the targets from the affine directions alphas(false) left in
+          // W0..W3; this pass leaves Ts, Tt and w there for alphas(true)
+          const int e = sent(g, idx);
+          const bool soft = this->cls[e] == C_SOFT;
+          float Ts = 0.f, Tt = 0.f;
+          if (cor) {
+            const float ds = sf(W0, e), dl = sf(W1, e);
+            Ts = clipf(mu_t - ds * dl, 0.05f * mu_t, 20.f * mu_t);
+            if (soft) {
+              const float dt = sf(W2, e), dg = sf(W3, e);
+              Tt = clipf(mu_t - dt * dg, 0.05f * mu_t, 20.f * mu_t);
+            }
+            sf(W0, e) = Ts;
+            sf(W1, e) = Tt;
+          }
+          const float r = rs_soft(g, idx, e, soft, v), ss = sf(F_SS, e);
           b = clipf(Ts / s[g][idx], -SIGMA_MAX, SIGMA_MAX) + ss * r;
-          if (srow(g, idx)) {
-            float den, w;
-            soft_terms(g, idx, r, Ts, Tt, den, w);
-            b = b - (ss * w) / den;
+          if (soft) {
+            const float w = soft_w(g, idx, e, r, Ts, Tt);
+            b = b - (ss * w) / sf(F_DEN, e);
+            sf(cor ? W2 : W0, e) = w;
           }
         } else {
           const float T = target(cor, g, idx, v, DA[vi]);
@@ -1886,24 +1987,55 @@ struct Solver : SoftRows<SOFT> {
     }
   }
 
-  // fraction-to-boundary step lengths for directions (dX, dU)
+  // Newton directions (ds, dl, dt, dg) of entry e for primal direction dd
+  // under the targets (Ts, Tt) and the right-hand-side scalar w that
+  // rhs_grads formed for them; dt = dg = 0 on a hard row (SOFT)
+  __device__ void soft_dirs(int g, int idx, int e, bool soft, float v,
+                            float dd, float Ts, float Tt, float w, float& ds,
+                            float& dl, float& dt, float& dg) const {
+    const float m = mask(g, bnd[g][idx]);
+    const float sv = s[g][idx], lv = lam[g][idx];
+    const float r = rs_soft(g, idx, e, soft, v);
+    float dv = sgn(g) * dd;
+    dt = 0.f;
+    dg = 0.f;
+    if (soft) {
+      const float tt = sf(F_T, e), gg = sf(F_GAM, e);
+      dt = (w - sf(F_SS, e) * dv) / sf(F_DEN, e);
+      dg = clipf(((Tt - tt * gg) - gg * dt) / tt, -DUAL_CLIP, DUAL_CLIP);
+      dv = dv + dt;
+    }
+    ds = m * (dv - r);
+    dl = m * clipf((Ts - sv * lv - lv * ds) / sv, -DUAL_CLIP, DUAL_CLIP);
+  }
+
+  // fraction-to-boundary step lengths for directions (dX, dU); SOFT leaves
+  // the directions in W0..W3
   __device__ void alphas(bool cor, float tau, const float* dX, const float* dU,
                          float& a_p, float& a_d) const {
     float ap = 1.f, ad = 1.f;
     for_rows([&](int gb, int idx, int vi) {
       const float v = (gb ? du : dx)[vi];
       const float d = (gb ? dU : dX)[vi];
-      const float da = (gb ? ddua : ddxa)[vi];
+      [[maybe_unused]] const float da = (gb ? ddua : ddxa)[vi];
       for (int g = gb; g < gb + 2; ++g) {
         float ds, dl;
         if constexpr (SOFT) {
-          float Ts, Tt, dt, dg;
-          stargets(cor, g, idx, v, da, Ts, Tt);
-          sdirs(g, idx, v, d, Ts, Tt, ds, dl, dt, dg);
-          if (srow(g, idx)) {
-            ap = nmin(ap, ratio(this->tv[g][idx], dt, tau));
-            ad = nmin(ad, ratio(this->gv[g][idx], dg, tau));
+          const int e = sent(g, idx);
+          const bool soft = this->cls[e] == C_SOFT;
+          float dt, dg;
+          const float Ts = cor ? sf(W0, e) : 0.f;
+          const float Tt = cor ? sf(W1, e) : 0.f;
+          const float w = soft ? sf(cor ? W2 : W0, e) : 0.f;
+          soft_dirs(g, idx, e, soft, v, d, Ts, Tt, w, ds, dl, dt, dg);
+          if (soft) {
+            ap = nmin(ap, ratio(sf(F_T, e), dt, tau));
+            ad = nmin(ad, ratio(sf(F_GAM, e), dg, tau));
           }
+          sf(W0, e) = ds;
+          sf(W1, e) = dl;
+          sf(W2, e) = dt;
+          sf(W3, e) = dg;
         } else {
           dirs(g, idx, v, d, target(cor, g, idx, v, da), ds, dl);
         }
@@ -1918,21 +2050,26 @@ struct Solver : SoftRows<SOFT> {
   // complementarity after the affine step (sum over bounds)
   __device__ float mu_aff_sum(float ap, float ad) const {
     return rows_sum([&](float& acc, int gb, int idx, int vi) {
-      const float v = (gb ? du : dx)[vi];
-      const float da = (gb ? ddua : ddxa)[vi];
+      [[maybe_unused]] const float v = (gb ? du : dx)[vi];
+      [[maybe_unused]] const float da = (gb ? ddua : ddxa)[vi];
       for (int g = gb; g < gb + 2; ++g) {
-        float ds, dl;
         if constexpr (SOFT) {
-          float dt, dg;
-          sdirs(g, idx, v, da, 0.f, 0.f, ds, dl, dt, dg);
-          if (srow(g, idx)) {
-            acc += (this->tv[g][idx] + ap * dt) * (this->gv[g][idx] + ad * dg);
+          // the affine directions alphas(false) left in W0..W3
+          const int e = sent(g, idx);
+          const unsigned char c = this->cls[e];
+          const float ds = sf(W0, e), dl = sf(W1, e);
+          if (c == C_SOFT) {
+            acc += (sf(F_T, e) + ap * sf(W2, e))
+                   * (sf(F_GAM, e) + ad * sf(W3, e));
           }
+          acc += (c != C_INF ? 1.f : 0.f) * (s[g][idx] + ap * ds)
+                 * (lam[g][idx] + ad * dl);
         } else {
+          float ds, dl;
           dirs(g, idx, v, da, 0.f, ds, dl);
+          acc += mask(g, bnd[g][idx]) * (s[g][idx] + ap * ds)
+                 * (lam[g][idx] + ad * dl);
         }
-        acc += mask(g, bnd[g][idx]) * (s[g][idx] + ap * ds)
-               * (lam[g][idx] + ad * dl);
       }
     });
   }
@@ -1942,25 +2079,25 @@ struct Solver : SoftRows<SOFT> {
     for_rows([&](int gb, int idx, int vi) {
       float* V = gb ? du : dx;
       const float d = (gb ? ddu : ddx)[vi];
-      const float da = (gb ? ddua : ddxa)[vi];
+      [[maybe_unused]] const float da = (gb ? ddua : ddxa)[vi];
       const float v = V[vi];
-      float ds[2], dl[2], dt[2], dg[2];
-      for (int h = 0; h < 2; ++h) {
-        const int g = gb + h;
-        if constexpr (SOFT) {
-          float Ts, Tt;
-          stargets(true, g, idx, v, da, Ts, Tt);
-          sdirs(g, idx, v, d, Ts, Tt, ds[h], dl[h], dt[h], dg[h]);
-        } else {
+      float ds[2], dl[2];
+      if constexpr (!SOFT) {
+        for (int h = 0; h < 2; ++h) {
+          const int g = gb + h;
           dirs(g, idx, v, d, target(true, g, idx, v, da), ds[h], dl[h]);
         }
       }
       for (int h = 0; h < 2; ++h) {
         const int g = gb + h;
         if constexpr (SOFT) {
-          if (srow(g, idx)) {
-            this->tv[g][idx] = nmax(this->tv[g][idx] + ap * dt[h], EPS_S);
-            this->gv[g][idx] = clipf(this->gv[g][idx] + ad * dg[h], 0.f, LAM_MAX);
+          // the corrector's directions alphas(true) left in W0..W3
+          const int e = sent(g, idx);
+          ds[h] = sf(W0, e);
+          dl[h] = sf(W1, e);
+          if (this->cls[e] == C_SOFT) {
+            sf(F_T, e) = nmax(sf(F_T, e) + ap * sf(W2, e), EPS_S);
+            sf(F_GAM, e) = clipf(sf(F_GAM, e) + ad * sf(W3, e), 0.f, LAM_MAX);
           }
         }
         s[g][idx] = nmax(s[g][idx] + ap * ds[h], EPS_S);
@@ -2092,7 +2229,7 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
       }
     }
   }
-  const size_t smem = smem_bytes<NX, NU>(N);
+  const size_t smem = plan_bytes<NX, NU>(N, SOFT);
   if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
   box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>
       <<<B, THREADS, smem, (cudaStream_t)stream>>>(in, out, md, N, iters, mu0,
@@ -2114,23 +2251,29 @@ int with_instance(int mode, bool soft, int nx, int nu, int family,
       return soft ? f.template run<PLAIN, true, 17, 6, BLASTER>()
                   : f.template run<PLAIN, false, 17, 6, BLASTER>();
     }
+    if (mode == FUSE_LIN && family == BLASTER && soft) {
+      return f.template run<FUSE_LIN, true, 17, 6, BLASTER>();
+    }
+#ifndef BOX_QP_IPM_CPU_SUBSET
     if (mode == FUSE_COST && !soft) {
       return f.template run<FUSE_COST, false, 17, 6, BLASTER>();
     }
-    if (mode == FUSE_LIN && family == BLASTER) {
-      return soft ? f.template run<FUSE_LIN, true, 17, 6, BLASTER>()
-                  : f.template run<FUSE_LIN, false, 17, 6, BLASTER>();
+    if (mode == FUSE_LIN && family == BLASTER && !soft) {
+      return f.template run<FUSE_LIN, false, 17, 6, BLASTER>();
     }
     if (mode == FUSE_LIN && family == BLASTER_DIST && !soft) {
       return f.template run<FUSE_LIN, false, 17, 6, BLASTER_DIST>();
     }
+#endif
   }
+#ifndef BOX_QP_IPM_CPU_SUBSET
   if (is_13x4(nx, nu) && !soft) {
     if (mode == PLAIN) return f.template run<PLAIN, false, 13, 4, BLASTER>();
     if (mode == FUSE_LIN && family == QUAD13) {
       return f.template run<FUSE_LIN, false, 13, 4, QUAD13>();
     }
   }
+#endif
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2191,18 +2334,18 @@ extern "C" long long box_qp_ipm_lin_floats(int N, int nx, int nu) {
 }
 
 // The launch's plan: threads per block, dynamic shared bytes and whether
-// the factor stacks are resident in shared memory. mode and soft do not
-// change it (they are taken so that the query names an instantiation).
+// the factor stacks are resident in shared memory. The mode does not
+// change it (it is taken so that the query names an instantiation); soft
+// bounds add the soft area where it fits.
 extern "C" int box_qp_ipm_plan(int N, int mode, int soft, int nx, int nu,
                                int* threads, long long* smem, int* res) {
   (void)mode;
-  (void)soft;
   if (N <= 0) return (int)cudaErrorInvalidValue;
   if (is_17x6(nx, nu)) {
-    *smem = (long long)smem_bytes<17, 6>(N);
+    *smem = (long long)plan_bytes<17, 6>(N, soft != 0);
     *res = resident<17, 6>(N);
   } else if (is_13x4(nx, nu)) {
-    *smem = (long long)smem_bytes<13, 4>(N);
+    *smem = (long long)plan_bytes<13, 4>(N, soft != 0);
     *res = resident<13, 4>(N);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -2260,10 +2403,12 @@ extern "C" int box_qp_ipm_solve(
     return launch<PLAIN, false, 17, 6>(in, out, Model{}, B, N, iters, mu0,
                                        alpha_frac, reg, stream);
   }
+#ifndef BOX_QP_IPM_CPU_SUBSET
   if (is_13x4(nx, nu) && !soft) {
     return launch<PLAIN, false, 13, 4>(in, out, Model{}, B, N, iters, mu0,
                                        alpha_frac, reg, stream);
   }
+#endif
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2283,6 +2428,9 @@ extern "C" int box_qp_ipm_fused_cost(
     const float* wsuu, const float* wllu, const float* wluu,
     const unsigned char* skip, int B, int N, int nx, int nu, int iters,
     float mu0, float alpha_frac, float reg, void* stream) {
+#ifdef BOX_QP_IPM_CPU_SUBSET
+  return (int)cudaErrorInvalidValue;
+#else
   if (!is_17x6(nx, nu)) return (int)cudaErrorInvalidValue;
   Inputs in{};
   set_warm(in, wvalid, wslx, wsux, wllx, wlux, wslu, wsuu, wllu, wluu, skip);
@@ -2307,6 +2455,7 @@ extern "C" int box_qp_ipm_fused_cost(
               work};
   return launch<FUSE_COST, false, 17, 6>(in, out, Model{}, B, N, iters, mu0,
                                          alpha_frac, reg, stream);
+#endif
 }
 
 // FUSE_LIN (the one-launch RTI tick): dx/du receive deltas; `lin`, when not
@@ -2357,11 +2506,12 @@ extern "C" int box_qp_ipm_fused_lin(
   Outputs out{dx, du, diag, {slx, sux, slu, suu}, {llx, lux, llu, luu},
               work, lin};
   const Model md{inv_m, g, lx, ly, cy, j1, j2, j3, h, h2, h6, nsteps};
+  if (family == BLASTER && soft) {
+    return launch<FUSE_LIN, true, 17, 6>(in, out, md, B, N, iters, mu0,
+                                         alpha_frac, reg, stream);
+  }
+#ifndef BOX_QP_IPM_CPU_SUBSET
   if (family == BLASTER) {
-    if (soft) {
-      return launch<FUSE_LIN, true, 17, 6>(in, out, md, B, N, iters, mu0,
-                                           alpha_frac, reg, stream);
-    }
     return launch<FUSE_LIN, false, 17, 6>(in, out, md, B, N, iters, mu0,
                                           alpha_frac, reg, stream);
   }
@@ -2373,5 +2523,6 @@ extern "C" int box_qp_ipm_fused_lin(
     return launch<FUSE_LIN, false, 13, 4, QUAD13>(
         in, out, md, B, N, iters, mu0, alpha_frac, reg, stream);
   }
+#endif
   return (int)cudaErrorInvalidValue;
 }

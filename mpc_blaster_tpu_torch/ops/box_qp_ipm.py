@@ -148,6 +148,7 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "box_qp_ipm.cu"
 THREADS = 128
 SMEM_OPTIN = 232448
 RING_SLOTS = 4   # slots of the kernel's ring of stages
+SOFT_WORDS = 10  # float32 words per bound entry in the soft area
 
 
 class LaunchPlan(NamedTuple):
@@ -162,17 +163,30 @@ class LaunchPlan(NamedTuple):
         return "resident" if self.resident else "global"
 
 
+def soft_area_floats(N: int, nx: int, nu: int) -> int:
+    """float32 words of the soft instantiations' soft area at horizon N:
+    SOFT_WORDS words for each of the 2 N (nx + nu) bound entries (the
+    violation pair t, gam; the penalty Z, z; sig_s and the eliminated
+    pair's denominator; four words the row passes hand on) and a class
+    byte per entry, rounded up to whole words."""
+    E = 2 * N * (nx + nu)
+    return SOFT_WORDS * E + (E + 3) // 4
+
+
 def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int
                 ) -> LaunchPlan:
     """The plan of csrc/box_qp_ipm.cu's launch at horizon N for an nx x nu
-    model (every mode and soft flag share it). Dynamic shared memory, in
-    float32 words: the per-stage scratch (P'A, A'PA, P'B, Hux, Huu, the
-    Cholesky inverse's two factors, two words per warp for the block
-    reductions, the ring's two flags per slot), the ring of RING_SLOTS
-    stages (A_k, B_k and up to 3 (nx + nu) words of the stage's vectors
-    each), then the factor stacks P_0..P_N, Z_0..Z_{N-1},
-    Hinv_0..Hinv_{N-1} where the total fits in SMEM_OPTIN, else the
-    factorization's window (two P slots, one Z, one Hinv)."""
+    model (every mode shares it). Dynamic shared memory, in float32 words:
+    the per-stage scratch (P'A, A'PA, P'B, Hux, Huu, the Cholesky
+    inverse's two factors, two words per warp for the block reductions,
+    the ring's two flags per slot), the ring of RING_SLOTS stages (A_k,
+    B_k and up to 3 (nx + nu) words of the stage's vectors each), then the
+    factor stacks P_0..P_N, Z_0..Z_{N-1}, Hinv_0..Hinv_{N-1} where the
+    total fits in SMEM_OPTIN, else the factorization's window (two P
+    slots, one Z, one Hinv). A soft launch adds its soft area
+    (`soft_area_floats`, sized for every row being soft) after them where
+    it still fits, else keeps it in the global workspace; the layout
+    names where the stacks are."""
     if (nx, nu) not in {(b[0], b[1]) for b in BUILT} or N < 1 \
             or mode not in _MODE_NAMES:
         raise ValueError(f"no launch plan for N={N}, mode={mode}, "
@@ -183,9 +197,10 @@ def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int
     stacks = (N + 1) * nx * nx + N * nu * nx + N * nu * nu
     window = 2 * nx * nx + nu * nx + nu * nu
     resident = 4 * (scratch + ring + stacks) <= SMEM_OPTIN
-    return LaunchPlan(THREADS, 4 * (scratch + ring
-                                    + (stacks if resident else window)),
-                      resident)
+    words = scratch + ring + (stacks if resident else window)
+    if soft and 4 * (words + soft_area_floats(N, nx, nu)) <= SMEM_OPTIN:
+        words += soft_area_floats(N, nx, nu)
+    return LaunchPlan(THREADS, 4 * words, resident)
 
 
 def _require_plan(plan: LaunchPlan) -> LaunchPlan:
@@ -869,9 +884,10 @@ def _optin(lib, dev, mode, soft, nx, nu, family):
 def kernel_info(N: int, mode: int, nx: int, nu: int, family=None,
                 soft: bool = False, device=None) -> dict:
     """The launch of an instantiation at horizon N on a CUDA device: its
-    plan (layout, threads, dynamic shared bytes) and the compiled kernel's
-    registers per thread, local (stack) bytes and blocks per SM at that
-    shared memory (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    plan (layout, threads, dynamic shared bytes; for a soft instantiation
+    where its soft area lives, "shared" or "global") and the compiled
+    kernel's registers per thread, local (stack) bytes and blocks per SM
+    at that shared memory (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
     _check_built(nx, nu, mode, family, soft)
     dev = torch.device(device if device is not None else "cuda")
     if dev.type != "cuda":
@@ -888,9 +904,13 @@ def kernel_info(N: int, mode: int, nx: int, nu: int, family=None,
             mode, int(soft), nx, nu, fam, plan.smem_bytes,
             ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
     _launched(lib, rc, "box_qp_ipm_kernel_attrs")
+    hard = launch_plan(N, mode, False, nx, nu)
+    area = (None if not soft else
+            "shared" if plan.smem_bytes > hard.smem_bytes else "global")
     return {"layout": plan.layout, "threads": plan.threads,
-            "smem_bytes": plan.smem_bytes, "registers": regs.value,
-            "local_bytes": local.value, "blocks_per_sm": blocks.value}
+            "smem_bytes": plan.smem_bytes, "soft_area": area,
+            "registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": blocks.value}
 
 
 def _stream(dev: torch.device) -> int:
@@ -916,7 +936,7 @@ def _check_shapes(tensors: NamedTuple, shapes: dict, dev):
 def _solve_outputs(lib, Bsz, N, nx, nu, mode, dev, soft=False):
     """Fresh output tensors of one launch: dx, du, diag, the slacks/duals
     (slx sux llx lux, slu suu llu luu) and the workspace (which holds the
-    violation pairs of a soft solve)."""
+    soft area of a soft solve where it is not in shared memory)."""
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
     return (empty(Bsz, N + 1, nx), empty(Bsz, N, nu), empty(Bsz, 6),

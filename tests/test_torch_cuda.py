@@ -519,15 +519,18 @@ def test_probes_match_plain_on_gpu(cuda_device):
 @pytest.mark.cuda
 def test_library_plan_matches_launch_plan_on_gpu(cuda_device):
     """The built library's plan (threads, dynamic shared bytes, layout)
-    equals the wrapper's `launch_plan` at every horizon and model; each
-    instantiation fits under the opt-in at the plan's shared memory."""
+    equals the wrapper's `launch_plan` at every horizon and model, hard and
+    soft; each instantiation fits under the opt-in at the plan's shared
+    memory."""
     assert K._library().box_qp_ipm_smem_optin() == K.SMEM_OPTIN
-    for nx, nu, Ns in ((17, 6, (8, 20, 30, 60, 120, 128, 129, 240)),
+    for nx, nu, Ns in ((17, 6, (8, 20, 30, 60, 61, 62, 120, 128, 129, 240)),
                        (13, 4, (8, 20, 237, 238))):
         for N in Ns:
             for mode in (K.PLAIN, K.FUSE_LIN):
-                assert K.library_plan(N, mode, False, nx, nu) \
-                    == K.launch_plan(N, mode, False, nx, nu), (nx, N, mode)
+                for soft in (False, True):
+                    assert K.library_plan(N, mode, soft, nx, nu) \
+                        == K.launch_plan(N, mode, soft, nx, nu), \
+                        (nx, N, mode, soft)
     for nx, nu, mode, family, soft in K.BUILT:
         info = K.kernel_info(60 if nx == 17 else 20, mode, nx, nu, family,
                              soft, device=cuda_device)

@@ -11,7 +11,11 @@ words of vectors: 4 (nx^2 + nx nu + 3 (nx + nu))), then the stacks
 P_0..P_N, Z_0..Z_{N-1},
 Hinv_0..Hinv_{N-1} ((N+1) nx^2 + N nu nx + N nu^2) where everything fits
 in the card's 232448-byte opt-in, else the factorization's window (two P
-slots, one Z, one Hinv). Pure arithmetic: no JAX, no card.
+slots, one Z, one Hinv). A soft launch then adds its soft area where that
+still fits: for each of the 2 N (nx + nu) bound entries ten words (t, gam,
+Z, z, sig_s, the pair's denominator, four words handed between row
+passes) and a class byte, the bytes rounded up to whole words. Pure
+arithmetic: no JAX, no card.
 """
 import re
 
@@ -30,6 +34,9 @@ BASE = {(17, 6): 4 * (2 * 289 + 2 * 102 + 3 * 36 + 8 + 8
 STACKS = {(17, 6, 20): 35316, (17, 6, 30): 52396, (17, 6, 60): 103636,
           (17, 6, 120): 206116, (17, 6, 240): 411076, (13, 4, 20): 19636}
 WINDOW = {(17, 6): 4 * (2 * 289 + 102 + 36), (13, 4): 4 * (2 * 169 + 52 + 16)}
+# the 17x6 soft area in bytes where it is in shared memory: N=20 has 920
+# entries, N=60 2760; at N=240 it stays in the workspace
+SOFT_AREA = {20: 4 * (10 * 920 + 230), 60: 4 * (10 * 2760 + 690), 240: 0}
 CASES = [(17, 6, 20, True), (17, 6, 30, True), (17, 6, 60, True),
          (17, 6, 120, True), (17, 6, 240, False), (13, 4, 20, True)]
 
@@ -51,10 +58,34 @@ def test_plan_matches_hand_count(nx, nu, N, resident):
                                        (K.FUSE_LIN, False), (K.FUSE_LIN, True)])
 def test_plan_is_the_same_for_every_mode(mode, soft):
     """The stacks, scratch and ring do not depend on the mode or on soft
-    bounds (the soft pairs stay in the global workspace)."""
+    bounds; a soft launch adds its soft area (SOFT_AREA) after them."""
     for N in (20, 60, 240):
-        assert (K.launch_plan(N, mode, soft, 17, 6)
-                == K.launch_plan(N, K.PLAIN, False, 17, 6))
+        hard = K.launch_plan(N, K.PLAIN, False, 17, 6)
+        plan = K.launch_plan(N, mode, soft, 17, 6)
+        if soft:
+            assert plan == hard._replace(smem_bytes=hard.smem_bytes
+                                         + SOFT_AREA[N])
+            assert SOFT_AREA[N] in (0, 4 * K.soft_area_floats(N, 17, 6))
+        else:
+            assert plan == hard
+
+
+def test_soft_area_in_shared_memory_up_to_n61():
+    """17x6: the soft area joins the resident stacks up to N=61 (the soft
+    closed loop's N=60 included); from N=62 (N=120 among the main path's
+    horizons) it stays in the workspace and the soft plan is the hard
+    one. Per entry 10 words and a byte: 46 N entries, about 1886 N bytes
+    on top of the hard plan's 12140 + 1708 N."""
+    extra = {N: K.launch_plan(N, K.PLAIN, True, 17, 6).smem_bytes
+             - K.launch_plan(N, K.PLAIN, False, 17, 6).smem_bytes
+             for N in range(1, 130)}
+    assert max(N for N, b in extra.items() if b) == 61
+    assert all(extra[N] == 4 * (460 * N + (46 * N + 3) // 4)
+               for N in range(1, 62))
+    assert all(extra[N] == 0 for N in range(62, 130))
+    assert BASE[(17, 6)] + STACKS[(17, 6, 60)] + SOFT_AREA[60] <= OPTIN
+    assert K.launch_plan(120, K.PLAIN, True, 17, 6) \
+        == K.launch_plan(120, K.PLAIN, False, 17, 6)
 
 
 def test_longest_resident_horizon():
@@ -85,8 +116,11 @@ def test_plan_refuses_what_is_not_built(N, nx, nu, mode):
 
 
 def test_source_constants_match_the_wrapper():
-    """The kernel source's block size and opt-in are the wrapper's."""
+    """The kernel source's block size, opt-in and soft-area words per
+    entry are the wrapper's."""
     src = K.SOURCE.read_text()
+    assert int(re.search(r"constexpr int SOFT_WORDS = (\d+);", src)[1]) \
+        == K.SOFT_WORDS == 10
     assert int(re.search(r"constexpr int THREADS = (\d+);", src)[1]) \
         == K.THREADS == 128
     assert int(re.search(r"constexpr long long SMEM_OPTIN = (\d+);",
