@@ -78,7 +78,27 @@ after:
      reach; one more word must raise), and P2, the dependent FMA chains
      (rows 6 to 32 of 128 lanes, 1 or 4 independent chains per thread),
      held to the twin at 10^3 steps and timed at 10^6 (ns per dependent
-     step, and 4 chains against 1).
+     step, and 4 chains against 1);
+ 19. (a) the blast scan (`sim/tasks.py::run_blast_scan`), bench.py's
+     eight rows: the simulation preset at N=60 on "pallas_fused" at 12
+     iterations (one fuse_lin launch per tick, the online modes' per-stage
+     parameters changing every tick), 300 ticks, the POC rows frozen at
+     the canonical pose; the gentle profile as "frozen" with the linear
+     and the exact plant POC and as "online_stagewise", the aggressive one
+     as "frozen", "online", "online_stagewise", with carry_frac 0.6, and
+     with both rules on "auto": each row's mean true-POC error from tick
+     90, its ms per tick and its jet solves' host time, and one profiler
+     window of 5 stagewise ticks; (b) bench.py's alt_overshoot_cold6_m
+     ("pallas" with the fused linearizer, 6 iterations, N=20, 200 ticks
+     from z=0.5) and fig8_cold12_settle_err_m (`run_figure8` at N=20, 12
+     iterations, 220 ticks, on "pallas": the plain kernel stands in for
+     the eager Riccati IPM of the bench's row); (c) Jacobian reuse:
+     bench.py's rt4 and rt4jr4 loops (N=20, 4 iterations, 32 ticks),
+     tests/test_sqp_sim.py's N=60 loop (60 ticks, A and B every 4th tick,
+     against every tick) and its shifted warm reuse loop (N=10, 80 ticks,
+     4 iterations, "primal": warm plain launches, K3) against the cold
+     loop, all on "pallas", and `sqp_solve` at hover (N=60, 12
+     iterations).
 
 Each phase's wall seconds and the running total are printed ("wall"
 lines). Phase 1 also prints each IPM instantiation's launch plan at N=20,
@@ -210,7 +230,30 @@ Tolerances (kernel vs plain twin, both float32 on the card):
     change moves du by 0.4-1.1 after one iteration (f32 warm solves are
     chaotic there; the JAX package's solvers differ from each other by as
     much), so the kernel is held to the twin's own spread against a copy
-    of itself started 1e-6 away (compare_warm).
+    of itself started 1e-6 away, on batches of at least 64; on smaller
+    ones (N=8, and N=10 B=1, phase 19's warm reuse loop) at the full
+    budget only (compare_warm).
+  - the fuse_lin mode with per-stage parameters (phase 2's
+    "n60_b1_stagewise": each stage's POC rows linearized at its own node
+    of the iterate, as the online_stagewise ticks give them): the fuse_lin
+    rules above;
+  - the blast rows: finite, 300 launches each, the mean true-POC error
+    within max(5e-3 m, 0.1 x the JAX package's own float32 run of the row
+    on its Riccati IPM at 12 iterations: BLAST_JAX) on both sides (the
+    port's f32 kernel and the JAX f32 Riccati IPM solve the same QPs; on
+    the CPU the JAX runs land within 3.5e-3 m of the bench's TPU rows);
+    with the exact plant and frozen POC rows the true impact point equals
+    the belief x[14:17] within 5e-5 m (the analogue of
+    tests/test_tasks.py:118-120's float64 1e-6: TRUTH_BELIEF_M);
+  - cold6 and cold12: within 5e-3 m of the JAX package's own float32
+    runs on its Riccati IPM (ALT_COLD6_JAX, FIG8_COLD12_JAX), both sides;
+  - Jacobian reuse and the SQP: tests/test_sqp_sim.py's criteria (the
+    N=60 reuse loop's final z within 0.1 m of the full loop's and its
+    Euler angles below 0.2; the warm reuse loop settles within 0.05 m of
+    z=3.5 and within 0.02 m of the cold loop; `sqp_solve`'s last step
+    norm below 1, the hover thrusts within 2e-3 relative, the swivel
+    rates inside their box (+1e-6 for f32), the gimbal below 0.02 and z
+    within 2e-2 of 2 on every node).
 """
 from __future__ import annotations
 
@@ -284,7 +327,16 @@ LONG_JAX = {
           [-0.011584, 0.0, 0.640817]]}
 BENCH_R05 = {"fig8_rt6f_settle_err_m": 0.0387,
              "fig8_cold12_settle_err_m": 0.0384,
-             "offsetfree_settle_err_m": 0.0053}
+             "offsetfree_settle_err_m": 0.0053,
+             "alt_overshoot_cold6_m": 0.0187,
+             "blast_true_poc_err_ref_m": 0.1486,
+             "blast_true_poc_err_anchored_m": 0.005,
+             "blast_true_poc_err_stagewise_m": 0.0081,
+             "blast_aggr_err_frozen_m": 0.2881,
+             "blast_aggr_err_online_m": 0.1601,
+             "blast_aggr_err_stagewise_m": 0.1386,
+             "blast_aggr_err_carry_m": 0.0236,
+             "blast_aggr_err_auto_m": 0.0236}
 LONG_TICKS = 20      # phase 15's ticks from the ground
 FIG8_TICKS = 120     # the figure-8 golden's length
 RT6F_TICKS = 220     # bench.py's fig8 rows
@@ -309,6 +361,65 @@ SWEEP_JAX = {
                     "worst_kkt_eq": 1.1862},
     "fault_offset_free": {"pos_err_m": [0.0, 0.0, 0.0, 0.0],
                           "worst_kkt_eq": 0.0}}
+# Phase 19a: bench.py's blast-scan rows (:640-700): the simulation preset
+# at N=60, 300 ticks, the POC rows frozen at the reference's canonical
+# pose; per row its scan profile, poc_mode, plant_poc and the scan's other
+# arguments. The metric is the mean true-POC error from tick 90 on.
+BLAST_TICKS = 300
+BLAST_SETTLE = 90
+BLAST_PROFILES = {"gentle": dict(z_end=1.5, t_ramp_s=6.0),
+                  "aggressive": dict(z_end=1.2, t_ramp_s=4.0, amp_x=1.1,
+                                     amp_y=0.45, period_s=24.0)}
+BLAST_ROWS = {
+    "blast_true_poc_err_ref_m": ("gentle", "frozen", "linear", {}),
+    "blast_true_poc_err_anchored_m": ("gentle", "frozen", "exact", {}),
+    "blast_true_poc_err_stagewise_m": ("gentle", "online_stagewise",
+                                       "exact", {}),
+    "blast_aggr_err_frozen_m": ("aggressive", "frozen", "exact", {}),
+    "blast_aggr_err_online_m": ("aggressive", "online", "exact", {}),
+    "blast_aggr_err_stagewise_m": ("aggressive", "online_stagewise",
+                                   "exact", {}),
+    "blast_aggr_err_carry_m": ("aggressive", "online_stagewise", "exact",
+                               {"carry_frac": 0.6}),
+    "blast_aggr_err_auto_m": ("aggressive", "auto", "exact",
+                              {"carry_frac": "auto"})}
+# The JAX package's own float32 runs of phase 19's rows on the CPU, each
+# recomputed by a test: the blast rows on its Riccati IPM at 12 iterations
+# (tests/test_torch_blast_bounds*.py), bench.py's alt_overshoot_cold6_m on
+# its Riccati IPM at 6 iterations with the fused linearizer and its
+# fig8_cold12_settle_err_m on its Riccati IPM at 12 iterations
+# (tests/test_torch_step1_bounds.py). Each is held on both sides.
+BLAST_JAX = {"blast_true_poc_err_ref_m": 0.1485,
+             "blast_true_poc_err_anchored_m": 0.005,
+             "blast_true_poc_err_stagewise_m": 0.0081,
+             "blast_aggr_err_frozen_m": 0.2874,
+             "blast_aggr_err_online_m": 0.1605,
+             "blast_aggr_err_stagewise_m": 0.1421,
+             "blast_aggr_err_carry_m": 0.0228,
+             "blast_aggr_err_auto_m": 0.0228}
+# With the exact plant the belief x[14:17] is the impact point the plant
+# solved in float32 on every state after the first; the first holds the
+# float64 solve that run_blast_scan starts from. The truth is the float32
+# solve vmapped over the trajectory. A float32 solve moves its impact
+# point by the jet's rounding: 1 - exp(-c T) at c T ~ 0.02 carries ~6e-8
+# of absolute error, which the exit speed over the drag (150 m/s) turns
+# into ~9e-6 m per ulp of exp. So the float32 truth leaves the first
+# state's z 4.3e-6 m off the float64 belief, and on the later states the
+# vmapped solve (batched matrix products) parts from the unbatched one
+# the plant ran by such steps (8.8e-6 m in 20 ticks of the aggressive
+# scan), while the unbatched solve recomputed is the belief bit for bit
+# (all three on the CPU). The largest gap seen on an H100 was 2.6e-5 m
+# (NVIDIA H100 80GB HBM3, 700 W); the limit is twice that.
+TRUTH_BELIEF_M = 5e-5
+ALT_COLD6_JAX = 0.0186
+FIG8_COLD12_JAX = 0.0388
+STEP1_BOUND_M = 5e-3
+ALT_COLD6_TICKS = ALT_TICKS
+FIG8_COLD12_TICKS = RT6F_TICKS
+RT_TICKS = 32        # bench.py's deployed latency rows (rt4, rt4jr4)
+JR_TICKS = 60        # tests/test_sqp_sim.py:207-241's reuse loop
+WARM_JR_TICKS = 80   # tests/test_sqp_sim.py:264-290's warm reuse loop
+P19_N20_ITERS = (4, SAFE_ITERS, FULL_ITERS)  # phase 19's K1 budgets at N=20
 # tests/test_scenarios.py:57-62's rotor deratings
 FAULT_DERATE = ((1.0, 1.0, 1.0, 1.0), (0.8, 0.8, 0.8, 0.8),
                 (0.7, 1.0, 1.0, 1.0), (0.85, 0.85, 1.0, 1.0))
@@ -735,7 +846,8 @@ def compare_kernel(name, qp, K, time_iters=(FULL_ITERS,),
 DIST_ROWS = (0.7, -0.5, 0.2, 0.05, -0.03, 0.01)
 
 
-def fused_case(N: int, B: int, dev, seed: int, family: str = "blaster"):
+def fused_case(N: int, B: int, dev, seed: int, family: str = "blaster",
+               stagewise: bool = False):
     """A perturbed hover iterate at N, B with the fused modes' spec
     arguments (shared rows broadcast over the batch) and the plain
     linearization of it: (ocp, stage params, xbar, ubar, x0, args, lin).
@@ -743,7 +855,9 @@ def fused_case(N: int, B: int, dev, seed: int, family: str = "blaster"):
     path's iterates are: states +-0.02 around x0 (every node its own
     linearization point), rotor thrusts +-0.5 N around hover. The
     "blaster_dist" family's stage parameters carry DIST_ROWS in rows
-    25-30."""
+    25-30. With `stagewise` each stage's POC rows are linearized at its
+    own node of the iterate, as the blast scan's online_stagewise ticks
+    give them (B=1)."""
     from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
     from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
     from mpc_blaster_tpu_torch.ocp.spec import build_spec
@@ -771,6 +885,11 @@ def fused_case(N: int, B: int, dev, seed: int, family: str = "blaster"):
     if family == "blaster_dist":
         d = torch.tensor(DIST_ROWS, dtype=torch.float32, device=dev)
         sp = torch.cat([sp, d.expand(N, 6)], -1)
+    if stagewise:
+        from mpc_blaster_tpu_torch import config as cfg
+        from mpc_blaster_tpu_torch.poc.solver import poc_stage_params_along
+        sp = poc_stage_params_along(xbar[0, :-1], sp[0, -1],
+                                    cfg.PocSolverConfig())
     xp, A, Bm = fast_linearize(xbar, ubar, sp, P, ocp.dt, family=family)
     return ocp, bc(sp), xbar, ubar, x0, args, (A, Bm, xp - xbar[:, 1:])
 
@@ -884,22 +1003,27 @@ def compare_fuse_cost(name, N, B, dev, K):
     return row
 
 
-def compare_fuse_lin(name, N, dev, K, family="blaster"):
+def compare_fuse_lin(name, N, dev, K, family="blaster", stagewise=False):
     """fuse_lin kernel with the family's prologue vs
     `fused_rti_solve_plain` (and its prologue vs `fast_linearize` of the
-    family); the report row."""
+    family), with the stage parameters of `fused_case`; the report row."""
     from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
     if family == "quad13":
         statics, sp, xbar, ubar, x0, args, (A, Bm, c) = quad13_fused_case(
             N, 1, dev, N + 2)
     else:
         ocp, sp, xbar, ubar, x0, args, (A, Bm, c) = fused_case(
-            N, 1, dev, N + 2, family)
+            N, 1, dev, N + 2, family, stagewise)
         statics = fused_dyn_statics(ocp, family=family)
     model, dt, ns = statics
     kw = dict(model=model, dt=dt, num_steps=ns)
     qp = K._fused_qp(K._fused_prep(xbar, ubar, x0, *args, None), A, Bm, c)
     row = {"case": name, "B": 1, "N": N, "family": family}
+    if stagewise:   # how far apart neighbouring stages' rows are
+        row["stage_params_min_step"] = (
+            sp[0, 1:] - sp[0, :-1]).abs().amax(-1).min().item()
+        check(row["stage_params_min_step"] > 1e-4, "every stage its own "
+              "row", case=name, min_step=row["stage_params_min_step"])
     for iters in (1, SAFE_ITERS, FULL_ITERS):
         n0 = K.fused_rti_solve.launches
         sk, lin = K.fused_rti_solve(xbar, ubar, sp, x0, *args, iters=iters,
@@ -1070,8 +1194,8 @@ def warm_gaps(a, b, qp, sel, iters) -> torch.Tensor:
 
 def compare_warm(name, mode, N, B, dev, K):
     """Warm-start kernel (K3, in one mode) vs its plain twin; the report
-    row. fuse_lin (B=1) runs its clean, poisoned and invalid problems as
-    three launches.
+    row. At B=1 (every fuse_lin row) the clean, poisoned and invalid
+    problems run as three launches.
 
     Held everywhere: the blend pointwise (0 iterations), valid=0 bit for
     bit the cold launch, finite iterates. Past the blend the clean valid
@@ -1083,9 +1207,13 @@ def compare_warm(name, mode, N, B, dev, K):
     kernel-vs-twin agreement is held to the twin's own against a copy of
     itself started from the warm state moved by 1e-6 relative (the
     within-tolerance fraction no more than 0.05 lower, on batches of at
-    least 64; reported for the others)."""
+    least 64; reported for the others). On smaller batches (N=8, and N=10,
+    phase 19's warm reuse loop) every clean problem is held to the cold
+    tolerances at FULL_ITERS, and the twin also runs on the host's CPU:
+    its distance from the card's twin (float32 rounding alone) is
+    reported beside the kernel's."""
     ocp, inp, warm, masks = warm_case(N, max(B, 3), dev, seed=N + B)
-    if mode == "fuse_lin":
+    if B == 1:
         parts = []
         for k in (0, 2, 1):   # clean, poisoned, invalid
             sl = slice(k, k + 1)
@@ -1115,6 +1243,15 @@ def compare_warm(name, mode, N, B, dev, K):
         moved = w._replace(**{f: getattr(w, f) * (1 + 1e-6)
                               for f in SLACK_DUALS})
         sel = m["clean"].nonzero().flatten()
+        # on small batches, the same twin on the host's CPU too: how far
+        # float32 rounding alone moves the warm solve (reported)
+        host = None
+        if not strict and 0 < sel.numel() < 64:
+            cpu = torch.device("cpu")
+            inp_h = {k: (tuple(a.to(cpu) for a in v) if isinstance(v, tuple)
+                         else v.to(cpu)) for k, v in inp_p.items()}
+            host = (warm_runners(mode, ocp, inp_h, K)[1],
+                    type(w)(*(t.to(cpu) for t in w)))
         for iters in (1, FASTEST_ITERS, FULL_ITERS):
             a, c = kern(iters, w), kern(iters, None)
             off = kern(iters, cold_w)
@@ -1136,6 +1273,16 @@ def compare_warm(name, mode, N, B, dev, K):
             tt = warm_gaps(q_, p_, qp, sel, iters).float().mean().item()
             row[f"within_frac_{iters}it"] = kt
             row[f"twin_self_within_frac_{iters}it"] = tt
+            if host is not None:
+                h = host[0](iters, host[1])
+                h = type(h)(*(t.to(p_.du.device) if torch.is_tensor(t)
+                              else t for t in h))
+                row[f"twin_cpu_within_frac_{iters}it"] = warm_gaps(
+                    h, p_, qp, sel, iters).float().mean().item()
+                row[f"du_gap_{iters}it"] = (
+                    a.du - p_.du)[sel].abs().max().item()
+                row[f"twin_cpu_du_gap_{iters}it"] = (
+                    h.du - p_.du)[sel].abs().max().item()
             if iters == 1 and strict:
                 errs["1it"] = max(
                     (a.du - p_.du).abs().max().item(),
@@ -1146,6 +1293,9 @@ def compare_warm(name, mode, N, B, dev, K):
                 check(kt >= tt - 0.05, "warm parity within the twin's own "
                       "spread", case=name, iters=iters, within=kt,
                       twin_self=tt)
+            elif iters == FULL_ITERS:
+                check(kt == 1.0, "warm parity at the full budget",
+                      case=name, iters=iters)
         if inp_p is parts[0][0]:
             w_ = w
             row["kernel_ms_3it"] = cuda_ms(lambda: kern(FASTEST_ITERS, w_),
@@ -1518,8 +1668,9 @@ def device_busy(fn) -> dict:
     """One `torch.profiler` window around fn(): the device's kernel time
     (the device events' time, summed as the profiler's own table sums
     it), the window's wall time (host clock, synchronised) and their
-    ratio, the busy share; None where the profiler recorded no device
-    time."""
+    ratio, the busy share (None where the profiler recorded no device
+    time); the host's aten ops (nested calls counted too) and kernel
+    launches in the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1529,11 +1680,58 @@ def device_busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA
                  and not getattr(e, "is_user_annotation", False))
     return {"device_ms": dev_us / 1e3, "wall_ms": wall_ms,
-            "busy_share": dev_us / 1e3 / wall_ms if dev_us > 0 else None}
+            "busy_share": dev_us / 1e3 / wall_ms if dev_us > 0 else None,
+            "aten_ops": sum(e.count for e in events
+                            if e.key.startswith("aten::")),
+            "kernel_launches": sum(e.count for e in events
+                                   if e.key == "cudaLaunchKernel")}
+
+
+def blast_settle_err(true_pocs: np.ndarray, refs: np.ndarray) -> float:
+    """A blast row's metric (bench.py's): the mean xy distance, from tick
+    BLAST_SETTLE on, between the true impact point after each tick and
+    that tick's POC reference."""
+    err = np.linalg.norm(true_pocs[1:, 0:2] - refs[:, 14:16], axis=1)
+    return float(err[BLAST_SETTLE:].mean())
+
+
+def blast_bound(row: str) -> float:
+    """How far a blast row may sit from the JAX run, on either side."""
+    return max(5e-3, 0.1 * BLAST_JAX[row])
+
+
+@contextlib.contextmanager
+def jet_timer():
+    """Host seconds and calls of the blast scan's jet solves: wraps the
+    POC functions of the tracking loop and of its shared online rules
+    (each looked up per call) in a host clock."""
+    from mpc_blaster_tpu_torch.sim import closedloop as CL
+    from mpc_blaster_tpu_torch.sim import tasks as TK
+    orig = {(m, n): getattr(m, n) for m, names in (
+        (CL, ("poc_stage_params", "poc_stage_params_along")),
+        (TK, ("poc_value_and_jacobians", "solve_poc"))) for n in names}
+    acc = {"s": 0.0, "calls": 0}
+
+    def wrap(fn):
+        def timed_fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            acc["s"] += time.perf_counter() - t0
+            acc["calls"] += 1
+            return out
+        return timed_fn
+    for (m, n), fn in orig.items():
+        setattr(m, n, wrap(fn))
+    try:
+        yield acc
+    finally:
+        for (m, n), fn in orig.items():
+            setattr(m, n, fn)
 
 
 def chain_case(rows: int, nchains: int, dev, seed: int):
@@ -1632,6 +1830,242 @@ def chain_bound(elements: int, steps: int) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def phase19(dev, counted, base) -> dict:
+    """Phase 19, each path with the counts at 0 (`counted`): (a) bench.py's
+    eight blast-scan rows on "pallas_fused" at 12 iterations (one K6
+    launch per tick, the per-stage parameters of the online modes
+    changing every tick), each against the JAX run and its bound, with
+    the jet solves' host time and one profiler window; (b) bench.py's
+    alt_overshoot_cold6_m (K1, the fused linearizer) and
+    fig8_cold12_settle_err_m (K1 standing in for the eager Riccati IPM);
+    (c) Jacobian reuse: bench.py's rt4 / rt4jr4 loops, the N=60 reuse loop
+    and the shifted warm reuse loop (K1 and K3 in PLAIN) of
+    tests/test_sqp_sim.py, and `sqp_solve` at hover. Returns the logged
+    rows and the launches per path."""
+    from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams,
+                                                        blaster_ode)
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    from mpc_blaster_tpu_torch.poc.solver import solve_poc, true_poc_traj
+    from mpc_blaster_tpu_torch.sim import tasks as TK
+    from mpc_blaster_tpu_torch.sim.closedloop import make_closed_loop
+    from mpc_blaster_tpu_torch.sqp import rti as R
+    out = {"blast": {}, "k1": {}, "k3": {}}
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    # 19a: the blast scan
+    pre_b = simulation_ocp(60, solver=dataclasses.replace(
+        base, qp_backend="pallas_fused", ipm_iters=FULL_ITERS))
+    N = pre_b.ocp.N
+
+    def scan(row, n):
+        prof, mode, plant, extra = BLAST_ROWS[row]
+        return TK.run_blast_scan(pre_b, n_steps=n, poc_mode=mode,
+                                 plant_poc=plant, frozen_at="canonical",
+                                 device=dev, **BLAST_PROFILES[prof], **extra)
+    for row, (prof, mode, plant, extra) in BLAST_ROWS.items():
+        with jet_timer() as jt:
+            (res, ms), c = counted(
+                {"fused_rti_solve": BLAST_TICKS}, f"blast {row}",
+                lambda: timed(lambda: scan(row, BLAST_TICKS), BLAST_TICKS),
+                instances={"fused_rti_solve[17x6 blaster]": BLAST_TICKS})
+        xs = res.xs.cpu().numpy()
+        refs = res.refs.cpu().numpy()
+        err = blast_settle_err(true_poc_traj(res.xs).cpu().numpy(), refs)
+        ok = finite(res.xs, res.us)
+        check(ok and abs(err - BLAST_JAX[row]) <= blast_bound(row),
+              "blast row vs the JAX run", row=row, err_m=err,
+              jax_m=BLAST_JAX[row], bound_m=blast_bound(row), finite=ok)
+        resolved = (TK.select_poc_mode(**BLAST_PROFILES[prof])
+                    if mode == "auto" else mode)
+        solves = ({"frozen": 0, "online": 1, "online_stagewise": N,
+                   "stagewise_anchored": N + 1}[resolved]
+                  + int(plant == "exact"))
+        r = {"row": row, "profile": prof, "poc_mode": mode,
+             "resolved_poc_mode": resolved, "plant_poc": plant, **extra,
+             "N": N, "ticks": BLAST_TICKS, "iters": FULL_ITERS,
+             "launches": c["fused_rti_solve"], "ms_per_tick": ms,
+             "jet_solves_per_tick": solves,
+             "jet_host_ms_per_tick": jt["s"] * 1e3 / BLAST_TICKS,
+             "jet_calls": jt["calls"], "true_poc_err_m": err,
+             "belief_err_m": blast_settle_err(xs[:, 14:17], refs),
+             "jax_m": BLAST_JAX[row], "bound_m": blast_bound(row),
+             "bench_r05_m": BENCH_R05[row]}
+        if plant == "exact" and mode == "frozen":
+            # the plant reports the exact impact point: truth == belief
+            gap = np.abs(true_poc_traj(res.xs).cpu().numpy() - xs[:, 14:17])
+            pc = pre_b.poc
+            solo = torch.stack([solve_poc(
+                x[3:6], x[12:14], x[0:3], pc.stream_velocity, pc.drag,
+                pc.newton_iters)[0] for x in res.xs[1:]]).cpu().numpy()
+            r.update(truth_minus_belief_m=float(gap.max()),
+                     truth_minus_belief_first_m=gap[0].tolist(),
+                     truth_minus_belief_later_m=float(gap[1:].max()),
+                     unbatched_minus_belief_later_m=float(
+                         np.abs(solo - xs[1:, 14:17]).max()))
+            check(gap.max() <= TRUTH_BELIEF_M, "truth equals belief",
+                  row=row, gap_m=float(gap.max()))
+            check(r["unbatched_minus_belief_later_m"] == 0.0,
+                  "the plant's own solve is the belief", row=row,
+                  gap_m=r["unbatched_minus_belief_later_m"])
+        out["blast"][row] = r
+        log("blast_scan", **r)
+    out["blast_launches"] = sum(r["launches"] for r in out["blast"].values())
+    prof_row = "blast_aggr_err_stagewise_m"
+    out["blast_profile"] = device_busy(lambda: scan(prof_row, 5))
+    log("blast_scan_profile", row=prof_row, ticks=5,
+        **out["blast_profile"])
+
+    # 19b: bench.py's alt_overshoot_cold6_m and fig8_cold12_settle_err_m
+    # on the plain kernel (K1)
+    def k1(path, n, fn, what, **want):
+        """Run a path of n plain-mode launches, counted; record the cold
+        ones under K1 and the warm ones under K3 (as phases 7-8 do)."""
+        res, c = counted({"box_qp_solve": n, **want}, what, fn,
+                         instances={"box_qp_solve[17x6]": n})
+        warm = c.get("box_qp_solve.warm", 0)
+        if c["box_qp_solve"] > warm:
+            out["k1"][path] = c["box_qp_solve"] - warm
+        if warm:
+            out["k3"][path] = warm
+        return res
+    pre6 = simulation_ocp(20, solver=dataclasses.replace(
+        base, qp_backend="pallas", lin_backend="fused", ipm_iters=SAFE_ITERS))
+    spec6 = build_spec(pre6.ocp, yref=pre6.loop.yref, device=dev)
+    x_alt = torch.zeros(17, device=dev)
+    x_alt[2] = 0.5
+    res, ms = k1("alt_overshoot_cold6", ALT_COLD6_TICKS, lambda: timed(
+        lambda: make_closed_loop(pre6.ocp, ALT_COLD6_TICKS)(spec6, x_alt),
+        ALT_COLD6_TICKS), "altitude step cold6")
+    over = float(max(res.xs[:, 2].max().item() - 3.5, 0.0))
+    ok = finite(res.xs)
+    check(ok and abs(over - ALT_COLD6_JAX) <= STEP1_BOUND_M,
+          "alt_overshoot_cold6 vs the JAX run", overshoot_m=over,
+          jax_m=ALT_COLD6_JAX, finite=ok)
+    out["alt_cold6"] = {"N": 20, "iters": SAFE_ITERS,
+                        "ticks": ALT_COLD6_TICKS,
+                        "launches": out["k1"]["alt_overshoot_cold6"],
+                        "ms_per_tick": ms, "overshoot_m": over,
+                        "jax_m": ALT_COLD6_JAX, "bound_m": STEP1_BOUND_M,
+                        "bench_r05_m": BENCH_R05["alt_overshoot_cold6_m"]}
+    log("alt_overshoot_cold6", **out["alt_cold6"])
+    pre12 = simulation_ocp(20, solver=dataclasses.replace(
+        base, qp_backend="pallas", ipm_iters=FULL_ITERS))
+    res, ms = k1("fig8_cold12", FIG8_COLD12_TICKS, lambda: timed(
+        lambda: TK.run_figure8(pre12, n_steps=FIG8_COLD12_TICKS,
+                               device=dev), FIG8_COLD12_TICKS),
+        "figure-8 cold12")
+    err = float(np.linalg.norm(res.xs[1:, 0:2].cpu().numpy()
+                               - res.refs[:, 0:2].cpu().numpy(),
+                               axis=1)[60:].max())
+    ok = finite(res.xs)
+    check(ok and abs(err - FIG8_COLD12_JAX) <= STEP1_BOUND_M,
+          "fig8_cold12 vs the JAX run", settle_err_m=err,
+          jax_m=FIG8_COLD12_JAX, finite=ok)
+    out["fig8_cold12"] = {"N": 20, "iters": FULL_ITERS,
+                          "ticks": FIG8_COLD12_TICKS,
+                          "launches": out["k1"]["fig8_cold12"],
+                          "ms_per_tick": ms, "settle_err_m": err,
+                          "jax_m": FIG8_COLD12_JAX,
+                          "bound_m": STEP1_BOUND_M,
+                          "bench_r05_m": BENCH_R05[
+                              "fig8_cold12_settle_err_m"],
+                          "lin_backend": pre12.ocp.solver.lin_backend}
+    log("fig8_cold12", **out["fig8_cold12"])
+
+    # 19c: Jacobian reuse. bench.py's rt4 and rt4jr4 (N=20, 4 iterations,
+    # the fused linearizer, from a draw around hover)
+    pre4 = simulation_ocp(20, solver=dataclasses.replace(
+        base, qp_backend="pallas", lin_backend="fused", ipm_iters=4))
+    spec4 = build_spec(pre4.ocp, yref=pre4.loop.yref, device=dev)
+    x_rt = torch.as_tensor(draws(1)[0], device=dev)
+    out["rt"] = {}
+    for name, jr in (("rt4", 1), ("rt4jr4", 4)):
+        res, ms = k1(name, RT_TICKS, lambda: timed(
+            lambda: make_closed_loop(pre4.ocp, RT_TICKS, jac_refresh=jr)(
+                spec4, x_rt), RT_TICKS), f"deployed loop {name}")
+        check(finite(res.xs), "deployed loop finite", case=name)
+        out["rt"][name] = {"jac_refresh": jr, "ms_per_tick": ms,
+                           "launches": out["k1"][name],
+                           "final_z": float(res.xs[-1, 2])}
+    log("jac_reuse_deployed", N=20, iters=4, ticks=RT_TICKS, **out["rt"])
+    # tests/test_sqp_sim.py:207-241: the N=60 loop from the ground, A and
+    # B refreshed every 4th tick, against every tick linearized
+    pre60 = simulation_ocp(60)
+    spec60 = build_spec(pre60.ocp, yref=pre60.loop.yref, device=dev)
+    x_g = torch.as_tensor(pre60.loop.x0, dtype=torch.float32, device=dev)
+    loops = {}
+    for name, jr in (("jr_n60_full", 1), ("jr_n60_reuse", 4)):
+        loops[name] = k1(name, JR_TICKS, lambda: timed(
+            lambda: make_closed_loop(pre60.ocp, JR_TICKS, jac_refresh=jr)(
+                spec60, x_g), JR_TICKS), f"N=60 loop {name}")
+    xf = loops["jr_n60_full"][0].xs[-1].cpu().numpy()
+    xr = loops["jr_n60_reuse"][0].xs[-1].cpu().numpy()
+    dz, eul = float(abs(xf[2] - xr[2])), float(np.abs(xr[3:6]).max())
+    ok = bool(np.isfinite(xr).all())
+    check(ok and dz < 0.1 and eul < 0.2, "the reuse loop tracks the full "
+          "loop", dz_m=dz, euler_max=eul, finite=ok)
+    out["jr_n60"] = {"dz_m": dz, "euler_max": eul,
+                     **{k: {"ms_per_tick": v[1], "final_z": float(
+                         v[0].xs[-1, 2])} for k, v in loops.items()}}
+    log("jac_reuse_n60", N=60, ticks=JR_TICKS, iters=FULL_ITERS,
+        **out["jr_n60"])
+    # tests/test_sqp_sim.py:264-290: N=10, 4 iterations, "primal",
+    # shifted, A and B every 4th tick (K3 in PLAIN), against the cold loop
+    pre10 = simulation_ocp(10)
+    spec10 = build_spec(pre10.ocp, yref=pre10.loop.yref, device=dev)
+    x_2 = torch.zeros(17, device=dev)
+    x_2[2] = 2.0
+    ocp_w = dataclasses.replace(pre10.ocp, solver=dataclasses.replace(
+        pre10.ocp.solver, ipm_iters=4, warm_mode="primal", warm_shift=True))
+    res_w, ms_w = k1("warm_jr", WARM_JR_TICKS, lambda: timed(
+        lambda: make_closed_loop(ocp_w, WARM_JR_TICKS, warm_start=True,
+                                 jac_refresh=4)(spec10, x_2), WARM_JR_TICKS),
+        "warm reuse loop", **{"box_qp_solve.warm": WARM_JR_TICKS})
+    res_c, ms_c = k1("warm_jr_cold_ref", WARM_JR_TICKS, lambda: timed(
+        lambda: make_closed_loop(pre10.ocp, WARM_JR_TICKS)(spec10, x_2),
+        WARM_JR_TICKS), "warm reuse loop's cold reference")
+    zw, zc = float(res_w.xs[-1, 2]), float(res_c.xs[-1, 2])
+    ok = finite(res_w.xs, res_c.xs)
+    check(ok and abs(zw - 3.5) < 0.05 and abs(zw - zc) < 0.02,
+          "the warm reuse loop settles", z_m=zw, cold_z_m=zc, finite=ok)
+    out["warm_jr"] = {"N": 10, "iters": 4, "ticks": WARM_JR_TICKS,
+                      "warm_launches": out["k3"]["warm_jr"],
+                      "ms_per_tick": ms_w, "final_z": zw,
+                      "cold_ms_per_tick": ms_c, "cold_final_z": zc}
+    log("warm_jac_reuse", **out["warm_jr"])
+    # sqp_solve at hover (tests/test_sqp_sim.py:17-50), 12 iterations
+    x_h = torch.zeros(17, device=dev)
+    x_h[2] = 2.0
+    yref = np.zeros(23)
+    yref[2] = 2.0
+    spec_h = build_spec(pre60.ocp, yref=yref, device=dev)
+    P = BlasterParams.from_config(pre60.ocp.model, device=dev)
+    F = discrete_dynamics(blaster_ode, pre60.ocp.dt)
+    (best, norms), ms = k1("sqp_solve", FULL_ITERS, lambda: timed(
+        lambda: R.sqp_solve(spec_h, R.init_rti_state(pre60.ocp, x_h), x_h,
+                            P, F, pre60.ocp.solver, iters=FULL_ITERS), 1),
+        "sqp_solve at hover")
+    u0 = best.ubar[0].cpu().numpy()
+    hover = (9.0 - 2.2) * 9.81 / 4.0
+    crit = {"last_step_norm": float(norms[-1]),
+            "thrust_rel_err": float(np.abs(u0[0:4] / hover - 1.0).max()),
+            "swivel_rate_max": float(np.abs(u0[4:6]).max()),
+            "gimbal_max": float(best.xbar[:, 12:14].abs().max()),
+            "z_err_max": float((best.xbar[:, 2] - 2.0).abs().max())}
+    check(finite(best.xbar, best.ubar) and crit["last_step_norm"] < 1.0
+          and crit["thrust_rel_err"] < 2e-3
+          and crit["swivel_rate_max"] <= 0.0872665 + 1e-6
+          and crit["gimbal_max"] < 0.02 and crit["z_err_max"] < 2e-2,
+          "sqp_solve reaches the hover", **crit)
+    out["sqp"] = {"N": 60, "iters": FULL_ITERS, "ms": ms,
+                  "step_norms": norms.cpu().tolist(), **crit}
+    log("sqp_solve", **out["sqp"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this "
@@ -1692,6 +2126,15 @@ def run(dev: torch.device) -> int:
                        ("n60_b1", 60, 1)):
         rows.append(compare_kernel(name, blaster_qps(N, B, dev), K))
         log("kernel_vs_plain", **rows[-1])
+    # phase 19's single-problem loops: N=20 at 4 (rt4, rt4jr4), 6 (cold6)
+    # and 12 iterations (cold12); N=10 at 12 (the warm reuse loop's cold
+    # reference)
+    rows.append(compare_kernel("n20_b1", blaster_qps(20, 1, dev), K,
+                               time_iters=P19_N20_ITERS,
+                               check_iters=(1, *P19_N20_ITERS)))
+    log("kernel_vs_plain", **rows[-1])
+    rows.append(compare_kernel("n10_b1", blaster_qps(10, 1, dev), K))
+    log("kernel_vs_plain", **rows[-1])
     qp = blaster_qps(8, 3, dev)
     inf = torch.full_like(qp.lbx, float("inf"))
     free = qp._replace(lbx=-inf, ubx=inf, ubu=torch.full_like(qp.ubu,
@@ -1707,13 +2150,18 @@ def run(dev: torch.device) -> int:
                  for n, N, B in (("n8_b3", 8, 3), ("n20_b1024", 20, BATCH))]
     for r in cost_rows:
         log("fuse_cost_vs_plain", **r)
-    lin_rows = [compare_fuse_lin(n, N, dev, K)
-                for n, N in (("n8_b1", 8), ("n20_b1", 20), ("n60_b1", 60))]
+    # the last case: the stage parameters of an online_stagewise tick,
+    # each stage its own row (phase 19's blast scan)
+    lin_rows = [compare_fuse_lin(n, N, dev, K, stagewise=sw)
+                for n, N, sw in (("n8_b1", 8, False), ("n20_b1", 20, False),
+                                 ("n60_b1", 60, False),
+                                 ("n60_b1_stagewise", 60, True))]
     for r in lin_rows:
         log("fuse_lin_vs_plain", **r)
     warm_rows = [compare_warm(n, mode, N, B, dev, K) for n, mode, N, B in (
         ("plain_n8_b3", "plain", 8, 3),
         ("plain_n20_b1024", "plain", 20, BATCH),
+        ("plain_n10_b1", "plain", 10, 1),   # phase 19's warm reuse loop
         ("fuse_cost_n8_b3", "fuse_cost", 8, 3),
         ("fuse_cost_n20_b1024", "fuse_cost", 20, BATCH),
         ("fuse_lin_n8_b1", "fuse_lin", 8, 1),
@@ -2289,6 +2737,11 @@ def run(dev: torch.device) -> int:
     log("probe_fma_chain", **probes["p2"])
     wall("18 probes")
 
+    # phase 19: the blast scan (19a), the step-1 rows (19b), Jacobian
+    # reuse and the SQP (19c)
+    p19 = phase19(dev, counted, base)
+    wall("19 blast scan, step-1 rows, Jacobian reuse, SQP")
+
     if FAILURES:
         for f in FAILURES:
             log("FAILED", **f)
@@ -2298,6 +2751,8 @@ def run(dev: torch.device) -> int:
     cost_main = next(r for r in cost_rows if r["case"] == "n20_b1024")
     lin_main = next(r for r in lin_rows if r["case"] == "n60_b1")
     lin_n20 = next(r for r in lin_rows if r["case"] == "n20_b1")  # rt6f
+    lin_stagewise = next(r for r in lin_rows
+                         if r["case"] == "n60_b1_stagewise")
     warm_main = next(r for r in warm_rows if r["case"] == "fuse_lin_n60_b1")
 
     soft_main = next(r for r in soft_rows if r["case"] == "fuse_lin_n60_b1")
@@ -2332,15 +2787,16 @@ def run(dev: torch.device) -> int:
                 "by_shape": {r["case"]: [r["kernel_ms"], r["plain_ms"]]
                              for r in rs}, **extra}
 
+    k1_19 = {f"phase19_{k}": v for k, v in p19["k1"].items()}
     report = {"kernels": [
         entry("box_qp_ipm", c3["box_qp_solve"] + c4["box_qp_solve"]
-              + sweep_launches, rows,
+              + sweep_launches + sum(k1_19.values()), rows,
               main_row, launch_bound("plain", 60, 1, FULL_ITERS),
               **launch_keys(K, 60, K.PLAIN),
               max_obj_rel_err=max(r["obj_rel_err"] for r in rows),
               launches_by_path={"batched_tick": c3["box_qp_solve"],
                                 "closed_loop": c4["box_qp_solve"],
-                                "sweeps": sweep_launches}),
+                                "sweeps": sweep_launches, **k1_19}),
         entry("box_qp_ipm_fuse_cost", fused_launches, cost_rows, cost_main,
               launch_bound("fuse_cost", 20, BATCH, FULL_ITERS),
               **launch_keys(K, 20, K.FUSE_COST),
@@ -2348,7 +2804,8 @@ def run(dev: torch.device) -> int:
               plain_ms_6it=cost_main["plain_ms_6it"],
               tick_ms={str(k): v for k, v in fused_tick_ms.items()}),
         entry("box_qp_ipm_fuse_lin",
-              lin_launches + sum(r["launches"] for r in fig8.values()),
+              lin_launches + sum(r["launches"] for r in fig8.values())
+              + p19["blast_launches"],
               lin_rows, lin_main,
               launch_bound("fuse_lin", 60, 1, FULL_ITERS),
               **launch_keys(K, 60, K.FUSE_LIN, family="blaster"),
@@ -2356,7 +2813,12 @@ def run(dev: torch.device) -> int:
               plain_ms_6it=lin_main["plain_ms_6it"],
               launches_by_path={"fused_closed_loops": lin_launches,
                                 **{f"figure8_{k}": r["launches"]
-                                   for k, r in fig8.items()}},
+                                   for k, r in fig8.items()},
+                                "phase19_blast_scan": p19["blast_launches"]},
+              stagewise=[lin_stagewise["kernel_ms"],
+                         lin_stagewise["plain_ms"]],
+              blast_ms_per_tick={k: r["ms_per_tick"]
+                                 for k, r in p19["blast"].items()},
               ms_n20_6it=lin_n20["kernel_ms_6it"],
               plain_ms_n20_6it=lin_n20["plain_ms_6it"],
               bound_ms_n20_6it=launch_bound("fuse_lin", 20, 1,
@@ -2365,7 +2827,11 @@ def run(dev: torch.device) -> int:
                   max(r["prologue_max_abs_err"].values())
                   for r in lin_rows)),
         {"name": "box_qp_ipm_warm", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES["box_qp_ipm_warm"], "launches": warm_launches,
+         "replaces": REPLACES["box_qp_ipm_warm"],
+         "launches": warm_launches + sum(p19["k3"].values()),
+         "launches_by_path": {"fuse_lin_warm_chains": warm_launches,
+                              **{f"phase19_{k}_plain": v
+                                 for k, v in p19["k3"].items()}},
          "max_abs_err": max(max(r["blend_max_abs_err"], r["max_abs_err_1it"])
                             for r in warm_rows),
          "blend_max_abs_err": max(r["blend_max_abs_err"] for r in warm_rows),

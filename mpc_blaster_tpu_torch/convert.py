@@ -1,8 +1,8 @@
 """State carried across between the JAX package and the port, as numpy.
 
 `*_from_numpy` turn the fields of a JAX container (an `OCPSpec`,
-`RTIState`, `QPData`, `IpmWarmStart`, `WatchdogState`, `SoftBounds`,
-`OffsetFreeResult` or `TrackingResult`, as numpy arrays, or a mapping of
+`RTIState`, `QPData`, `IpmWarmStart`, `WatchdogState`, `JacCache`,
+`SoftBounds`, `OffsetFreeResult` or `TrackingResult`, as numpy arrays, or a mapping of
 them) into the port's container on a device and dtype; `*_to_numpy` go
 the other way, returning a dict of numpy arrays keyed by field name (for
 `SoftBounds` a dict of such dicts, one per `SoftPenalty`). A
@@ -26,7 +26,7 @@ from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
 from mpc_blaster_tpu_torch.qp.soft import SoftBounds, SoftPenalty
 from mpc_blaster_tpu_torch.sim.scenarios import OffsetFreeResult
 from mpc_blaster_tpu_torch.sim.tasks import TrackingResult
-from mpc_blaster_tpu_torch.sqp.rti import RTIState, WatchdogState
+from mpc_blaster_tpu_torch.sqp.rti import JacCache, RTIState, WatchdogState
 
 
 def _fields(d) -> Mapping:
@@ -87,6 +87,14 @@ def watchdog_from_numpy(d, device=None, dtype=torch.float32
 
 def watchdog_to_numpy(wd: WatchdogState) -> dict:
     return _to_numpy(wd)
+
+
+def jac_cache_from_numpy(d, device=None, dtype=torch.float32) -> JacCache:
+    return _from_numpy(JacCache, d, device, dtype)
+
+
+def jac_cache_to_numpy(cache: JacCache) -> dict:
+    return _to_numpy(cache)
 
 
 def soft_from_numpy(d, device=None, dtype=torch.float32) -> SoftBounds:

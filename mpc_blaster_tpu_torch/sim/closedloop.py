@@ -1,10 +1,12 @@
 """Closed-loop NMPC simulation.
 
-Port of `mpc_blaster_tpu/sim/closedloop.py`, the frozen-POC,
-`jac_refresh=1` branches: cold ticks, warm-started ticks, and warm ticks
-under the divergence watchdog (`solver.warm_watchdog`, the chain behind
-`config.deployed_solver("fastest")`), on the `"riccati"` (the presets'
-default), `"pallas"` or deployed one-launch `"pallas_fused"` QP backend.
+Port of `mpc_blaster_tpu/sim/closedloop.py`: cold ticks, warm-started
+ticks, warm ticks under the divergence watchdog (`solver.warm_watchdog`,
+the chain behind `config.deployed_solver("fastest")`) and the
+Jacobian-reuse ticks (`jac_refresh > 1`, cold or warm), with the POC
+stage parameters frozen or re-linearized every tick ("online",
+"online_stagewise"), on the `"riccati"` (the presets' default),
+`"pallas"` or deployed one-launch `"pallas_fused"` QP backend.
 The JAX package runs the whole rollout as one `lax.scan`; here it is a
 Python loop of ticks whose tensors stay on the device of the spec (on
 CUDA the kernel backends' QP solve is one kernel launch per tick; the
@@ -24,10 +26,11 @@ from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, build_spec, total_cost
+from mpc_blaster_tpu_torch.poc.solver import (poc_stage_params,
+                                              poc_stage_params_along)
 from mpc_blaster_tpu_torch.sqp import rti as R
 from mpc_blaster_tpu_torch.sqp.rti import (RTIState, fused_dyn_statics,
-                                           init_rti_state, make_linearizer,
-                                           not_ported)
+                                           init_rti_state, make_linearizer)
 
 
 class ClosedLoopResult(NamedTuple):
@@ -38,22 +41,52 @@ class ClosedLoopResult(NamedTuple):
     kkt_eq: torch.Tensor    # (Nsim,)
 
 
+def poc_relinearizer(poc_mode: str, pc: cfg.PocSolverConfig):
+    """f(stage_params, x, xbar) -> the (N, np) stage parameters of one tick
+    under `poc_mode`: "frozen" keeps `stage_params`; "online"
+    re-linearizes the jet at the live pose x (one solve, every stage the
+    same row); "online_stagewise" linearizes stage k at its predicted
+    pose xbar[k] (N solves in one vmap). T_blast is kept."""
+    if poc_mode == "online":
+        def f(stage_params, x, xbar):
+            return poc_stage_params(x, stage_params[0, -1], pc).expand(
+                stage_params.shape[0], -1)
+    elif poc_mode == "online_stagewise":
+        def f(stage_params, x, xbar):
+            return poc_stage_params_along(xbar[:-1], stage_params[0, -1],
+                                          pc)
+    elif poc_mode == "frozen":
+        def f(stage_params, x, xbar):
+            return stage_params
+    else:
+        raise ValueError(f"unknown poc_mode {poc_mode!r}")
+    return f
+
+
 def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
                 plant_params: Optional[torch.Tensor] = None,
                 dtype=torch.float32, plant_substeps: int = 1,
                 rti0: Optional[RTIState] = None,
                 poc_mode: str = "frozen",
+                poc_cfg: Optional[cfg.PocSolverConfig] = None,
                 warm_start: bool = False,
                 jac_refresh: int = 1) -> ClosedLoopResult:
     """Run `n_steps` control ticks from x0 on the spec's device.
 
-    poc_mode="frozen" keeps the spec's stage parameters for the whole run
-    (the reference computes its POC Jacobians once before the loop).
+    poc_mode: "frozen" keeps the spec's stage parameters for the whole run
+    (the reference computes its POC Jacobians once before the loop);
+    "online" re-linearizes the jet POC Jacobians at the current pose every
+    tick (one jet solve, every stage the same row); "online_stagewise"
+    linearizes stage k at its predicted pose xbar[k] (N jet solves in one
+    vmap). `poc_cfg` sets the jet (default `PocSolverConfig()`).
     warm_start=True carries IPM slack/dual warm starts between ticks
     (`rti_step_warm`), under the watchdog when `solver.warm_watchdog`
     (`rti_step_warm_guarded`); pair it with a reduced `solver.ipm_iters`
     and `solver.warm_shift=True` (raw unshifted chains degrade on
-    transients).
+    transients). jac_refresh > 1 re-linearizes the dynamics only every
+    jac_refresh-th tick and keeps the shooting defects exact on every
+    tick (`rti_step_jacreuse`, or `rti_step_warm_jacreuse` with
+    warm_start).
     """
     # One substep count feeds both the forward map and the linearizer.
     ctrl_substeps = 1
@@ -66,16 +99,12 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
         raise ValueError("jac_refresh>1 is not supported with "
                          "qp_backend='pallas_fused' (the fused kernel "
                          "re-linearizes in-kernel every tick)")
-    if poc_mode in ("online", "online_stagewise"):
-        raise not_ported(f"poc_mode={poc_mode!r}", "online")
-    if poc_mode != "frozen":
-        raise ValueError(f"unknown poc_mode {poc_mode!r}")
+    stage_params_for = poc_relinearizer(poc_mode,
+                                        poc_cfg or cfg.PocSolverConfig())
     if warm_start and solver.warm_watchdog and jac_refresh > 1:
         raise ValueError("warm_watchdog does not compose with "
                          "jac_refresh>1 (the guarded tick has no "
                          "jac-reuse variant); use jac_refresh=1")
-    if jac_refresh > 1:
-        raise not_ported("jac_refresh>1", "jac_refresh")
     device = spec.Q.device
     params = BlasterParams.from_config(ocp.model, dtype, device)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=ctrl_substeps)
@@ -91,29 +120,42 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
     plant_params = torch.as_tensor(plant_params, dtype=dtype, device=device)
     state = rti0 if rti0 is not None else init_rti_state(ocp, x, dtype)
     guarded = warm_start and solver.warm_watchdog
+    nx, nu = x.shape[-1], state.ubar.shape[-1]
     if warm_start:
-        warm = R.IpmWarmStart.zeros(spec.horizon, x.shape[-1],
-                                    state.ubar.shape[-1], dtype, device)
+        warm = R.IpmWarmStart.zeros(spec.horizon, nx, nu, dtype, device)
         wd = R.WatchdogState.init(dtype, device)
+    if jac_refresh > 1:
+        cache = R.JacCache.zeros(spec.horizon, nx, nu, dtype, device)
     kw = dict(linearizer=lin, dyn_statics=dyn)
 
     xs, us, costs, stats, eqs = [x], [], [], [], []
-    for _ in range(n_steps):
+    for k in range(n_steps):
+        spec_t = spec._replace(stage_params=stage_params_for(
+            spec.stage_params, x, state.xbar))
+        refresh = k % jac_refresh == 0
         # the tick functions are looked up per call, so a caller can wrap
         # them (chip_smoke.py reads the watchdog's trips this way)
-        if guarded:
+        if warm_start and jac_refresh > 1:
+            u0, state, warm, cache, diag = R.rti_step_warm_jacreuse(
+                spec_t, state, warm, cache, refresh, x, params, F, solver,
+                linearizer=lin)
+        elif guarded:
             u0, state, warm, wd, diag = R.rti_step_warm_guarded(
-                spec, state, warm, wd, x, params, F, solver, **kw)
+                spec_t, state, warm, wd, x, params, F, solver, **kw)
         elif warm_start:
             u0, state, warm, diag = R.rti_step_warm(
-                spec, state, warm, x, params, F, solver, **kw)
+                spec_t, state, warm, x, params, F, solver, **kw)
+        elif jac_refresh > 1:
+            u0, state, cache, diag = R.rti_step_jacreuse(
+                spec_t, state, cache, refresh, x, params, F, solver,
+                linearizer=lin)
         else:
-            u0, state, diag = R.rti_step(spec, state, x, params, F, solver,
-                                         **kw)
+            u0, state, diag = R.rti_step(spec_t, state, x, params, F,
+                                         solver, **kw)
         x = F_plant(x, u0, plant_params, params)
         xs.append(x)
         us.append(u0)
-        costs.append(total_cost(spec, state.xbar, state.ubar))
+        costs.append(total_cost(spec_t, state.xbar, state.ubar))
         stats.append(diag.qp_kkt_stat)
         eqs.append(diag.qp_kkt_eq)
     return ClosedLoopResult(xs=torch.stack(xs), us=torch.stack(us),
@@ -124,12 +166,14 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
 
 def make_closed_loop(ocp: cfg.OCPConfig, n_steps: int, dtype=torch.float32,
                      plant_substeps: int = 1, poc_mode: str = "frozen",
+                     poc_cfg: Optional[cfg.PocSolverConfig] = None,
                      warm_start: bool = False, jac_refresh: int = 1):
     """Closed-loop runner `run(spec, x0)` with static configuration."""
     def run(spec: OCPSpec, x0):
         return closed_loop(spec, ocp, x0, n_steps, dtype=dtype,
                            plant_substeps=plant_substeps, poc_mode=poc_mode,
-                           warm_start=warm_start, jac_refresh=jac_refresh)
+                           poc_cfg=poc_cfg, warm_start=warm_start,
+                           jac_refresh=jac_refresh)
     return run
 
 
@@ -164,15 +208,17 @@ def run_preset(preset: cfg.Preset, n_steps: Optional[int] = None,
     """Reproduce a reference entry point end to end on `device`.
 
     with_poc=True computes the POC Jacobians through the jet solver first,
-    as the reference's simulation entry point does. Cold ticks, as in the
-    JAX package: a warm loop is `make_closed_loop(ocp, n,
-    warm_start=True)`."""
+    as the reference's simulation entry point does; poc_mode="online"
+    re-linearizes them at the live pose every tick, with the preset's jet
+    (`preset.poc`). Cold ticks, as in the JAX package: a warm loop is
+    `make_closed_loop(ocp, n, warm_start=True)`."""
     n = n_steps if n_steps is not None else preset.loop.n_steps
     device = resolve_device(device)
     if stage_params is None and (with_poc or poc_mode == "online"):
         stage_params = preset_stage_params(preset, dtype, device)
     spec = build_spec(preset.ocp, yref=preset.loop.yref,
                       stage_params=stage_params, dtype=dtype, device=device)
-    run = make_closed_loop(preset.ocp, n, dtype=dtype, poc_mode=poc_mode)
+    run = make_closed_loop(preset.ocp, n, dtype=dtype, poc_mode=poc_mode,
+                           poc_cfg=preset.poc)
     return run(spec, torch.as_tensor(preset.loop.x0, dtype=dtype,
                                      device=device))

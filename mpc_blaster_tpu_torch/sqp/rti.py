@@ -18,12 +18,17 @@ ticks (`rti_step_warm`, kernel K3 on the two kernel backends), optionally
 under the online divergence watchdog (`rti_step_warm_guarded`, the chain
 behind `config.deployed_solver("fastest")`), or with soft state bounds
 (`rti_step_soft`: `qp/soft.py` on "riccati", kernel K4 on the two kernel
-backends). Everything else (the condensed backend, Jacobian reuse) raises
+backends). The Jacobian-reuse ticks (`rti_step_jacreuse`,
+`rti_step_warm_jacreuse`) refresh A and B only on the ticks the caller
+names and keep the shooting defects exact on every tick; `sqp_solve` runs
+several full Gauss-Newton iterations at a fixed x0 and keeps the best
+iterate by an L1 merit. The condensed backend raises
 `NotImplementedError` naming the ROADMAP item that ports it; the port
 never switches a backend by itself.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -34,7 +39,7 @@ from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import (discrete_dynamics,
                                                         discrete_jacobians)
-from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
+from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, total_cost
 from mpc_blaster_tpu_torch.qp.data import QPData
 from mpc_blaster_tpu_torch.qp.ipm import (IpmWarmStart, box_qp_solve,
                                           warm_start_from,
@@ -46,11 +51,6 @@ from mpc_blaster_tpu_torch.qp.soft import (SoftBounds, SoftQPSolution,
 # What ports each option outside the slice (ROADMAP.md, queue 1 / 2).
 _TODO = {
     "condensed": "queue 1 item 12 (qp/condense.py)",
-    "online": "queue 1 item 8 (online POC re-linearization)",
-    "jac_refresh": "queue 1 item 12 (Jacobian-reuse ticks)",
-    "blast_scan": "queue 1 item 11 (the blast scan with the online POC "
-                  "modes, plant_poc='exact', select_poc_mode / "
-                  "select_carry_frac)",
 }
 QP_BACKENDS = ("riccati", "pallas", "pallas_fused")
 
@@ -247,6 +247,15 @@ def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
     return spec.R + torch.diag_embed(torch.clamp(fl - d, min=0.0))
 
 
+def _linearize(spec, state, F, params, linearizer):
+    """(x_next, A, B) at every node of the iterate: the `linearizer` hook
+    where given, else jacfwd over the nodes."""
+    if linearizer is not None:
+        return linearizer(state.xbar, state.ubar, spec.stage_params)
+    return _linearize_nodes(F, state.xbar, state.ubar, spec.stage_params,
+                            params)
+
+
 def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
              params: BlasterParams, linearizer=None, solver=None) -> QPData:
     """Linearize dynamics + cost around the iterate -> delta-form QP.
@@ -254,12 +263,14 @@ def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
     `(xbar, ubar, stage_params) -> (x_next, A, B)` callable (the
     component-form backend, `dynamics/fastlin.py`). `solver` feeds the
     optional QP-only Hessian floor."""
+    x_pred, A, B = _linearize(spec, state, F, params, linearizer)
+    return _assemble_qp(spec, state, x0, x_pred, A, B, solver)
+
+
+def _assemble_qp(spec, state, x0, x_pred, A, B, solver) -> QPData:
+    """The delta-form QP of an iterate from its forward map and
+    Jacobians."""
     xbar, ubar = state.xbar, state.ubar
-    if linearizer is not None:
-        x_pred, A, B = linearizer(xbar, ubar, spec.stage_params)
-    else:
-        x_pred, A, B = _linearize_nodes(F, xbar, ubar, spec.stage_params,
-                                        params)
     c = x_pred - xbar[1:]                       # shooting defects
 
     N = spec.horizon
@@ -277,6 +288,47 @@ def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
         lbu=spec.lbu[None] - ubar, ubu=spec.ubu[None] - ubar,
         dx0=x0 - xbar[0],
     )
+
+
+class JacCache(NamedTuple):
+    """The dynamics Jacobians the Jacobian-reuse ticks carry between
+    refreshes."""
+
+    A: torch.Tensor  # (N, nx, nx)
+    B: torch.Tensor  # (N, nx, nu)
+
+    @staticmethod
+    def zeros(N, nx, nu, dtype=torch.float32, device=None) -> "JacCache":
+        device = resolve_device(device)
+        return JacCache(A=torch.zeros(N, nx, nx, dtype=dtype, device=device),
+                        B=torch.zeros(N, nx, nu, dtype=dtype, device=device))
+
+
+def build_qp_jacreuse(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
+                      params: BlasterParams, cache: JacCache, refresh: bool,
+                      linearizer=None, solver=None) -> tuple:
+    """`build_qp` with optional Jacobian reuse (the reference's
+    `sim_method_jac_reuse` option). With `refresh` the QP is `build_qp`'s
+    and its A, B become the new cache; otherwise A and B come from
+    `cache` and only the forward map runs, so the shooting defects stay
+    exact and only the Gauss-Newton model is stale. Returns (QPData,
+    new cache).
+
+    The JAX package branches with `lax.cond` on a traced flag. Here
+    `refresh` is a Python bool (the loop's tick counter decides it): a
+    device tensor would cost a host sync per tick or both branches, so it
+    is refused."""
+    if not isinstance(refresh, bool):
+        raise TypeError("refresh must be a Python bool (the tick counter's "
+                        f"decision), not {type(refresh).__name__}")
+    if refresh:
+        x_pred, A, B = _linearize(spec, state, F, params, linearizer)
+    else:
+        x_pred = vmap(lambda x, u, p: F(x, u, p, params))(
+            state.xbar[:-1], state.ubar, spec.stage_params)
+        A, B = cache.A, cache.B
+    return (_assemble_qp(spec, state, x0, x_pred, A, B, solver),
+            JacCache(A=A, B=B))
 
 
 def _check_backend(solver: cfg.SolverConfig):
@@ -386,6 +438,47 @@ def shift_state(state: RTIState) -> RTIState:
     return RTIState(
         xbar=torch.cat([state.xbar[1:], state.xbar[-1:]], 0),
         ubar=torch.cat([state.ubar[1:], state.ubar[-1:]], 0))
+
+
+def rti_step_jacreuse(spec: OCPSpec, state: RTIState, cache: JacCache,
+                      refresh: bool, x0: torch.Tensor,
+                      params: BlasterParams, F, solver: cfg.SolverConfig,
+                      linearizer=None):
+    """RTI tick with Jacobian reuse (`build_qp_jacreuse`), solved by the
+    configured backend (on "pallas" one plain kernel launch: stale A and
+    B with exact c are still a plain QP). Returns (u0, state, cache,
+    diag)."""
+    qp, cache = build_qp_jacreuse(spec, state, x0, F, params, cache,
+                                  refresh, linearizer=linearizer,
+                                  solver=solver)
+    new_state, diag = _update(spec, state, solve_qp_backend(qp, solver))
+    return new_state.ubar[0], new_state, cache, diag
+
+
+def rti_step_warm_jacreuse(spec: OCPSpec, state: RTIState,
+                           warm: IpmWarmStart, cache: JacCache,
+                           refresh: bool, x0: torch.Tensor,
+                           params: BlasterParams, F,
+                           solver: cfg.SolverConfig, linearizer=None):
+    """The slack/dual warm chain of `rti_step_warm` (its conditioning and
+    shift) on a Jacobian-reuse tick. When the iterate is time-shifted the
+    cache rows shift with it (stage k's new linearization point is the old
+    stage k+1). Returns (u0, new_state, warm_out, new_cache, diag)."""
+    qp, cache = build_qp_jacreuse(spec, state, x0, F, params, cache,
+                                  refresh, linearizer=linearizer,
+                                  solver=solver)
+    sol = solve_qp_backend(qp, solver, warm=warm)
+    new_state, diag = _update(spec, state, sol)
+    u0 = new_state.ubar[0]
+    warm_out = warm_start_from(sol, shift=solver.warm_shift)
+    if solver.warm_mode != "full":
+        warm_out = warm_start_recenter(warm_out, mu0=solver.ipm_mu0,
+                                       mode=solver.warm_mode)
+    if solver.warm_shift:
+        new_state = shift_state(new_state)
+        cache = JacCache(A=torch.cat([cache.A[1:], cache.A[-1:]], 0),
+                         B=torch.cat([cache.B[1:], cache.B[-1:]], 0))
+    return u0, new_state, warm_out, cache, diag
 
 
 class WatchdogState(NamedTuple):
@@ -536,3 +629,47 @@ def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
                         dyn_statics=dyn)
 
     return step
+
+
+@dataclasses.dataclass(frozen=True)
+class RTIController:
+    """The static configuration of a controller; `make()` builds its
+    tick (`make_rti_step`) on `device`."""
+
+    ocp: cfg.OCPConfig
+    dtype: torch.dtype = torch.float32
+    num_steps: int = 1  # integrator substeps per shooting node
+    device: object = None
+
+    def make(self):
+        return make_rti_step(self.ocp, dtype=self.dtype,
+                             num_steps=self.num_steps, device=self.device)
+
+
+def sqp_solve(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
+              params: BlasterParams, F, solver: cfg.SolverConfig,
+              iters: int = 10, linearizer=None):
+    """Multi-iteration SQP at a fixed x0 (the reference's `SQP` mode:
+    `iters` full Gauss-Newton steps). Returns the best iterate by the L1
+    exact-penalty merit (the true cost + 1e4 |dynamics defect|_1) and the
+    step norms of u per iteration. In f32, full steps on states pinned at
+    their bounds limit-cycle in the near-free gimbal subspace, so the last
+    iterate is a lottery; the best one never gets worse with more
+    iterations. The selection stays on the device (no host sync)."""
+    def merit(st):
+        xs_next = vmap(lambda x, u, p: F(x, u, p, params))(
+            st.xbar[:-1], st.ubar, spec.stage_params)
+        defect = ((xs_next - st.xbar[1:]).abs().sum()
+                  + (st.xbar[0] - x0).abs().sum())
+        return total_cost(spec, st.xbar, st.ubar) + 1e4 * defect
+
+    best, best_m, st, norms = state, merit(state), state, []
+    for _ in range(iters):
+        _, st, diag = rti_step(spec, st, x0, params, F, solver,
+                               linearizer=linearizer)
+        m = merit(st)
+        better = m < best_m
+        best = _select(better, st, best)
+        best_m = torch.where(better, m, best_m)
+        norms.append(diag.step_norm_u)
+    return best, torch.stack(norms)

@@ -4,7 +4,8 @@ loop with Pallas in interpret mode, and on the presets' own default
 `"riccati"` against the JAX loop in float64; the numpy round trips of
 `convert.py`; that the port imports nothing of JAX or of the JAX package;
 that its own copy of the config matches the JAX package's field by field;
-and that options outside the slice are refused rather than silently
+that the loop entry points take their arguments in the JAX package's
+order; and that options outside the slice are refused rather than silently
 switched.
 """
 import dataclasses
@@ -289,11 +290,21 @@ def test_out_of_slice_options_refused():
     ocp = pre.ocp
     spec = build_spec(ocp, device=DEV)
     x0 = torch.zeros(cfg.NX)
-    # warm chains with Jacobian reuse (rti_step_warm_jacreuse) stay out
-    _refused(lambda: closed_loop(spec, ocp, x0, 1, warm_start=True,
-                                 jac_refresh=2))
-    _refused(lambda: closed_loop(spec, ocp, x0, 1, poc_mode="online"))
-    _refused(lambda: closed_loop(spec, ocp, x0, 1, jac_refresh=2))
+    # ported with the blast scan: the online POC modes and the
+    # Jacobian-reuse ticks, cold and warm (rti_step_warm_jacreuse), run on
+    # the kernel backend's CPU twin; tests/test_torch_online_loop.py and
+    # tests/test_torch_jacreuse.py hold them against the JAX package
+    for kw in (dict(warm_start=True, jac_refresh=2),
+               dict(poc_mode="online"), dict(poc_mode="online_stagewise"),
+               dict(jac_refresh=2)):
+        res = closed_loop(spec, ocp, x0, 3, **kw)
+        assert res.xs.shape == (4, cfg.NX), kw
+        assert torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()
+    # the watchdog has no Jacobian-reuse tick
+    with pytest.raises(ValueError, match="jac_refresh"):
+        closed_loop(spec, dataclasses.replace(ocp, solver=dataclasses.replace(
+            ocp.solver, warm_watchdog=True)), x0, 1, warm_start=True,
+            jac_refresh=2)
     _refused(lambda: solve_qp_backend(None, dataclasses.replace(
         ocp.solver, qp_backend="condensed"), warm=object()))
     # ported in the soft slice: the soft tick and the batched "xla" tick
@@ -320,3 +331,37 @@ def test_out_of_slice_options_refused():
                                               device=DEV),
                          x0[None].repeat(2, 1))
         assert u0s.shape == (2, cfg.NU) and torch.isfinite(u0s).all()
+
+
+def test_loop_signatures_follow_jax():
+    """`closed_loop` and `make_closed_loop` take the JAX package's
+    arguments in its order (`poc_cfg` between `poc_mode` and
+    `warm_start`), so a positional call binds as it does there: a
+    positional `make_closed_loop` equals the keyword call."""
+    import inspect
+    from mpc_blaster_tpu.sim import closedloop as J
+    from mpc_blaster_tpu_torch import config as tcfg
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    from mpc_blaster_tpu_torch.sim import closedloop as T
+    for name in ("closed_loop", "make_closed_loop"):
+        jp = list(inspect.signature(getattr(J, name)).parameters)
+        tp = list(inspect.signature(getattr(T, name)).parameters)
+        assert tp == jp, (name, tp, jp)
+    assert "device" in inspect.signature(T.run_preset).parameters
+    pre = tcfg.simulation_preset()
+    ocp = dataclasses.replace(pre.ocp, N=8, Tf=8 / 30.0)
+    spec = build_spec(ocp, yref=pre.loop.yref, dtype=torch.float64,
+                      device=DEV)
+    x0 = torch.zeros(cfg.NX, dtype=torch.float64)
+    x0[2] = 3.0
+    pc = tcfg.PocSolverConfig(stream_velocity=120.0)
+    a = T.make_closed_loop(ocp, 2, torch.float64, 1, "online", pc, True,
+                           2)(spec, x0)
+    b = T.make_closed_loop(ocp, 2, dtype=torch.float64, poc_mode="online",
+                           poc_cfg=pc, warm_start=True,
+                           jac_refresh=2)(spec, x0)
+    c = T.make_closed_loop(ocp, 2, dtype=torch.float64, poc_mode="online",
+                           warm_start=True, jac_refresh=2)(spec, x0)
+    assert torch.equal(a.xs, b.xs) and torch.equal(a.us, b.us)
+    # the jet of poc_cfg is the one the online mode linearizes
+    assert not torch.equal(a.xs, c.xs)

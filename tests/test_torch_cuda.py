@@ -7,7 +7,8 @@ semantics; the soft-bound instantiations (K4) of the plain and fuse_lin
 modes, with the all-hard case against the hard kernel; the instantiations
 for other models: the plain mode at 13x4 (the quad13 model) and the
 fuse_lin mode with the "quad13" and "blaster_dist" prologues; the
-plain mode at long horizons (K7, N=120 and 240); the fuse_lin mode over a
+fuse_lin mode with stage parameters that differ from stage to stage (the
+blast scan's online_stagewise ticks); the plain mode at long horizons (K7, N=120 and 240); the fuse_lin mode over a
 batch with one spec per problem (K6 at B > 1); the launch plan (the
 library's `box_qp_ipm_plan` against `launch_plan`, and a launch of each
 layout, resident and global, against its twin and counted in
@@ -438,6 +439,30 @@ def test_fuse_lin_blaster_dist_kernel_matches_plain_on_gpu(cuda_device,
     spl, lin_p = K.fused_rti_solve_plain(xbar, ubar, sp, x0, *args, **kw)
     qp = _fused_qp((xbar, ubar, x0, args), *lin_p[:2], lin_p[2])
     _solve_check(sk, spl, lin_k, lin_p, qp, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 12])
+def test_fuse_lin_stagewise_kernel_matches_plain_on_gpu(cuda_device, iters):
+    """K6 with stage parameters that differ from stage to stage, as the
+    blast scan's online_stagewise ticks give it: each node's POC rows
+    linearized at its own pose of the iterate."""
+    from mpc_blaster_tpu_torch.poc.solver import poc_stage_params_along
+    ocp, spec, xbar, ubar, x0, args = _fused_inputs(cuda_device, B=1, N=60)
+    model, dt, ns = fused_dyn_statics(ocp)
+    sp = poc_stage_params_along(xbar[0, :-1], spec.stage_params[0, -1],
+                                cfg.PocSolverConfig())[None]
+    assert (sp[0, 1:] - sp[0, :-1]).abs().amax(-1).min().item() > 1e-4
+    kw = dict(model=model, dt=dt, num_steps=ns, iters=iters,
+              return_lin=True)
+    n0 = K.fused_rti_solve.launches
+    sk, lin_k = K.fused_rti_solve(xbar, ubar, sp, x0, *args, **kw)
+    torch.cuda.synchronize()
+    assert K.fused_rti_solve.launches == n0 + 1
+    spl, lin_p = K.fused_rti_solve_plain(xbar, ubar, sp, x0, *args, **kw)
+    qp = _fused_qp((xbar, ubar, x0, args), *lin_p[:2], lin_p[2])
+    _solve_check(sk, spl, lin_k, lin_p, qp, iters)
+    torch.testing.assert_close(sk.kkt_eq, spl.kkt_eq, rtol=0.2, atol=1e-3)
 
 
 @pytest.mark.cuda

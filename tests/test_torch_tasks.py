@@ -1,8 +1,9 @@
 """Port parity of `sim/tasks.py` against the JAX package: the figure-8
 references, the frozen-POC tracking loop cold and warm, `run_figure8`
 (and, marked slow, its 120 ticks against tests/golden/figure8_120.npz),
-`run_blasting`, the refusals of the blast-scan slice, and the number
-chip_smoke.py's fig8_rt6f phase is held to.
+`run_blasting`, a tick of each of the blast scan's POC modes (its
+refusals of unknown modes), and the number chip_smoke.py's fig8_rt6f
+phase is held to.
 
 Tolerances and why:
   - `figure8_refs`: exact (the same numpy formulas);
@@ -30,6 +31,7 @@ from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.convert import (spec_from_numpy,
                                            tracking_from_numpy,
                                            tracking_to_numpy)
+from mpc_blaster_tpu_torch.ocp.spec import build_spec
 from mpc_blaster_tpu_torch.sim import tasks as TK
 
 
@@ -102,18 +104,31 @@ def test_run_blasting_matches_jax_f64():
 
 
 def test_blast_scan_slice_refused():
-    ocp = cfg.simulation_preset().ocp
+    """The blast scan's slice is ported: its online POC modes and the
+    exact plant POC run (a tick each at N=8 on "riccati"; tests/
+    test_torch_blast.py holds them against the JAX package), its helpers
+    answer, and only unknown modes are refused."""
+    pre = cfg.simulation_preset()
+    ocp = dataclasses.replace(pre.ocp, N=8, Tf=8 / 30.0)
+    spec = build_spec(ocp, dtype=torch.float64, device=DEV)
+    refs = TK.blast_scan_refs(1 + 8 + 1, ocp.dt)
+    x0 = np.zeros(17)
+    x0[2] = 3.5
     for mode in ("online", "online_stagewise", "stagewise_anchored"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            TK.make_tracking_loop(ocp, 2, poc_mode=mode)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TK.make_tracking_loop(ocp, 2, plant_poc="exact")
-    for fn in (TK.blast_scan_refs, TK.select_poc_mode, TK.select_carry_frac,
-               TK.run_blast_scan):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            fn()
+        res = TK.make_tracking_loop(ocp, 1, dtype=torch.float64,
+                                    poc_mode=mode, plant_poc="exact")(
+            spec, x0, refs)
+        assert torch.isfinite(res.xs).all(), mode
+        assert abs(float(res.xs[1, 16])) < 1e-9   # the POC on the ground
+    assert TK.select_poc_mode() == "frozen"
+    assert TK.select_carry_frac() == 0.0
+    res = TK.run_blast_scan(dataclasses.replace(pre, ocp=ocp), n_steps=1,
+                            dtype=torch.float64, device=DEV)
+    assert res.xs.shape == (2, 17) and torch.isfinite(res.xs).all()
     with pytest.raises(ValueError, match="poc_mode"):
         TK.make_tracking_loop(ocp, 2, poc_mode="live")
+    with pytest.raises(ValueError, match="plant_poc"):
+        TK.make_tracking_loop(ocp, 2, plant_poc="measured")
 
 
 def jax_fig8_rt6_err() -> float:
