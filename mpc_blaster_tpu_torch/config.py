@@ -113,9 +113,10 @@ class SolverConfig:
 
     The reference fixes SQP_RTI + PARTIAL_CONDENSING_HPIPM with
     `qp_solver_iter_max=500` and NLP tolerances 1e-6
-    (`blastermodel.py:272-287`). On TPU the iteration budget must be static:
-    ``ipm_iters`` interior-point iterations are always run (lax.scan), and
-    the best iterate by KKT merit is returned, so extra iterations past
+    (`blastermodel.py:272-287`). Here the iteration budget is static:
+    ``ipm_iters`` interior-point iterations are always run (in the
+    kernel's loop, or the eager solvers' Python loop), and the best
+    iterate by KKT merit is returned, so extra iterations past
     convergence are harmless (see `qp/ipm.py`).
 
     The ``tol_*`` fields are the acceptance thresholds of the acados JSON's
@@ -136,7 +137,8 @@ class SolverConfig:
     # partial condensing with block size cond_M (qp/condense.py, the
     # HPIPM cond_N = N/cond_M capability: shorter sequential chain,
     # denser matmuls).
-    # "pallas" = the fused whole-IPM TPU mega-kernel (ops/pallas_ipm.py);
+    # "pallas" = the box-QP IPM kernel K1, one launch for the whole IPM
+    # (csrc/box_qp_ipm.cu via ops/box_qp_ipm.py; the twin on the CPU);
     # "pallas_fused" = the SINGLE-KERNEL RTI tick: RK4 linearization runs
     # inside the IPM kernel too (B=1 BLASTER latency path; needs
     # dyn_statics — make_rti_step/closed_loop wire it automatically).
@@ -379,30 +381,30 @@ def smoke_preset() -> Preset:
 
 
 def deployed_solver(profile: str = "safe") -> SolverConfig:
-    """Hardware-validated deployment solver profiles (bench.py rows,
-    v5e, N=20; all pass the altitude-step transient stress and match or
-    beat the 12-iteration reference-quality figure-8 error). All three
-    run the SINGLE-KERNEL fused RTI tick (qp_backend="pallas_fused":
-    RK4 linearization inside the IPM kernel, zero inter-kernel dispatch;
-    measured fig8 parity 0.0388 m == the two-kernel path):
+    """Deployment solver profiles (the JAX package's bench rows at N=20;
+    all pass the altitude-step transient stress and match or beat the
+    12-iteration figure-8 error). All three run the single-launch fused
+    RTI tick (qp_backend="pallas_fused": the RK4 linearization inside
+    the IPM kernel, `csrc/box_qp_ipm.cu` in its FUSE_LIN mode):
 
-    - "safe":    cold 6-iteration fused ticks — 1906 Hz. The most
-                 conservative profile; mirrors the reference's HPIPM
-                 `qp_solver_warm_start=0` + generous iterations.
-    - "fast":    cold 4-iteration — ~2500 Hz at identical measured
-                 quality (two-kernel: fig8 0.0387 vs 0.0388 m).
-    - "fastest": 3-iteration shifted primal-recentered warm chain —
-                 2904 Hz AND the best figure-8 error measured
-                 (0.0324 m two-kernel). Requires a warm loop
-                 (closed_loop / make_tracking_loop with
-                 warm_start=True) so the slack/dual state threads
-                 between ticks. Since r4 it carries the ONLINE
-                 divergence watchdog (warm_watchdog=True,
+    - "safe":    cold 6-iteration fused ticks. The most conservative
+                 profile; mirrors the reference's HPIPM
+                 `qp_solver_warm_start=0` with generous iterations.
+    - "fast":    cold 4-iteration fused ticks.
+    - "fastest": 3-iteration shifted primal-recentered warm chain.
+                 Requires a warm loop (closed_loop / make_tracking_loop
+                 with warm_start=True) so the slack/dual state threads
+                 between ticks, and carries the online divergence
+                 watchdog (warm_watchdog=True,
                  `sqp/rti.py::rti_step_warm_guarded`): a tick whose
                  KKT-eq residual jumps past 30x the chain's running
-                 level is recomputed cold in-place, so the profile is
-                 safe BY CONSTRUCTION, not only by the offline
-                 altitude-step stress gate.
+                 level is recomputed cold in place.
+
+    On the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5,
+    `chip_smoke.py`): the "safe" closed loop at N=60 takes 9.69 ms a
+    tick and bench.py's fig8_rt6f loop (the "safe" budget at N=20) 6.05
+    ms; "fastest" at N=60 takes 10.2-11.2 ms a tick (the tick and the
+    watchdog's redo launch). "fast" has not been timed as a loop.
     """
     base = dict(qp_backend="pallas_fused", lin_backend="fused")
     if profile == "safe":

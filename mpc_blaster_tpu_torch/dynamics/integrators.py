@@ -54,3 +54,13 @@ def discrete_jacobians(F: Callable) -> Callable:
         (A, B), x_next = jacfwd(f, argnums=(0, 1), has_aux=True)(x, u)
         return x_next, A, B
     return FAB
+
+
+def rollout(F: Callable, x0: torch.Tensor, us: torch.Tensor, horizon: int,
+            *args) -> torch.Tensor:
+    """Open-loop rollout of `horizon` steps under the control sequence
+    `us` (N, nu): the states (horizon + 1, nx), x0 first."""
+    xs = [x0]
+    for k in range(horizon):
+        xs.append(F(xs[-1], us[k], *args))
+    return torch.stack(xs)

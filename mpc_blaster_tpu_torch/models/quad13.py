@@ -159,14 +159,16 @@ def quad13_dyn_statics(c: Quad13Config, num_steps: int = 1) -> tuple:
             float(c.dt), int(num_steps))
 
 
-def make_quad13_rti_step(c: Quad13Config, dtype=torch.float32, solver=None,
-                         device=None):
+def make_quad13_rti_step(c: Quad13Config, dtype=torch.float32,
+                         jit: bool = True, solver=None, device=None):
     """RTI tick `step(spec, state, x0) -> (u0, state, diag)` on the
     quaternion model, on the solver's QP backend: "riccati" (the eager
     Riccati IPM), "pallas" (one launch of the 13x4 box-QP IPM kernel) or
     "pallas_fused" (one launch of the kernel with the "quad13" prologue:
     linearization, assembly and solve). `lin_backend="fused"` maps to the
-    rows-form linearizer on the host path."""
+    rows-form linearizer on the host path. `jit` holds the JAX package's
+    slot (a positional call binds as it does there); the eager port
+    ignores it."""
     params = _params(c, dtype, device)
     F = discrete_dynamics(quad13_ode, c.dt, num_steps=1)
     solver = solver if solver is not None else cfg.SolverConfig()

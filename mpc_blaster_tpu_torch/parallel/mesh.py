@@ -56,7 +56,7 @@ from mpc_blaster_tpu_torch.sqp.rti import (RTIDiagnostics, RTIState,
 
 
 def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
-                     backend: str = "xla", device=None):
+                     jit: bool = True, backend: str = "xla", device=None):
     """The RTI tick over a scenario batch, on `device` (default: the card,
     `device.py`).
 
@@ -65,7 +65,9 @@ def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
     takes one spec per scenario), states/x0s carry a leading batch axis. `backend="xla"` runs the tick
     of `make_rti_step(ocp)` over the batch (the module docstring),
     `backend="pallas"` solves the host-built QPs with the box-QP IPM
-    kernel, `backend="pallas_fused"` runs the fuse_cost kernel.
+    kernel, `backend="pallas_fused"` runs the fuse_cost kernel. `jit`
+    holds the JAX package's slot (a positional call binds as it does
+    there); the eager port ignores it.
     """
     device = resolve_device(device)
     if backend == "xla":
@@ -80,14 +82,16 @@ def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
 
 
 def batched_rti_step_per_scenario_spec(ocp: cfg.OCPConfig,
-                                       dtype=torch.float32, device=None):
+                                       dtype=torch.float32,
+                                       jit: bool = True, device=None):
     """Like `batched_rti_step` (the "xla" tick), with one OCPSpec per
     scenario: every spec field carries the leading batch axis (targets and
     gains sweeps). On the solver's backend: "riccati" builds the QPs
     under `vmap` and runs the Riccati IPM on the batch, "pallas" builds
     them and makes one launch of the box-QP IPM kernel, "pallas_fused"
     makes one launch of the fuse_lin kernel. A spec field without the
-    batch axis is refused (`batched_rti_step` takes a shared spec)."""
+    batch axis is refused (`batched_rti_step` takes a shared spec). `jit`
+    is the JAX package's slot, accepted and ignored."""
     return _batched_tick(ocp, dtype, resolve_device(device),
                          per_scenario=True)
 

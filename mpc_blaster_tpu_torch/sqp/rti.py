@@ -612,10 +612,12 @@ def rti_step_soft(spec: OCPSpec, state: RTIState, x0: torch.Tensor,
 
 
 def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
-                  num_steps: int = 1, device=None):
+                  num_steps: int = 1, jit: bool = True, device=None):
     """Build `step(spec, state, x0) -> (u0, state, diag)` closed over the
     static configuration, for specs and states on `device` (default: the
-    card, `device.py`)."""
+    card, `device.py`). `jit` holds the JAX package's slot so that a
+    positional call binds as it does there; the eager port accepts it and
+    ignores it."""
     params = BlasterParams.from_config(ocp.model, dtype, device)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=num_steps)
     solver = ocp.solver

@@ -165,3 +165,25 @@ def test_rk4_and_discrete_jacobians(dt, num_steps):
            tint.rk4_step(tbl.blaster_ode, torch.as_tensor(x[0]),
                          torch.as_tensor(u[0]), h, torch.as_tensor(p[0]),
                          tp_), atol)
+
+
+def test_rollout_matches_jax_f64():
+    """`rollout(F, x0, us, horizon, *args)`: the open-loop states of N=20
+    RK4 steps under a control sequence near hover, with one stage
+    parameter vector held over the horizon, in float64. Both sides chain
+    the same formulas; the gap is rounding, accumulated over 20 steps
+    (measured 4.4e-16 on states that move by up to 3.4). Bound 1e-12."""
+    N = 20
+    jp_, tp_ = _params(jnp.float64, torch.float64)
+    x, u, p = _xup(np.float64, n=N, seed=11)
+    F_j = jint.discrete_dynamics(jbl.blaster_ode, 1.0 / 30.0)
+    F_t = tint.discrete_dynamics(tbl.blaster_ode, 1.0 / 30.0)
+    xs_j = jint.rollout(F_j, jnp.asarray(x[0]), jnp.asarray(u), N,
+                        jnp.asarray(p[0]), jp_)
+    xs_t = tint.rollout(F_t, torch.as_tensor(x[0]), torch.as_tensor(u), N,
+                        torch.as_tensor(p[0]), tp_)
+    assert xs_t.shape == (N + 1, cfg.NX) and xs_t.dtype == torch.float64
+    assert torch.equal(xs_t[0], torch.as_tensor(x[0]))
+    # the states move (the rollout is not the start repeated)
+    assert float((xs_t[-1] - xs_t[0]).abs().max()) > 1e-2
+    _close(xs_j, xs_t, 1e-12)
