@@ -114,10 +114,28 @@ after:
      bounds soft), each flight-safe and held at one iteration to its twin
      on the card (and on the host's CPU where a state breaks the rule);
      the recovery loop from 60% outside the position box on K1 and K6;
-     the deep 40-iteration `sqp_solve` on K1.
+     the deep 40-iteration `sqp_solve` on K1;
+ 22. the solvers off the main path and scale-out: (a) `box_qp_solve` in
+     its "pscan", "hybrid" and "sqrt" modes against "scan" (the
+     simulation preset's QP at N=60 in float32; tests/test_pscan.py's QP
+     in float64) and `lqr_solve_pscan` at N=64; (b) `condensed_qp_solve`
+     (M=5) on tests/test_condense.py's N=60 QP in float64 and float32;
+     (c, in the worker pool) the condensed hover loop at N=30 in float64
+     and float32 against the float64 "riccati" loop, and the simulation
+     preset on "condensed" for 3 ticks; (d) `sharded_rti_step` on the
+     card's mesh (`make_mesh()`) at N=20, B=1024 on "pallas" (K1) and on
+     deployed_solver("safe") (K6 over a batch), each equal to
+     `batched_rti_step` bit for bit, and `sharded_sweep` at N=60, B=256,
+     20 ticks on "safe" (K6, held to its twin at that shape); (e) the
+     sharded tick again under a one-rank NCCL process group
+     (`parallel/distributed.py::initialize`); (f) `utils.timing.
+     device_time` against CUDA events on one K1 launch, and
+     `utils.profiling.trace` around one sharded "safe" tick (a Chrome
+     trace under chiprun_out/phase22_trace/).
 
-The host-bound paths of phases 17, 19 and 20 (the four sweeps, the blast
-rows, the paths of 19b-c, the phase-20 rows) run in worker processes of
+The host-bound paths of phases 17, 19, 20, 21 and 22 (the four sweeps, the
+blast rows, the paths of 19b-c, the phase-20 rows, the deep SQP, phase
+22c's condensed loops) run in worker processes of
 this script (`--worker`), seven at a time, each counting its own
 launches with the counts at 0; their ms per tick are taken beside the
 pool's other processes on the card, which time-slices between them.
@@ -1643,6 +1661,19 @@ def timed(fn, n_ticks):
     return res, e0.elapsed_time(e1) / n_ticks
 
 
+def timed_rounds(fns: dict, rounds: int):
+    """Each fn of `fns` called once to warm up, then `rounds` more times,
+    the fns taking turns within each round: (the last result of each fn,
+    its ms per call in each timed round)."""
+    res, ms = {}, {k: [] for k in fns}
+    for r in range(rounds + 1):
+        for k, fn in fns.items():
+            res[k], t = timed(fn, 1)
+            if r:
+                ms[k].append(t)
+    return res, ms
+
+
 def quad13_hover_loop(step, dev):
     """Q13_TICKS of a quad13 RTI tick and the model's RK4 plant from
     hover_state(1.0) (tests/test_quad13.py's loop): (final state, first
@@ -2407,7 +2438,7 @@ def worker_task(task: str, dev) -> dict:
     if kind == "deep":
         return deep_sqp_check(dev)
     return {"blast": blast_row, "step4": step4_row, "p19": p19_path,
-            "sweep": sweep_row}[kind](name, dev)
+            "sweep": sweep_row, "cond": cond_task}[kind](name, dev)
 
 
 def worker(dev) -> int:
@@ -2952,6 +2983,420 @@ def phase21(dev, counted, deep: dict) -> dict:
     # the deep SQP budget on K1, run in the worker pool (`deep_sqp_check`)
     out["deep_sqp"] = deep
     out["launches"]["deep_sqp"] = deep["launches"]
+    return out
+
+
+# ---- phase 22: the solvers off the main path, the sharded tick and
+# sweep, a process group on the card, the utilities ----
+RICCATI_MODES = ("scan", "pscan", "hybrid", "sqrt")
+COND_M = 5          # condensing block (the presets' cond_M)
+TIMED_ROUNDS = 2    # 22a / 22b: timed calls of each solve after a warm-up
+COND_LOOP_TICKS = 15   # tests/test_condense.py's closed loop
+COND_SIM_TICKS = 3     # the simulation preset on "condensed", as phase 9
+SWEEP22_B = 256     # the sharded sweep's scenarios
+SWEEP22_TICKS = 20
+SWEEP22_CL = 4          # scenarios held to the unbatched closed_loop
+SWEEP22_CL_TOL = 1e-2   # m, their final positions (f32, 20 ticks)
+COND_LOOP_TOL = {"f64": 1.5e-2, "f32": 2e-2}
+
+
+def random_qp(N=8, nx=5, nu=3, seed=0, bound_scale=np.inf, dev=None,
+              dtype=torch.float64):
+    """tests/test_qp.py::random_qp's QP (the same numpy draws) as the
+    port's QPData on `dev`."""
+    from mpc_blaster_tpu_torch.convert import qp_from_numpy
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(-0.5, 0.5, (N, nx, nx)) + np.eye(nx) * 0.8
+    B = rng.uniform(-0.5, 0.5, (N, nx, nu))
+    c = rng.uniform(-0.1, 0.1, (N, nx))
+
+    def spd(n, scale):
+        M = rng.uniform(-1, 1, (n, n))
+        return M @ M.T + scale * np.eye(n)
+    Q = np.stack([spd(nx, 1.0) for _ in range(N + 1)])
+    R = np.stack([spd(nu, 1.0) for _ in range(N)])
+    q = rng.uniform(-1, 1, (N + 1, nx))
+    r = rng.uniform(-1, 1, (N, nu))
+    dx0 = rng.uniform(-0.3, 0.3, nx)
+    box = dict(lbx=np.full((N + 1, nx), -bound_scale),
+               ubx=np.full((N + 1, nx), bound_scale),
+               lbu=np.full((N, nu), -bound_scale),
+               ubu=np.full((N, nu), bound_scale))
+    return qp_from_numpy(dict(A=A, B=B, c=c, Q=Q, q=q, R=R, r=r, dx0=dx0,
+                              **box), dtype=dtype, device=dev)
+
+
+def riccati_modes(dev) -> dict:
+    """Phase 22a: `box_qp_solve(riccati=...)` in each inner-solver mode on
+    the card. The simulation preset's QP at N=60 (float32, 12 iterations):
+    each mode's objective within rel 1e-5 of "scan"'s and kkt_eq < 1e-4
+    (past the first iterations f32 solvers agree on the objective, not
+    pointwise). tests/test_pscan.py:76-97's QP in float64 (the dtype that
+    test runs in), with its criteria: du within rtol 1e-3 / atol 5e-4 of
+    "scan", the objective within rtol 1e-5 / atol 1e-7, kkt_eq < 1e-4.
+    `lqr_solve_pscan` at N=64 (float64) against `lqr_solve`, rtol 1e-6 /
+    atol 1e-7 (tests/test_pscan.py's sharded case, on one device). Each
+    solve is warmed up once and timed in TIMED_ROUNDS rounds, the modes
+    taking turns (eager PyTorch: launch-bound); "ms" is the least."""
+    from mpc_blaster_tpu_torch.qp.data import QPData, qp_objective
+    from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
+    from mpc_blaster_tpu_torch.qp.pscan import lqr_solve_pscan
+    from mpc_blaster_tpu_torch.qp.riccati import lqr_solve
+    out = {}
+    for case, qp, iters in (
+            ("blaster_n60_f32", blaster_qps(60, 1, dev), FULL_ITERS),
+            ("random_n12_f64", random_qp(N=12, nx=5, nu=3, seed=9,
+                                         bound_scale=0.3, dev=dev), 20)):
+        q64 = QPData(*(x.double() for x in qp))
+        sols, rounds = timed_rounds(
+            {m: (lambda m=m: box_qp_solve(qp, iters=iters, riccati=m))
+             for m in RICCATI_MODES}, TIMED_ROUNDS)
+        ms = {m: min(v) for m, v in rounds.items()}
+        obj = {m: float(qp_objective(q64, s.dx.double(), s.du.double()))
+               for m, s in sols.items()}
+        row = {"iters": iters, "ms": ms, "ms_rounds": rounds,
+               "objective": obj,
+               "kkt_eq": {m: float(s.kkt_eq.max()) for m, s in
+                          sols.items()},
+               "du_gap": {m: float((s.du - sols["scan"].du).abs().max())
+                          for m, s in sols.items()}}
+        for m in RICCATI_MODES[1:]:
+            s, ref = sols[m], sols["scan"]
+            check(all(bool(torch.isfinite(getattr(s, f)).all())
+                      for f in ("dx", "du", "kkt_eq")), "riccati mode finite",
+                  case=case, mode=m)
+            check(row["kkt_eq"][m] < 1e-4, "riccati mode kkt_eq", case=case,
+                  mode=m, kkt_eq=row["kkt_eq"][m])
+            if case.startswith("random"):
+                check(bool(torch.allclose(s.du, ref.du, rtol=1e-3,
+                                          atol=5e-4)),
+                      "riccati mode du", case=case, mode=m,
+                      gap=row["du_gap"][m])
+                check(abs(obj[m] - obj["scan"])
+                      <= 1e-7 + 1e-5 * abs(obj["scan"]),
+                      "riccati mode objective", case=case, mode=m, **obj)
+            else:
+                check(abs(obj[m] - obj["scan"]) <= 1e-5 * abs(obj["scan"]),
+                      "riccati mode objective", case=case, mode=m, **obj)
+        out[case] = row
+        log("riccati_modes", case=case, **row)
+    qp = random_qp(N=64, nx=4, nu=2, seed=5, dev=dev)
+    sols, rounds = timed_rounds({"pscan": lambda: lqr_solve_pscan(qp),
+                                 "sequential": lambda: lqr_solve(qp)},
+                                TIMED_ROUNDS)
+    par, seq = sols["pscan"], sols["sequential"]
+    ms_par, ms_seq = min(rounds["pscan"]), min(rounds["sequential"])
+    gap = float((par.du - seq.du).abs().max())
+    check(bool(torch.allclose(par.du, seq.du, rtol=1e-6, atol=1e-7)),
+          "lqr_solve_pscan N=64", gap=gap)
+    out["lqr_pscan_n64_f64"] = {"ms_pscan": ms_par, "ms_sequential": ms_seq,
+                                "ms_rounds": rounds, "du_gap": gap}
+    log("lqr_pscan", N=64, **out["lqr_pscan_n64_f64"])
+    return out
+
+
+def condense_qp(dtype, dev):
+    """tests/test_condense.py:143-177's QP: the simulation preset's first
+    RTI QP (N=60) from hover at z=2 toward (0.4, 0, 3)."""
+    from mpc_blaster_tpu_torch import config as cfg
+    from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams,
+                                                        blaster_ode)
+    from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    from mpc_blaster_tpu_torch.sqp.rti import build_qp, init_rti_state
+    ocp = cfg.simulation_preset().ocp
+    x0 = torch.zeros(17, dtype=dtype, device=dev)
+    x0[2] = 2.0
+    yref = np.zeros(cfg.NY)
+    yref[:3] = (0.4, 0.0, 3.0)
+    spec = build_spec(ocp, yref=yref, dtype=dtype, device=dev)
+    params = BlasterParams.from_config(ocp.model, dtype, dev)
+    F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
+    return build_qp(spec, init_rti_state(ocp, x0, dtype), x0, F, params)
+
+
+def condensed_qp_check(dev) -> dict:
+    """Phase 22b: `condensed_qp_solve(M=5)` (25 iterations) on the N=60 QP
+    in float64 (plain Riccati core) and float32 (square-root core, the
+    f32 default). float64 meets tests/test_condense.py's criteria against
+    the float64 Riccati IPM (objective within rel 1e-5, du[:, :4] within
+    0.3 N, kkt_eq < 1e-6); float32 is held to the float64 condensed
+    objective within rel 5e-3 (the JAX docstring measured 0.12%). The
+    three solves are warmed up once and timed in TIMED_ROUNDS rounds,
+    taking turns; each "ms_*" is the least."""
+    from mpc_blaster_tpu_torch.qp.condense import condensed_qp_solve
+    from mpc_blaster_tpu_torch.qp.data import qp_objective
+    from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
+    q64, q32 = condense_qp(torch.float64, dev), condense_qp(torch.float32,
+                                                            dev)
+    sols, rounds = timed_rounds(
+        {"riccati_f64": lambda: box_qp_solve(q64, iters=25),
+         "condensed_f64": lambda: condensed_qp_solve(q64, M=COND_M,
+                                                     iters=25),
+         "condensed_f32": lambda: condensed_qp_solve(q32, M=COND_M,
+                                                     iters=25)},
+        TIMED_ROUNDS)
+    ref, s64, s32 = (sols["riccati_f64"], sols["condensed_f64"],
+                     sols["condensed_f32"])
+    ms_ref, ms64, ms32 = (min(rounds[k]) for k in
+                          ("riccati_f64", "condensed_f64", "condensed_f32"))
+    o_ref = float(qp_objective(q64, ref.dx, ref.du))
+    o64 = float(qp_objective(q64, s64.dx, s64.du))
+    o32 = float(qp_objective(q64, s32.dx.double(), s32.du.double()))
+    row = {"N": 60, "M": COND_M, "iters": 25, "objective_riccati": o_ref,
+           "objective_f64": o64, "objective_f32": o32,
+           "obj_rel_f64": abs(o64 - o_ref) / abs(o_ref),
+           "obj_rel_f32": abs(o32 - o64) / abs(o64),
+           "du4_gap_f64": float((s64.du[:, :4] - ref.du[:, :4]).abs().max()),
+           "kkt_eq_f64": float(s64.kkt_eq), "kkt_eq_f32": float(s32.kkt_eq),
+           "ms_riccati_f64": ms_ref, "ms_f64": ms64, "ms_f32": ms32,
+           "ms_rounds": rounds}
+    check(row["obj_rel_f64"] <= 1e-5, "condensed f64 objective", **row)
+    check(row["du4_gap_f64"] <= 0.3, "condensed f64 du[:, :4]", **row)
+    check(row["kkt_eq_f64"] < 1e-6, "condensed f64 kkt_eq", **row)
+    check(row["obj_rel_f32"] <= 5e-3 and np.isfinite(o32),
+          "condensed f32 objective", **row)
+    log("condensed_qp", **row)
+    return row
+
+
+def cond_task(name: str, dev) -> dict:
+    """A phase-22c path in the worker pool: tests/test_condense.py's hover
+    closed loop (the simulation preset at N=30, Tf 1 s, 15 ticks, no POC)
+    on the float64 "riccati" reference ("riccati30") or on "condensed"
+    with M=5 in float64 / float32 ("cond30_f64", "cond30_f32"); or the
+    simulation preset at N=60 on "condensed", 3 ticks with the POC
+    ("sim60", timed like phase 9). No kernel runs: the counts stay 0."""
+    from mpc_blaster_tpu_torch import config as cfg
+    from mpc_blaster_tpu_torch.sim.closedloop import run_preset
+    pre = cfg.simulation_preset()
+    cond = dataclasses.replace(pre.ocp.solver, qp_backend="condensed",
+                               cond_M=COND_M)
+    if name == "sim60":
+        pc = dataclasses.replace(pre, ocp=dataclasses.replace(pre.ocp,
+                                                              solver=cond))
+        (res, ms), c = counted({}, "phase 22c condensed N=60", lambda:
+                               timed_closed_loop(pc, COND_SIM_TICKS, dev))
+        ok = bool(torch.isfinite(res.xs).all() & torch.isfinite(res.us).all())
+        check(ok, "condensed N=60 loop finite")
+        return {"N": 60, "ticks": COND_SIM_TICKS, "ms_per_tick": ms,
+                "final_z": float(res.xs[-1, 2]), "finite": ok}
+    ocp = dataclasses.replace(pre.ocp, N=30, Tf=1.0)
+    if name != "riccati30":
+        ocp = dataclasses.replace(ocp, solver=cond)
+    dtype = torch.float32 if name.endswith("f32") else torch.float64
+    pc = dataclasses.replace(pre, ocp=ocp)
+    (res, ms), c = counted({}, f"phase 22c {name}", lambda: timed(
+        lambda: run_preset(pc, n_steps=COND_LOOP_TICKS, with_poc=False,
+                           dtype=dtype, device=dev), COND_LOOP_TICKS))
+    ok = bool(torch.isfinite(res.xs).all())
+    check(ok, "condensed loop finite", path=name)
+    return {"N": 30, "ticks": COND_LOOP_TICKS, "ms_per_tick": ms,
+            "finite": ok, "xs": res.xs.double().cpu().tolist()}
+
+
+COND_TASKS = ("riccati30", "cond30_f64", "cond30_f32", "sim60")
+
+
+def cond_loops(rows: dict) -> dict:
+    """Phase 22c's checks on the pool's records: each condensed N=30 loop's
+    vehicle states (x[0:12]) within 1.5e-2 (f64) / 2e-2 (f32) of the f64
+    "riccati" loop's (tests/test_condense.py's criteria)."""
+    ref = np.asarray(rows["riccati30"]["xs"])
+    out = {"ms_per_tick": {k: r["ms_per_tick"] for k, r in rows.items()}}
+    for prec in ("f64", "f32"):
+        xs = np.asarray(rows[f"cond30_{prec}"]["xs"])
+        gap = float(np.abs(xs[:, :12] - ref[:, :12]).max())
+        out[f"state_gap_{prec}"] = gap
+        check(gap <= COND_LOOP_TOL[prec], "condensed closed loop tracks the "
+              "riccati loop", precision=prec, gap=gap,
+              bound=COND_LOOP_TOL[prec])
+    out["sim60_final_z"] = rows["sim60"]["final_z"]
+    log("condensed_loops", **out)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase22(dev, K, counted) -> dict:
+    """Phase 22a-b and d-f (22c's loops ran in the worker pool): the
+    Riccati modes, one condensed QP, the sharded tick on K1 ("pallas") and
+    on K6 over a batch (`deployed_solver("safe")`) against the batched
+    tick, the sharded sweep (K6 at N=60, B=256, held to its twin at that
+    shape here), the tick again under a one-rank NCCL process group, and
+    the utilities (`device_time` against `cuda_ms`, `trace`). Returns the
+    rows and the kernel launches per path."""
+    import os
+    import torch.distributed as dist
+    from mpc_blaster_tpu_torch import config as cfg
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    from mpc_blaster_tpu_torch.parallel import (batched_rti_step, make_mesh,
+                                                sharded_rti_step,
+                                                sharded_sweep)
+    from mpc_blaster_tpu_torch.parallel.distributed import initialize
+    from mpc_blaster_tpu_torch.sim.closedloop import closed_loop
+    from mpc_blaster_tpu_torch.sqp.rti import init_rti_state
+    from mpc_blaster_tpu_torch.utils.profiling import trace
+    from mpc_blaster_tpu_torch.utils.timing import device_time
+    out = {"launches": {}}
+    out["riccati_modes"] = counted({}, "phase 22a riccati modes",
+                                   lambda: riccati_modes(dev))[0]
+    wall("22a riccati modes")
+    out["condensed_qp"] = counted({}, "phase 22b condensed QP",
+                                  lambda: condensed_qp_check(dev))[0]
+    wall("22b condensed QP")
+
+    # 22d: the sharded tick on the card's mesh against the batched tick
+    mesh = make_mesh()
+    check(mesh.devices == (torch.device("cuda", 0),), "make_mesh() is the "
+          "card", devices=[str(d) for d in mesh.devices])
+    pre20 = simulation_ocp(20)
+    spec20 = build_spec(pre20.ocp, yref=pre20.loop.yref, device=dev)
+    x0s = torch.as_tensor(draws(BATCH), device=dev)
+    ticks = {}
+    for name, ocp, wrapper in (
+            ("k1_pallas", pre20.ocp, "box_qp_solve"),
+            ("k6_safe", simulation_ocp(20, solver=cfg.deployed_solver(
+                "safe")).ocp, "fused_rti_solve")):
+        states = init_rti_state(ocp, x0s)
+        sstep = sharded_rti_step(ocp, mesh)
+        (u_s, st_s, mean_s, worst_s), c = counted(
+            {wrapper: 1}, f"phase 22d sharded tick {name}",
+            lambda: sstep(spec20, states, x0s))
+        (u_b, st_b, d_b), _ = counted(
+            {wrapper: 1}, f"phase 22d batched tick {name}",
+            lambda: batched_rti_step(ocp, device=dev)(spec20, states, x0s))
+        same = (torch.equal(u_s, u_b) and torch.equal(st_s.xbar, st_b.xbar)
+                and torch.equal(st_s.ubar, st_b.ubar))
+        mean_b = d_b.step_norm_u.mean()
+        worst_b = d_b.qp_kkt_stat.amax()
+        row = {"N": 20, "B": BATCH, "wrapper": wrapper,
+               "launches": c[wrapper], "equal_to_batched": same,
+               "mean_step": float(mean_s), "worst_kkt": float(worst_s),
+               "batched_mean_step": float(mean_b),
+               "batched_worst_kkt": float(worst_b),
+               "kernel_vs_twin_at_this_shape":
+                   "phase 2 n20_b1024" if wrapper == "box_qp_solve"
+                   else "phase 16 n20_b1024"}
+        check(same, "sharded tick equals the batched tick", case=name)
+        check(bool(mean_s == mean_b) and bool(worst_s == worst_b),
+              "sharded reductions equal the batch's mean and max", **row)
+        out[f"sharded_{name}"] = row
+        out["launches"][f"phase22_sharded_{name}"] = c[wrapper]
+        ticks[name] = (ocp, sstep, states, u_s, mean_s, worst_s)
+        log("sharded_tick", case=name, **row)
+    # the sweep's kernel shape (K6 over a batch at N=60, B=256) vs its twin
+    sw_row = compare_fuse_lin_batched(f"n60_b{SWEEP22_B}", 60, SWEEP22_B,
+                                      dev, K, 25, time_iters=(SAFE_ITERS,))
+    log("fuse_lin_batched_vs_plain", **sw_row)
+    out["sweep_kernel_row"] = sw_row
+    pre60 = simulation_ocp(60, solver=cfg.deployed_solver("safe"))
+    spec60 = build_spec(pre60.ocp, yref=pre60.loop.yref, device=dev)
+    sweep = sharded_sweep(pre60.ocp, mesh, n_steps=SWEEP22_TICKS)
+    x0w = torch.as_tensor(draws(SWEEP22_B, seed=22), device=dev)
+    ((finals, u0w, mean_err, worst_kkt), ms), c = counted(
+        {"fused_rti_solve": SWEEP22_TICKS}, "phase 22d sharded sweep",
+        lambda: timed(lambda: sweep(spec60, x0w), SWEEP22_TICKS))
+    sw = {"N": 60, "B": SWEEP22_B, "ticks": SWEEP22_TICKS,
+          "launches": c["fused_rti_solve"], "ms_per_tick": ms,
+          "solves_per_s": SWEEP22_B * 1000.0 / ms,
+          "mean_err_m": float(mean_err), "worst_kkt_eq": float(worst_kkt),
+          "finite": bool(torch.isfinite(finals).all()
+                         & torch.isfinite(u0w).all())}
+    check(sw["finite"] and np.isfinite(sw["mean_err_m"]), "sharded sweep "
+          "finite", **sw)
+    # the sweep against what it is built from: its first-tick controls are
+    # one batched tick on the same x0s (the same launch, bit for bit), its
+    # mean_err the mean of its final position errors, and the first
+    # SWEEP22_CL scenarios' final positions those of the port's unbatched
+    # `closed_loop` on the same solver (K6 at B=1)
+    u_b, _, _ = batched_rti_step(pre60.ocp, device=dev)(
+        spec60, init_rti_state(pre60.ocp, x0w), x0w)
+    errs = torch.linalg.norm(finals[:, 0:3] - spec60.yref_x[-1, 0:3], dim=-1)
+    sw["first_tick_equal_batched"] = torch.equal(u0w, u_b)
+    sw["mean_err_rel_gap"] = abs(float(errs.mean()) / sw["mean_err_m"] - 1)
+    sw["closed_loop_pos_gap_m"] = max(
+        float((closed_loop(spec60, pre60.ocp, x0w[i], SWEEP22_TICKS).xs[-1, 0:3]
+               - finals[i, 0:3]).abs().max()) for i in range(SWEEP22_CL))
+    check(sw["first_tick_equal_batched"], "sharded sweep's first tick equals "
+          "the batched tick", **sw)
+    check(sw["mean_err_rel_gap"] <= 1e-6, "sharded sweep's mean_err", **sw)
+    check(sw["closed_loop_pos_gap_m"] <= SWEEP22_CL_TOL, "sharded sweep "
+          "against closed_loop", **sw)
+    out["sharded_sweep"] = sw
+    out["launches"]["phase22_sharded_sweep"] = c["fused_rti_solve"]
+    log("sharded_sweep", **sw)
+    wall("22d sharded tick and sweep")
+
+    # 22e: the sharded tick under a one-rank NCCL group: its reductions
+    # run as dist.all_reduce on the card
+    env = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK")}
+    os.environ.update(WORLD_SIZE="1", RANK="0")
+    try:
+        multi = initialize(f"localhost:{_free_port()}")
+        ocp, sstep, states, u_s, mean_s, worst_s = ticks["k1_pallas"]
+        grp = {"distributed": multi, "initialized": dist.is_initialized(),
+               "backend": dist.get_backend(),
+               "world_size": dist.get_world_size()}
+        check(grp["initialized"] and grp["backend"] == "nccl"
+              and grp["world_size"] == 1 and not multi,
+              "one-rank NCCL group", **grp)
+        (u_n, _, mean_n, worst_n), c = counted(
+            {"box_qp_solve": 1}, "phase 22e sharded tick under NCCL",
+            lambda: sstep(spec20, states, x0s))
+        grp.update(launches=c["box_qp_solve"],
+                   equal_to_22d=bool(torch.equal(u_n, u_s)
+                                     and mean_n == mean_s
+                                     and worst_n == worst_s),
+                   mean_step=float(mean_n), worst_kkt=float(worst_n))
+        check(grp["equal_to_22d"], "the tick under NCCL equals 22d's", **grp)
+        out["launches"]["phase22_nccl_tick"] = c["box_qp_solve"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["nccl"] = grp
+    log("nccl_group", **grp)
+    wall("22e NCCL group")
+
+    # 22f: the utilities on the card
+    qp60 = blaster_qps(60, 1, dev)
+    fn = lambda: K.box_qp_solve(qp60, iters=FULL_ITERS)  # noqa: E731
+    ev_ms = cuda_ms(fn, reps=10)
+    dt_ms = device_time(fn, reps=10) * 1e3
+    # the trace of one deployed batched tick (K6): the "pallas" tick's
+    # eager QP assembly at B=1024 would write ~90 MB of host events
+    tdir = REPO / "chiprun_out" / "phase22_trace"
+    ocp, sstep, states, *_ = ticks["k6_safe"]
+    with trace(str(tdir)) as prof:
+        sstep(spec20, states, x0s)
+    tfile = tdir / "trace.json"
+    from torch.autograd import DeviceType
+    dev_events = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    util = {"cuda_ms": ev_ms, "device_time_ms": dt_ms,
+            "rel_gap": abs(dt_ms - ev_ms) / ev_ms,
+            "trace": str(tfile.relative_to(REPO)),
+            "trace_bytes": tfile.stat().st_size if tfile.exists() else 0,
+            "trace_device_events": dev_events}
+    check(util["rel_gap"] <= 0.2, "device_time within 20% of cuda_ms",
+          **util)
+    check(util["trace_bytes"] > 0 and dev_events > 0,
+          "trace written with device events", **util)
+    out["utils"] = util
+    log("utils_on_card", **util)
+    wall("22f utilities")
     return out
 
 
@@ -3528,7 +3973,8 @@ def run(dev: torch.device) -> int:
     # K3 in PLAIN), the blast scan's rows (19a: K6), the step-1 rows,
     # Jacobian reuse and the SQP (19b-c: K1, K3), the four sweeps (17: K1)
     # and the deep SQP with its twins on the CPU (21: K1)
-    pool = run_workers([f"step4:{r}" for r in STEP4_ROWS]
+    pool = run_workers([f"cond:{t}" for t in COND_TASKS]
+                       + [f"step4:{r}" for r in STEP4_ROWS]
                        + [f"blast:{r}" for r in BLAST_ROWS]
                        + [f"p19:{p}" for p in P19_PATHS]
                        + [f"sweep:{r}" for r in SWEEP_JAX] + ["deep:sqp"])
@@ -3598,6 +4044,11 @@ def run(dev: torch.device) -> int:
     # recovery loops and the deep SQP
     p21 = phase21(dev, counted, pool["deep:sqp"])
     wall("21 stress states, recovery, deep SQP")
+    # phase 22: the solvers off the main path, scale-out, the utilities
+    p22 = phase22(dev, K, counted)
+    p22["condensed_loops"] = cond_loops({t: pool[f"cond:{t}"]
+                                         for t in COND_TASKS})
+    wall("22 solvers, sharding, utilities")
 
     if FAILURES:
         for f in FAILURES:
@@ -3653,6 +4104,11 @@ def run(dev: torch.device) -> int:
     k1_19.update({"phase21_k1_batched": l21["k1_batched"]["box_qp_solve"],
                   "phase21_recovery": l21["recovery_k1_pallas"],
                   "phase21_deep_sqp": l21["deep_sqp"]})
+    l22 = p22["launches"]
+    k1_19.update({k: l22[k] for k in ("phase22_sharded_k1_pallas",
+                                      "phase22_nccl_tick")})
+    k6b_22 = {k: l22[k] for k in ("phase22_sharded_k6_safe",
+                                  "phase22_sharded_sweep")}
     k6_21 = {"phase21_k6_b1_safe": l21["k6_b1_safe"]["fused_rti_solve"],
              "phase21_k3_fastest_redo": k3_21,
              "phase21_recovery_safe": l21["recovery_k6_safe"]}
@@ -3808,13 +4264,15 @@ def run(dev: torch.device) -> int:
          "source": KERNEL_SOURCE,
          "replaces": REPLACES["box_qp_ipm_fuse_lin_batched"],
          "launches": c16["fused_rti_solve"]
-         + l21["k6_batched_safe"]["fused_rti_solve"],
+         + l21["k6_batched_safe"]["fused_rti_solve"] + sum(k6b_22.values()),
          "launches_by_path": {"batched_xla_safe": c16["fused_rti_solve"],
                               "phase21_k6_batched_safe": l21[
-                                  "k6_batched_safe"]["fused_rti_solve"]},
+                                  "k6_batched_safe"]["fused_rti_solve"],
+                              **k6b_22},
          "stress_ms": stress_ms("k6_batched_safe"),
          "max_abs_err": max(r["max_abs_err_1it"]
-                            for r in kb_rows + [kb_time]),
+                            for r in kb_rows + [kb_time,
+                                                p22["sweep_kernel_row"]]),
          "ms": kb_time["kernel_ms_6it"], "plain_ms": kb_time["plain_ms_6it"],
          "iters": SAFE_ITERS,
          **bound_keys(launch_bound("fuse_lin", 20, BATCH, SAFE_ITERS)),
@@ -3825,7 +4283,9 @@ def run(dev: torch.device) -> int:
          "fuse_cost_ms": {"6": kb_time["fuse_cost_ms_6it"],
                           "12": kb_time["fuse_cost_ms"]},
          "tick": xla_fused,
-         "by_shape": {r["case"]: r for r in kb_rows + [kb_time]}},
+         "sharded_sweep": p22["sharded_sweep"],
+         "by_shape": {r["case"]: r for r in kb_rows + [kb_time,
+                                                      p22["sweep_kernel_row"]]}},
         {"name": "probe_smem_capacity", "route": "cuda",
          "source": PROBE_SOURCE, "replaces": REPLACES["probe_smem_capacity"],
          "launches": 0, "max_abs_err": probes["p1"]["max_abs_err"],

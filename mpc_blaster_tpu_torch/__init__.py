@@ -23,21 +23,27 @@ backends; the quad13 model; the offset-free loop and figure-8 tracking):
   - ``models``    the 13-state quaternion quadrotor (`quad13`)
   - ``ocp``       OCP specification and cost, the DARE terminal weight
   - ``qp``        QP data containers, the small-matrix algebra, the Riccati
-                  recursion, the Riccati IPM with its warm starts, and the
-                  soft-bounded IPM (`soft`)
+                  recursion (sequential, log-depth `pscan`, square-root
+                  `sqrt_riccati`), the Riccati IPM with its warm starts,
+                  the soft-bounded IPM (`soft`) and partial condensing
+                  (`condense`)
   - ``ops``       the box-QP IPM kernel's three modes (each with the
                   warm-start blend; plain and fuse_lin with soft bounds),
                   their plain twins and launch wrappers
   - ``sqp``       the SQP-RTI ticks: cold, warm, warm under the watchdog,
                   soft-bounded
-  - ``sim``       the closed loop (frozen-POC branches), the scenario
-                  draws and the offset-free loop, figure-8 tracking and the
-                  blasting task
-  - ``parallel``  the batched ticks on one device
+  - ``sim``       the closed loop, the scenario draws and sweeps, the
+                  offset-free loop, figure-8 tracking, the blasting task
+                  and the blast scan, the plots
+  - ``parallel``  the batched ticks, the mesh and the sharded tick and
+                  sweep, the `torch.distributed` process group
+  - ``utils``     solve statistics, timers and profiler traces, device
+                  timing, checkpoints
   - ``convert``   numpy <-> port containers (state shared with the JAX side)
 
-Options outside that slice raise `NotImplementedError` naming the
-ROADMAP item that ports them. Presets are the port's own copy of
+The I/O and runtime subpackages, the CLI and the bench are not ported
+yet (ROADMAP queue 1 steps 8b and 9); an option the port lacks raises
+`NotImplementedError` naming the ROADMAP item that ports it. Presets are the port's own copy of
 `mpc_blaster_tpu.config` (`config.py`): the port imports nothing of the
 JAX package.
 

@@ -29,14 +29,24 @@ Each refuses the other form. `batched_tick`, which both run (and the
 sweeps of `sim/scenarios.py` with per-scenario targets and stage
 parameters but shared gains), takes either form field by field.
 
-Multi-device sharding (`sharded_rti_step`, `sharded_sweep`) ports with
-ROADMAP queue 1 item 13.
+Scale-out (`make_mesh`, `sharded_rti_step`, `sharded_sweep`): the JAX
+package `shard_map`s the batched tick over a 1-D "dp" mesh of chips, each
+scenario's solve local to its chip and only the sweep's reductions (a
+pmean, a pmax) crossing chips. Here a `Mesh` is a list of devices and an
+axis name; the batch is split into one contiguous shard per mesh entry,
+each shard runs `batched_tick` on its device (so a kernel-backed solver
+makes one launch per shard and tick), and the reductions run over the
+shards and then, where a `torch.distributed` process group is up
+(`parallel/distributed.py`), as `all_reduce` over the ranks. A mesh may
+name one device several times (the CPU tests' shards).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import vmap
 
 from mpc_blaster_tpu_torch import config as cfg
@@ -44,7 +54,6 @@ from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
-from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
 from mpc_blaster_tpu_torch.sqp.rti import (RTIDiagnostics, RTIState,
                                            _bound_violation,
                                            _check_backend,
@@ -52,6 +61,7 @@ from mpc_blaster_tpu_torch.sqp.rti import (RTIDiagnostics, RTIState,
                                            fused_qp_solve_batched,
                                            make_linearizer, qp_hessian_R,
                                            solve_batched_qp,
+                                           solve_qp_backend,
                                            spec_batch_dims)
 
 
@@ -138,8 +148,9 @@ def batched_tick(solver: cfg.SolverConfig, params: BlasterParams, F, lin,
     """step(spec, states, x0s) -> (u0s, states, diags): the RTI tick over a
     batch on `solver.qp_backend`, with the controller model `F` (its
     `linearizer` `lin`, None for jacfwd) on the host backends and the
-    kernel prologue `dyn_statics` on "pallas_fused". Spec fields with a
-    leading batch axis are per problem, the others shared."""
+    kernel prologue `dyn_statics` on "pallas_fused" ("riccati" and
+    "condensed" solve the whole batch eagerly). Spec fields with a leading
+    batch axis are per problem, the others shared."""
     _check_backend(solver)
     if solver.qp_backend == "pallas_fused":
         def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
@@ -151,11 +162,9 @@ def batched_tick(solver: cfg.SolverConfig, params: BlasterParams, F, lin,
         def solve(qps):
             return solve_batched_qp(qps, solver)
     else:
+        # "riccati" and "condensed" solve the batch on its leading axis
         def solve(qps):
-            return box_qp_solve(qps, iters=solver.ipm_iters,
-                                mu0=solver.ipm_mu0,
-                                alpha_frac=solver.ipm_alpha_frac,
-                                reg=solver.ipm_reg, riccati=solver.riccati)
+            return solve_qp_backend(qps, solver)
 
     def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
         qps = vmap(lambda sp, xb, ub, x: build_qp(
@@ -216,3 +225,152 @@ def _batched_rti_step_pallas_fused(ocp: cfg.OCPConfig, dtype=torch.float32,
         return new_ubar[:, 0], RTIState(xbar=new_xbar, ubar=new_ubar), diag
 
     return step
+
+
+class Mesh(NamedTuple):
+    """A 1-D data-parallel mesh: `devices` (torch.device, one per shard)
+    along the axis `axis_names[0]`."""
+
+    devices: tuple
+    axis_names: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "dp",
+              device=None) -> Mesh:
+    """1-D data-parallel mesh over the first n_devices devices.
+
+    With `device=None` the mesh spans the CUDA cards (all of them, or the
+    first n_devices, which raises ValueError if there are fewer); without
+    a card it raises, as every entry point of the port does. A `device`
+    is repeated n_devices times (default 1): the CPU tests' shards."""
+    if device is None:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        if not cards:
+            resolve_device()     # raises, naming device="cpu"
+        n = len(cards) if n_devices is None else n_devices
+        if n > len(cards):
+            raise ValueError(f"a mesh of {n} devices asked for; this "
+                             f"machine has {len(cards)} CUDA device(s)")
+        devs = cards[:n]
+    else:
+        devs = [torch.device(device)] * (n_devices or 1)
+    return Mesh(devices=tuple(devs), axis_names=(axis,))
+
+
+def _shards(mesh: Mesh, B: int):
+    """(device, slice) of each shard of a batch of B."""
+    n = mesh.size
+    if B % n:
+        raise ValueError(f"batch {B} not divisible by the mesh's {n} "
+                         "shards")
+    k = B // n
+    return [(d, slice(i * k, (i + 1) * k))
+            for i, d in enumerate(mesh.devices)]
+
+
+def _spec_to(spec: OCPSpec, device) -> OCPSpec:
+    return OCPSpec(*(f.to(device) if isinstance(f, torch.Tensor) else f
+                     for f in spec))
+
+
+def _reduce(shard_vals, op: str, mesh: Mesh) -> torch.Tensor:
+    """The mean ("mean") or max ("max") of per-shard scalars over the
+    shards, then over the ranks of the process group if one is up (each
+    rank holds an equal share of the global batch), on the mesh's first
+    device."""
+    out_dev = mesh.devices[0]
+    v = torch.stack([t.to(out_dev) for t in shard_vals])
+    v = v.mean() if op == "mean" else v.amax()
+    if dist.is_available() and dist.is_initialized():
+        # NCCL reduces on the card, gloo on the host
+        on = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+        w = v.to(on).clone()
+        dist.all_reduce(w, op=dist.ReduceOp.SUM if op == "mean"
+                        else dist.ReduceOp.MAX)
+        if op == "mean":
+            w = w / dist.get_world_size()
+        v = w.to(out_dev)
+    return v
+
+
+def _shard_ticks(ocp: cfg.OCPConfig, mesh: Mesh, dtype):
+    """`batched_rti_step`'s tick (shared spec) for each distinct device of
+    the mesh."""
+    return {d: _batched_tick(ocp, dtype, d, per_scenario=False)
+            for d in dict.fromkeys(mesh.devices)}
+
+
+def sharded_rti_step(ocp: cfg.OCPConfig, mesh: Mesh, dtype=torch.float32,
+                     axis: str = "dp"):
+    """The batched tick sharded over the mesh's data axis.
+
+    Returns step(spec, states, x0s) -> (u0s, states, mean_step,
+    worst_kkt): the batch axis of (states, x0s) is split over the mesh's
+    shards (B divisible by the mesh size), the OCPSpec is replicated; each
+    shard runs the OCP solver's batched tick on its device; mean_step is
+    the pmean of each shard's mean step_norm_u and worst_kkt the pmax of
+    its largest qp_kkt_stat, over the shards and the process group's
+    ranks. u0s and states come back on the mesh's first device."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"axis {axis!r} not in the mesh's {mesh.axis_names}")
+    ticks = _shard_ticks(ocp, mesh, dtype)
+    out_dev = mesh.devices[0]
+
+    def step(spec: OCPSpec, states: RTIState, x0s: torch.Tensor):
+        u0s, xbars, ubars, steps, kkts = [], [], [], [], []
+        for d, sl in _shards(mesh, x0s.shape[0]):
+            u0, st, diag = ticks[d](_spec_to(spec, d),
+                                RTIState(states.xbar[sl].to(d),
+                                         states.ubar[sl].to(d)),
+                                x0s[sl].to(d))
+            u0s.append(u0.to(out_dev))
+            xbars.append(st.xbar.to(out_dev))
+            ubars.append(st.ubar.to(out_dev))
+            steps.append(diag.step_norm_u.mean())
+            kkts.append(diag.qp_kkt_stat.amax())
+        return (torch.cat(u0s), RTIState(torch.cat(xbars), torch.cat(ubars)),
+                _reduce(steps, "mean", mesh), _reduce(kkts, "max", mesh))
+
+    return step
+
+
+def sharded_sweep(ocp: cfg.OCPConfig, mesh: Mesh, n_steps: int,
+                  dtype=torch.float32, axis: str = "dp"):
+    """Closed-loop scenario sweep sharded over the mesh.
+
+    Returns run(spec, x0s) -> (final states (B, nx), first-tick controls
+    (B, nu), mean final position error, worst kkt_eq). Each shard runs its
+    scenarios' closed loops together (`sim/scenarios.py::batched_loop`:
+    the OCP solver's batched tick for `n_steps` ticks, each followed by
+    the plant of `sim/closedloop.py::closed_loop`); the JAX package vmaps
+    `closed_loop` instead. Only the two scalars are reduced over the
+    shards and ranks."""
+    from mpc_blaster_tpu_torch.sim.scenarios import batched_loop
+
+    if axis not in mesh.axis_names:
+        raise ValueError(f"axis {axis!r} not in the mesh's {mesh.axis_names}")
+    ticks = _shard_ticks(ocp, mesh, dtype)
+    out_dev = mesh.devices[0]
+
+    def run(spec: OCPSpec, x0s: torch.Tensor):
+        finals, first_us, errs, kkts = [], [], [], []
+        for d, sl in _shards(mesh, x0s.shape[0]):
+            sp = _spec_to(spec, d)
+            x, u_first, eq = batched_loop(
+                ticks[d], sp, ocp, torch.as_tensor(x0s[sl], dtype=dtype).to(d),
+                n_steps, BlasterParams.from_config(ocp.model, dtype, d))
+            err = torch.linalg.norm(x[:, 0:3] - sp.yref_x[-1, 0:3], dim=-1)
+            finals.append(x.to(out_dev))
+            first_us.append(u_first.to(out_dev))
+            errs.append(err.mean())
+            kkts.append(eq.amax())
+        return (torch.cat(finals), torch.cat(first_us),
+                _reduce(errs, "mean", mesh), _reduce(kkts, "max", mesh))
+
+    return run

@@ -1,9 +1,13 @@
 """Box-constrained OCP-QP via Mehrotra predictor-corrector IPM + Riccati.
 
 Port of `mpc_blaster_tpu/qp/ipm.py` (the Riccati IPM behind
-`qp_backend="riccati"`, the presets' default), with `riccati="scan"`: the
-sequential per-stage sweeps of `qp/riccati.py`. The other inner solvers
-("pscan", "hybrid", "sqrt") port with ROADMAP queue 1 item 12.
+`qp_backend="riccati"`, the presets' default), with its four inner Newton
+solvers (`riccati=`): "scan", the sequential per-stage sweeps of
+`qp/riccati.py`; "pscan", the log-depth factorization and right-hand-side
+solves of `qp/pscan.py`; "hybrid", the sequential factorization with the
+log-depth solves; "sqrt", the square-root factorization of
+`qp/sqrt_riccati.py`. Every mode but "scan" evaluates the merit's adjoint
+recursion as a suffix scan too (`_kkt_residuals_pscan`).
 
   - static iteration budget; the best iterate by KKT merit is returned,
     so iterations past convergence are harmless;
@@ -26,8 +30,14 @@ import torch
 
 from mpc_blaster_tpu_torch.device import resolve_device
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
+from mpc_blaster_tpu_torch.qp.pscan import (_append_zero, _comp_suffix,
+                                            associative_scan,
+                                            riccati_factorize_pscan,
+                                            riccati_solve_rhs_pscan)
 from mpc_blaster_tpu_torch.qp.riccati import (_mv, _t, riccati_factorize,
                                               riccati_solve_rhs)
+from mpc_blaster_tpu_torch.qp.sqrt_riccati import (riccati_factorize_sqrt,
+                                                   sqrt_solve_rhs)
 
 _BIG = 1e20  # slack value standing in for an infinite bound
 _RICCATI_BACKENDS = ("scan", "pscan", "hybrid", "sqrt")
@@ -91,14 +101,21 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
     warm_du: optional (..., N, nu) control warm start, rolled out through
     the dynamics to seed the primal trajectory. warm: optional slack/dual
     warm start, blended over the cold centred init where warm.valid > 0.5.
+    riccati: the inner Newton-system solver, "scan", "pscan", "hybrid" or
+    "sqrt" (the module docstring).
     """
     if riccati not in _RICCATI_BACKENDS:
         raise ValueError(f"riccati={riccati!r}; expected one of "
                          f"{_RICCATI_BACKENDS}")
-    if riccati != "scan":
-        raise NotImplementedError(
-            f"riccati={riccati!r} is not ported yet; ROADMAP queue 1 item "
-            "12 (qp/pscan.py, qp/sqrt_riccati.py) ports it")
+    if riccati == "scan":
+        factorize, solve_rhs = riccati_factorize, riccati_solve_rhs
+    elif riccati == "sqrt":
+        factorize, solve_rhs = riccati_factorize_sqrt, sqrt_solve_rhs
+    else:
+        factorize = (riccati_factorize_pscan if riccati == "pscan"
+                     else riccati_factorize)
+        solve_rhs = riccati_solve_rhs_pscan
+    kkt_fn = _kkt_residuals if riccati == "scan" else _kkt_residuals_pscan
     N = data.horizon
     dtype, dev = data.A.dtype, data.A.device
     # dtype-aware floors: f32 cannot resolve complementarity products
@@ -222,7 +239,7 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
                           data.Q[..., 1:, :, :] + torch.diag_embed(sig_x)],
                          -3)
         Rmod = data.R + torch.diag_embed(sig_u)
-        fac = riccati_factorize(data.A, data.B, Qmod, Rmod, reg)
+        fac = factorize(data.A, data.B, Qmod, Rmod, reg)
 
         gx_full = _mv(data.Q, st.dx) + data.q
         gu_full = _mv(data.R, st.du) + data.r
@@ -253,8 +270,8 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
             return q_rhs, gu_full + bu
 
         def directions(q_rhs, r_rhs, T_lx, T_ux, T_lu, T_uu):
-            d_dx, d_du = riccati_solve_rhs(fac, data.A, data.B, r_eq, q_rhs,
-                                           r_rhs, dx0_zero)
+            d_dx, d_du = solve_rhs(fac, data.A, data.B, r_eq, q_rhs, r_rhs,
+                                   dx0_zero)
             d_slx = _where(mask_lx, d_dx[..., 1:, :] - r_slx, 0.0)
             d_sux = _where(mask_ux, -d_dx[..., 1:, :] - r_sux, 0.0)
             d_slu = _where(mask_lu, d_du - r_slu, 0.0)
@@ -336,7 +353,7 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
     def merit(st: _IpmState):
         """KKT merit for best-iterate selection: stationarity + equality +
         complementarity, all -> 0 at the solution."""
-        kkt_stat, kkt_eq = _kkt_residuals(data, st, *masks)
+        kkt_stat, kkt_eq = kkt_fn(data, st, *masks)
         return kkt_stat + kkt_eq + comp_sum(st) / n_ineq, kkt_stat, kkt_eq
 
     # interior-point iterations are not a contraction once converged, so
@@ -430,3 +447,31 @@ def _kkt_residuals(data: QPData, st: _IpmState, mask_lx, mask_ux,
     kkt_eq = (st.dx[..., 1:, :] - _mv(data.A, st.dx[..., :-1, :])
               - _mv(data.B, st.du) - data.c).abs().amax((-2, -1))
     return stat, kkt_eq
+
+
+def _kkt_residuals_pscan(data: QPData, st: _IpmState, mask_lx, mask_ux,
+                         mask_lu, mask_uu):
+    """`_kkt_residuals` with the adjoint recursion lam_k = A_k' lam_{k+1} +
+    v_k as a log-depth suffix scan of affine maps (the companion of
+    `qp/pscan.py::riccati_solve_rhs_pscan`)."""
+    lam_x_bnd = (_where(mask_lx, st.lam_lx, 0.0)
+                 - _where(mask_ux, st.lam_ux, 0.0))   # stages 1..N
+    lam_u_bnd = (_where(mask_lu, st.lam_lu, 0.0)
+                 - _where(mask_uu, st.lam_uu, 0.0))
+    lamN = (_mv(data.Q[..., -1, :, :], st.dx[..., -1, :]) + data.q[..., -1, :]
+            - lam_x_bnd[..., -1, :])
+    # stage k carries the bound duals of state k (k = 1..N-1; stage 0's
+    # costate is unused)
+    lxb_for_stage = torch.cat([torch.zeros_like(lam_x_bnd[..., :1, :]),
+                               lam_x_bnd[..., :-1, :]], -2)
+    v = (_mv(data.Q[..., :-1, :, :], st.dx[..., :-1, :]) + data.q[..., :-1, :]
+         - lxb_for_stage)
+    Ms = _append_zero(_t(data.A))
+    vs = torch.cat([v, lamN.unsqueeze(-2)], -2)
+    _, lams = associative_scan(lambda a, b: _comp_suffix(b, a), (Ms, vs),
+                               reverse=True, dim=data.A.dim() - 3)
+    stat_u = (_mv(data.R, st.du) + data.r + _mv(_t(data.B), lams[..., 1:, :])
+              - lam_u_bnd)
+    kkt_eq = (st.dx[..., 1:, :] - _mv(data.A, st.dx[..., :-1, :])
+              - _mv(data.B, st.du) - data.c).abs().amax((-2, -1))
+    return stat_u.abs().amax((-2, -1)), kkt_eq

@@ -216,41 +216,72 @@ def _sweep(spec: OCPSpec, ocp: cfg.OCPConfig, x0, target, plant_d, derate,
     yref_e = spec.yref_e.expand(B, cfg.NX).clone()
     yref_e[:, 0:3] = target
     spec_b = spec._replace(yref_x=yref_x, yref_e=yref_e)
+    x, _, worst_eq = batched_loop(
+        step, spec_b, ocp, x, n_steps, params, plant_d=plant_d,
+        derate=derate, observer_gain=observer_gain if offset_free else None,
+        torque=torque)
+    err = torch.linalg.norm(x[:, 0:3] - target, dim=-1)
+    return SweepResult(final_states=x, pos_err=err, worst_kkt_eq=worst_eq,
+                       settled=err < 0.25)
+
+
+def batched_loop(step, spec: OCPSpec, ocp: cfg.OCPConfig, x: torch.Tensor,
+                 n_steps: int, params: BlasterParams, plant_d=None,
+                 derate=None, observer_gain=None, torque: bool = False):
+    """The closed loops of a batch: `n_steps` ticks of `step` (a
+    `parallel/mesh.py::batched_tick`, or a tick built on it), each
+    followed by the plant's RK4 step, on x's device.
+
+    x: (B, nx). The plant is the nominal model with the controller's
+    stage-0 parameters and T_blast pinned to 2.2*9.81, as in
+    `sim/closedloop.py::closed_loop`; `plant_d` (B, 6) adds force and
+    torque accelerations (rows 25-30 of `dist_param_ode`) and `derate`
+    (B, 4) scales each rotor's commanded thrust. With `observer_gain` the
+    constant-disturbance observer innovates the force estimate (and the
+    torque estimate when `torque`) from the velocity residuals, and its
+    six estimates ride in the controller's stage-parameter rows 25-30.
+    Returns (final states (B, nx), first-tick controls (B, nu), worst
+    kkt_eq per scenario (B,)).
+    """
+    dtype, device = x.dtype, x.device
+    B, N = x.shape[0], spec.horizon
     plant_p = spec.stage_params[0].clone()
     plant_p[-1] = 2.2 * 9.81
     plant_p = plant_p.expand(B, plant_p.shape[0])
+    if plant_d is None:
+        plant_d = torch.zeros(B, 6, dtype=dtype, device=device)
     pp_plant = torch.cat([plant_p, plant_d], 1)
+    F_dist = discrete_dynamics(dist_param_ode, ocp.dt, num_steps=1)
     vF = torch.func.vmap(lambda xx, uu, pp: F_dist(xx, uu, pp, params))
 
     st = init_rti_state(ocp, x, dtype)
     d_v = torch.zeros(B, 3, dtype=dtype, device=device)
     d_w = torch.zeros(B, 3, dtype=dtype, device=device)
     pred = x[:, 6:12]
-    eqs = []
+    u_first, eqs = None, []
     for _ in range(n_steps):
-        if offset_free:
+        if observer_gain is not None:
             # innovation: the part of v_dot (omega_dot) the model missed
             d_v = d_v + observer_gain * (x[:, 6:9] - pred[:, 0:3]) / ocp.dt
             if torque:
                 d_w = d_w + observer_gain * (x[:, 9:12] - pred[:, 3:6]) \
                     / ocp.dt
             d = torch.cat([d_v, d_w], 1)
-            spec_t = spec_b._replace(stage_params=torch.cat(
+            spec_t = spec._replace(stage_params=torch.cat(
                 [spec.stage_params.expand(B, N, spec.stage_params.shape[-1]),
                  d[:, None].expand(B, N, 6)], 2))
         else:
-            spec_t = spec_b
+            spec_t = spec
         u0, st, diag = step(spec_t, st, x)
-        u_eff = torch.cat([u0[:, 0:4] * derate, u0[:, 4:]], 1)
+        u_first = u0 if u_first is None else u_first
+        u_eff = u0 if derate is None else torch.cat(
+            [u0[:, 0:4] * derate, u0[:, 4:]], 1)
         x_next = vF(x, u_eff, pp_plant)
-        if offset_free:
+        if observer_gain is not None:
             pred = vF(x, u0, torch.cat([plant_p, d], 1))[:, 6:12]
         x = x_next
         eqs.append(diag.qp_kkt_eq)
-    err = torch.linalg.norm(x[:, 0:3] - target, dim=-1)
-    return SweepResult(final_states=x, pos_err=err,
-                       worst_kkt_eq=torch.stack(eqs).amax(0),
-                       settled=err < 0.25)
+    return x, u_first, torch.stack(eqs).amax(0)
 
 
 def fault_sweep(spec: OCPSpec, ocp: cfg.OCPConfig, derate, n_steps: int = 150,

@@ -22,9 +22,11 @@ backends). The Jacobian-reuse ticks (`rti_step_jacreuse`,
 `rti_step_warm_jacreuse`) refresh A and B only on the ticks the caller
 names and keep the shooting defects exact on every tick; `sqp_solve` runs
 several full Gauss-Newton iterations at a fixed x0 and keeps the best
-iterate by an L1 merit. The condensed backend raises
-`NotImplementedError` naming the ROADMAP item that ports it; the port
-never switches a backend by itself.
+iterate by an L1 merit. `qp_backend="condensed"` builds the same QP
+and solves it by partial condensing with block size `solver.cond_M`
+(`qp/condense.py`, eager PyTorch); its solves are cold, so a warm start
+with it raises `ValueError`, as in the JAX package. The port never
+switches a backend by itself.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import (discrete_dynamics,
                                                         discrete_jacobians)
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, total_cost
+from mpc_blaster_tpu_torch.qp.condense import condensed_qp_solve
 from mpc_blaster_tpu_torch.qp.data import QPData
 from mpc_blaster_tpu_torch.qp.ipm import (IpmWarmStart, box_qp_solve,
                                           warm_start_from,
@@ -48,16 +51,7 @@ from mpc_blaster_tpu_torch.qp.soft import (SoftBounds, SoftQPSolution,
                                            _violation, soft_box_qp_solve,
                                            violations_from_primal)
 
-# What ports each option outside the slice (ROADMAP.md, queue 1 / 2).
-_TODO = {
-    "condensed": "queue 1 item 12 (qp/condense.py)",
-}
-QP_BACKENDS = ("riccati", "pallas", "pallas_fused")
-
-
-def not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; ROADMAP {_TODO[key]} ports it")
+QP_BACKENDS = ("riccati", "condensed", "pallas", "pallas_fused")
 
 
 class RTIState(NamedTuple):
@@ -333,8 +327,8 @@ def build_qp_jacreuse(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
 
 def _check_backend(solver: cfg.SolverConfig):
     if solver.qp_backend not in QP_BACKENDS:
-        raise not_ported(f"qp_backend={solver.qp_backend!r}",
-                         solver.qp_backend)
+        raise ValueError(f"qp_backend={solver.qp_backend!r}; expected one "
+                         f"of {QP_BACKENDS}")
 
 
 def solve_batched_qp(qp: QPData, solver: cfg.SolverConfig, warm=None,
@@ -353,13 +347,22 @@ def solve_batched_qp(qp: QPData, solver: cfg.SolverConfig, warm=None,
 
 def solve_qp_backend(qp: QPData, solver: cfg.SolverConfig, warm=None,
                      skip=None):
-    """Solve one QP with the configured backend: "pallas" runs the box-QP
-    IPM kernel on a batch of one; every other backend but "condensed"
-    (pallas_fused included, as in the JAX dispatch) the Riccati IPM with
-    `solver.riccati`. `warm` (an IpmWarmStart) is honoured by both;
-    `skip` (see `ops/box_qp_ipm.py`) only by the kernel."""
+    """Solve one QP, or a batch of them on its leading axes, with the
+    configured backend: "condensed" applies partial condensing with block
+    size `solver.cond_M` (`qp/condense.py`; cold solves only: a warm start
+    raises `ValueError`); "pallas" runs the box-QP IPM kernel on a batch
+    of one; every other backend (pallas_fused included, as in the JAX
+    dispatch) the Riccati IPM with `solver.riccati`. `warm` (an
+    IpmWarmStart) is honoured by the last two; `skip` (see
+    `ops/box_qp_ipm.py`) only by the kernel."""
     if solver.qp_backend == "condensed":
-        raise not_ported("qp_backend='condensed'", "condensed")
+        if warm is not None:
+            raise ValueError("qp_backend='condensed' does not support "
+                             "slack/dual warm starts")
+        return condensed_qp_solve(qp, M=solver.cond_M,
+                                  iters=solver.ipm_iters, mu0=solver.ipm_mu0,
+                                  alpha_frac=solver.ipm_alpha_frac,
+                                  reg=solver.ipm_reg)
     if solver.qp_backend == "pallas":
         return _unbatch1(solve_batched_qp(_batch1(qp), solver,
                                           warm=_batch1(warm), skip=skip))

@@ -33,6 +33,7 @@ from mpc_blaster_tpu_torch.convert import spec_from_numpy
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.parallel import mesh as TM
 from mpc_blaster_tpu_torch.sqp import rti as trti
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 # The port runs on the CUDA card unless asked for the CPU; these tests

@@ -31,6 +31,7 @@ from mpc_blaster_tpu.sqp import rti as jrti
 from mpc_blaster_tpu_torch.parallel import mesh as TM
 from mpc_blaster_tpu_torch.sqp import rti as trti
 from test_torch_batched import DEV, _ocps, _tspec
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("iters", [1, 6])

@@ -36,6 +36,7 @@ from mpc_blaster_tpu.sim import tasks as JK
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.convert import spec_from_numpy
 from mpc_blaster_tpu_torch.sim import tasks as TK
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -15,6 +15,7 @@ import pytest
 import chip_smoke
 from mpc_blaster_tpu.poc.solver import true_poc_traj
 from mpc_blaster_tpu.sim.tasks import run_blast_scan
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def jax_blast_err(row: str) -> float:

@@ -5,6 +5,7 @@ import pytest
 
 import chip_smoke
 from test_torch_blast_bounds import jax_blast_err
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("row", ["blast_aggr_err_frozen_m",

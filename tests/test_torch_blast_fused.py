@@ -46,6 +46,7 @@ from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 from mpc_blaster_tpu_torch.poc.solver import poc_stage_params_along
 from mpc_blaster_tpu_torch.sim.tasks import blast_scan_refs
 from mpc_blaster_tpu_torch.sqp import rti as trti
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -21,6 +21,7 @@ from mpc_blaster_tpu_torch.core import htm as thtm
 from mpc_blaster_tpu_torch.core import rotations as trot
 from mpc_blaster_tpu_torch.dynamics import blaster as tbl
 from mpc_blaster_tpu_torch.dynamics import integrators as tint
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -14,19 +14,15 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import one_intraop_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_PKG = REPO / "mpc_blaster_tpu"
 
 # Whole subpackages of the JAX package that the port does not have yet.
-SUBPACKAGES_NOT_YET = {"io": "step 8", "utils": "step 8",
-                       "runtime": "step 8"}
+SUBPACKAGES_NOT_YET = {"io": "step 8", "runtime": "step 8"}
 # Single names not ported yet, per subpackage.
-NAMES_NOT_YET = {
-    "qp": {"lqr_solve_pscan": "step 6"},
-    "parallel": {"make_mesh": "step 7", "sharded_rti_step": "step 7",
-                 "sharded_sweep": "step 7"},
-}
+NAMES_NOT_YET: dict = {}
 # The JAX `ops` exports Pallas entry points; the port's `ops` exports its
 # own kernels' wrappers. The counterpart of each Pallas name, or None with
 # the reason it has none.

@@ -24,6 +24,7 @@ from mpc_blaster_tpu_torch.dynamics.fastlin import (fast_linearize,
                                                     make_fused_linearizer)
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.sqp.rti import _linearize_nodes, make_linearizer
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -41,6 +41,7 @@ from mpc_blaster_tpu_torch.convert import rti_state_from_numpy, spec_from_numpy
 from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 from mpc_blaster_tpu_torch.parallel.mesh import batched_rti_step
 from mpc_blaster_tpu_torch.sqp import rti as trti
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -25,6 +25,7 @@ import torch
 
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.sim.closedloop import run_preset
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

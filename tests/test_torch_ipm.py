@@ -32,6 +32,7 @@ from mpc_blaster_tpu.ops.pallas_ipm import pallas_box_qp_solve
 from mpc_blaster_tpu.qp.data import qp_objective
 from mpc_blaster_tpu_torch.convert import qp_from_numpy
 from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

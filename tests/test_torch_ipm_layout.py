@@ -22,6 +22,7 @@ import re
 import pytest
 
 from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+from torch_threads import one_intraop_thread  # noqa: F401
 
 OPTIN = 232448   # cudaDevAttrMaxSharedMemoryPerBlockOptin on the H100
 # the per-stage scratch and the ring, in bytes: 17x6 (906 + 1840 words),

@@ -43,6 +43,7 @@ from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.qp.data import qp_objective
 from mpc_blaster_tpu_torch.sim.closedloop import make_closed_loop
 from mpc_blaster_tpu_torch.sqp import rti as trti
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -44,6 +44,7 @@ import torch
 import chip_smoke as S
 from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 from mpc_blaster_tpu_torch.qp.soft import soft_qp_objective
+from torch_threads import one_intraop_thread  # noqa: F401
 
 DEV = torch.device("cpu")
 N, FULL = 8, 12

@@ -30,6 +30,7 @@ from mpc_blaster_tpu.sim.closedloop import run_preset as jrun_preset
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.convert import spec_from_numpy
 from mpc_blaster_tpu_torch.sim.closedloop import closed_loop, run_preset
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

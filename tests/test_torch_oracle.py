@@ -27,6 +27,7 @@ from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import build_spec, total_cost
 from mpc_blaster_tpu_torch.sqp.rti import init_rti_state, sqp_solve
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

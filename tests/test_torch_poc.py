@@ -31,6 +31,7 @@ from mpc_blaster_tpu.poc import jet as jjet
 from mpc_blaster_tpu.poc import solver as jsol
 from mpc_blaster_tpu_torch.poc import jet as tjet
 from mpc_blaster_tpu_torch.poc import solver as tsol
+from torch_threads import one_intraop_thread  # noqa: F401
 
 ATOL = 1e-9
 POSES = [  # (euler, alpha, position)

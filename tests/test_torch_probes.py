@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from mpc_blaster_tpu_torch.ops import probes as P
+from torch_threads import one_intraop_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = (1, 3, 17, 200)   # 200: the script's own count in interpret mode

@@ -26,6 +26,7 @@ from mpc_blaster_tpu_torch.qp import smallalg
 from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
 from mpc_blaster_tpu_torch.qp.riccati import lqr_kkt_residuals, lqr_solve
 from test_qp import _check_box_kkt, dense_equality_solve, random_qp
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.
@@ -203,11 +204,15 @@ def test_inverses_match_jax(case, n):
 
 
 def test_ipm_refusals():
-    """The inner solvers outside the slice are refused, not switched."""
+    """Every inner solver of the JAX package runs (since the pscan and sqrt
+    cores were ported; tests/test_torch_pscan.py and
+    test_torch_sqrt_riccati.py hold them to the JAX package) and agrees
+    with "scan" on this unconstrained QP within 1e-8; an unknown one is
+    refused with ValueError, not switched."""
     td = _t(random_qp(seed=2))
+    ref = box_qp_solve(td)
     for mode in ("pscan", "hybrid", "sqrt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"
-                                                      " 12"):
-            box_qp_solve(td, riccati=mode)
+        sol = box_qp_solve(td, riccati=mode)
+        assert torch.allclose(sol.du, ref.du, rtol=0, atol=1e-8), mode
     with pytest.raises(ValueError, match="riccati"):
         box_qp_solve(td, riccati="dense")

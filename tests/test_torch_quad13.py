@@ -49,6 +49,7 @@ from mpc_blaster_tpu_torch.qp.data import qp_objective
 
 from test_torch_ipm import (_assert_full_solve_parity,
                             _assert_one_iteration_parity)
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

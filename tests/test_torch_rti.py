@@ -32,6 +32,7 @@ from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, blaster_ode
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.parallel.mesh import batched_rti_step
 from mpc_blaster_tpu_torch.sqp import rti as trti
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

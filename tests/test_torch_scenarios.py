@@ -48,6 +48,7 @@ from mpc_blaster_tpu_torch.convert import (offset_free_from_numpy,
 from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
 from mpc_blaster_tpu_torch.ocp import terminal as TT
 from mpc_blaster_tpu_torch.sim import scenarios as TS
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
@@ -231,16 +232,26 @@ def test_sweeps_refused():
     """The sweeps run since they were ported (tests/test_torch_sweeps.py
     holds them against the JAX package): a "pallas_fused" solver is
     swapped to "pallas" as in the JAX package, never refused, so both
-    give the same sweep bit for bit; a QP backend the port lacks is still
-    refused."""
+    give the same sweep bit for bit. "condensed" runs since it was ported
+    (at N=8 with cond_M=4; the default cond_M=5 does not divide the
+    horizon and raises ValueError, as in the JAX package); an unknown
+    backend is refused."""
     _, ts = _spec_pair(_ocp(8))
     scen = TS.sample_scenarios(2, device=DEV)
     a = TS.disturbance_sweep(ts, _tocp(8, "pallas_fused", 1), scen,
                              n_steps=1)
     b = TS.disturbance_sweep(ts, _tocp(8, "pallas", 1), scen, n_steps=1)
     assert torch.equal(a.final_states, b.final_states)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        TS.fault_sweep(ts, _tocp(8, "condensed"), torch.ones(2, 4))
+    with pytest.raises(ValueError, match="not divisible"):
+        TS.fault_sweep(ts, _tocp(8, "condensed"), torch.ones(2, 4),
+                       n_steps=1)
+    oc = _tocp(8, "condensed")
+    oc = dataclasses.replace(oc, solver=dataclasses.replace(oc.solver,
+                                                            cond_M=4))
+    res = TS.fault_sweep(ts, oc, torch.ones(2, 4), n_steps=1)
+    assert torch.isfinite(res.final_states).all()
+    with pytest.raises(ValueError, match="qp_backend"):
+        TS.fault_sweep(ts, _tocp(8, "dense"), torch.ones(2, 4), n_steps=1)
 
 
 def jax_offset_free_numbers():

@@ -50,6 +50,7 @@ from mpc_blaster_tpu_torch.qp import soft as tsoft
 from test_qp import random_qp
 from test_qp_soft import all_hard, bind_controls
 from test_torch_ipm import _blaster_qps, _to_torch
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

@@ -21,6 +21,7 @@ from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.closedloop import make_closed_loop
 from mpc_blaster_tpu.sim.tasks import run_figure8
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def _n20(**solver):

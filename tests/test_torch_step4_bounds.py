@@ -27,6 +27,7 @@ from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.closedloop import make_closed_loop
 from mpc_blaster_tpu.sim.tasks import figure8_refs, make_tracking_loop
+from torch_threads import one_intraop_thread  # noqa: F401
 
 F32 = jnp.float32
 

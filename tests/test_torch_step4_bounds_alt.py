@@ -7,6 +7,7 @@ import dataclasses
 
 from mpc_blaster_tpu import config as jcfg
 from test_torch_step4_bounds import check_warm_row
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def phase8_solver(chain):

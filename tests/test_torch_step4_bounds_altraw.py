@@ -9,6 +9,7 @@ constants."""
 import chip_smoke
 from test_torch_step4_bounds import check_warm_row, step4_ocp
 from test_torch_step4_bounds_alt import phase8_solver
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def test_chip_smoke_step4_alt_warmraw_bound_is_jax_spread():

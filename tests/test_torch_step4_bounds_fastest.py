@@ -7,6 +7,7 @@ from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.closedloop import (make_closed_loop,
                                             preset_stage_params)
 from test_torch_step4_bounds_loops import F32, golden_dist, profile_preset
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def test_chip_smoke_fastest_bound_is_jax_run():

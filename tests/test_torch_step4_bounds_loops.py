@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import chip_smoke
 from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.sim.closedloop import run_preset
+from torch_threads import one_intraop_thread  # noqa: F401
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "simulation_poc_100.npz"
 F32 = jnp.float32

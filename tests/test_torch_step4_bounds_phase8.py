@@ -12,6 +12,7 @@ from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.closedloop import make_closed_loop
 from test_torch_step4_bounds_alt import phase8_solver
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def test_chip_smoke_alt_fastest_bound_is_jax_run():

@@ -39,6 +39,7 @@ from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 from test_torch_cuda import _blaster_qps as _port_blaster_qps
 from test_torch_ipm import (_assert_full_solve_parity,
                             _assert_one_iteration_parity)
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.

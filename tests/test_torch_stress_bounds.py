@@ -23,6 +23,7 @@ import chip_smoke
 from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim.closedloop import closed_loop
+from torch_threads import one_intraop_thread  # noqa: F401
 
 F32 = jnp.float32
 MOVES_M = np.arange(-16, 16) * 2.5e-7

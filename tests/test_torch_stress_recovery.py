@@ -19,6 +19,7 @@ from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.ocp.spec import build_spec
 from mpc_blaster_tpu_torch.sim.closedloop import closed_loop
 from test_torch_stress import DEV, DTYPE, stress_ocp, with_backend
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def recovery_loop(backend):

@@ -2,6 +2,7 @@
 `qp_backend="pallas"`: kernel K1's plain twin on the CPU, 12 iterations,
 held to the same criteria."""
 from test_torch_stress_recovery import check_recovery
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def test_closed_loop_recovery_from_outside_box_on_k1_twin():

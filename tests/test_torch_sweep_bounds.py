@@ -18,6 +18,7 @@ import chip_smoke
 from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.ocp.spec import build_spec
 from mpc_blaster_tpu.sim import scenarios as JS
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 def jax_sweep_numbers(name):

@@ -8,6 +8,7 @@ import pytest
 
 import chip_smoke
 from test_torch_sweep_bounds import jax_sweep_numbers
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["fault_blind", "fault_offset_free"])

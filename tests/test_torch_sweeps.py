@@ -24,6 +24,7 @@ from mpc_blaster_tpu.sim import scenarios as JS
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.convert import spec_from_numpy
 from mpc_blaster_tpu_torch.sim import scenarios as TS
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 # The port runs on the CUDA card unless asked for the CPU; these tests

@@ -33,6 +33,7 @@ from mpc_blaster_tpu_torch.convert import (spec_from_numpy,
                                            tracking_to_numpy)
 from mpc_blaster_tpu_torch.ocp.spec import build_spec
 from mpc_blaster_tpu_torch.sim import tasks as TK
+from torch_threads import one_intraop_thread  # noqa: F401
 
 
 # The port runs on the CUDA card unless asked for the CPU; these tests

@@ -58,6 +58,7 @@ from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
 from mpc_blaster_tpu_torch.qp import ipm as tipm
 from mpc_blaster_tpu_torch.sqp import rti as trti
 from test_qp import random_qp
+from torch_threads import one_intraop_thread  # noqa: F401
 
 # The port runs on the CUDA card unless asked for the CPU; these tests
 # ask for it.
