@@ -132,6 +132,21 @@ after:
      device_time` against CUDA events on one K1 launch, and
      `utils.profiling.trace` around one sharded "safe" tick (a Chrome
      trace under chiprun_out/phase22_trace/).
+ 23. The flight I/O shell and the native runtime: (a) `libblaster_rt.so`
+     built with g++ from the checkout, `NativeQPSolver` against
+     `box_qp_solve` in float64 on the card, the 100 Hz `RateLoop`, the
+     pose ring; (b) the `FlightNode` on the flight preset (N=30, float32)
+     at 10 Hz over UDP loopback under `deployed_solver("safe")` (K6, the
+     framed wire) and "fastest" with warm_start=True (K3 and the redo,
+     MAVLink 2), held to tests/test_transport.py:91-150's pacing,
+     lateness and frame criteria unchanged, the native ring in use, no
+     watchdog trip; (d) `python -m mpc_blaster_tpu_torch` on the card,
+     its u0 against the JAX CLI's (`CLI_U0_JAX`); (c) the 6 s endurance
+     mission (`io/endurance.py`) with the offset-free controller on
+     "pallas" (K1 and K3 in PLAIN at N=10), tests/test_endurance.py's
+     smoke criteria, the worst work reported beside the 0.090 s
+     certification bound; one launch of each kernel on these paths held
+     to its twin at its shape.
 
 The host-bound paths of phases 17, 19, 20, 21 and 22 (the four sweeps, the
 blast rows, the paths of 19b-c, the phase-20 rows, the deep SQP, phase
@@ -307,6 +322,7 @@ Tolerances (kernel vs plain twin, both float32 on the card):
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -3400,6 +3416,393 @@ def phase22(dev, K, counted) -> dict:
     return out
 
 
+# ---- phase 23: the flight I/O shell and the native runtime ----
+FLIGHT_TICKS = 8      # tests/test_transport.py's n_ticks
+MISSION_S = 6.0       # tests/test_endurance.py's smoke mission
+CERT_WORK_S = 0.090   # tests/test_endurance.py:360 (reported, not checked)
+RATE_HZ, RATE_S = 100.0, 1.0   # 23a's RateLoop run
+# The JAX package's `python -m mpc_blaster_tpu` tick (the smoke preset in
+# float32, its eager Riccati IPM): u0 as that entry point prints it (4
+# decimals), recomputed by tests/test_torch_cli.py. The port's CLI on the
+# card prints a u0 held within CLI_U0_TOL (N) of it.
+CLI_U0_JAX = (5.85, 5.85, 5.85, 5.85, 0.0, 0.0)
+CLI_U0_TOL = 1e-3
+
+
+def parse_cli_u0(out: str) -> np.ndarray:
+    """The u0 that `python -m mpc_blaster_tpu[_torch]` prints."""
+    m = re.search(r"u0 = \[([^\]]*)\]", out)
+    return np.array([float(v) for v in m[1].split()])
+
+
+def to_device(obj, dev):
+    """Tensors, and the tuples (named or not) and dicts that hold them, on
+    dev."""
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        vals = [to_device(v, dev) for v in obj]
+        return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
+    return obj
+
+
+def captured_parity(wrapper: str, seen: dict, name: str) -> dict:
+    """A launch captured on a phase-23 path (`capture_launch`) against its
+    plain twin on the same inputs: the warm start's blend (0 iterations,
+    as `compare_warm`), one IPM iteration by phase 2's rule (u0 within
+    2e-3, the new iterate within 5e-3; where the kernel breaks it the twin
+    also runs on the host's CPU, and the check fails only if that twin
+    meets the rule, as phase 21 does), finite results at the launch's own
+    budget, and both timed (`time_captured`)."""
+    from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+    a, kw = seen["args"], dict(seen["kwargs"])
+    kw.pop("skip", None)
+    kern, twin = getattr(K, wrapper), getattr(K, wrapper + "_plain")
+    w = kw.get("warm")
+    row = {"case": name, "iters": kw.get("iters"),
+           "warm_valid": None if w is None else bool(w.valid.all())}
+
+    def gaps(x, y):
+        return ((x.du[:, 0] - y.du[:, 0]).abs().max().item(),
+                max((x.dx - y.dx).abs().max().item(),
+                    (x.du - y.du).abs().max().item()))
+    if w is not None:
+        sk, sp = kern(*a, **dict(kw, iters=0)), twin(*a, **dict(kw, iters=0))
+        torch.cuda.synchronize()
+        row["blend_max_abs_err"] = max(
+            (getattr(sk, f) - getattr(sp, f)).abs().max().item()
+            for f in SLACK_DUALS)
+        check(all(bool(torch.isclose(getattr(sk, f), getattr(sp, f),
+                                     rtol=1e-5, atol=1e-6).all())
+                  for f in SLACK_DUALS), "warm blend", case=name,
+              err=row["blend_max_abs_err"])
+    k1, t1 = kern(*a, **dict(kw, iters=1)), twin(*a, **dict(kw, iters=1))
+    torch.cuda.synchronize()
+    row["B"], row["N"] = k1.du.shape[0], k1.du.shape[1]
+    row["u0_err_1it"], row["max_abs_err_1it"] = gaps(k1, t1)
+    if row["u0_err_1it"] > 2e-3 or row["max_abs_err_1it"] > 5e-3:
+        cpu = torch.device("cpu")
+        h1 = to_device(twin(*to_device(a, cpu), **to_device(
+            dict(kw, iters=1), cpu)), k1.du.device)
+        hu, hi = gaps(h1, t1)
+        row.update(twin_cpu_u0_err_1it=hu, twin_cpu_max_abs_err_1it=hi)
+        check(hu > 2e-3 or hi > 5e-3, "one-iteration parity (the CPU twin "
+              "meets the rule where the kernel does not)", **row)
+    kf, tf = kern(*a, **kw), twin(*a, **kw)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(getattr(kf, f)).all())
+              for f in ("dx", "du", "kkt_eq")), "finite", case=name)
+    row["kkt_eq"] = [kf.kkt_eq.max().item(), tf.kkt_eq.max().item()]
+    t = time_captured(wrapper, seen)
+    row.update(kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"])
+    return row
+
+
+def native_runtime(dev) -> dict:
+    """Phase 23a: `libblaster_rt.so` built with g++ from the checkout into
+    mpc_blaster_tpu_torch/build/; `NativeQPSolver` against the port's
+    `box_qp_solve` in float64 on the card on tests/test_runtime.py:29-44's
+    random QPs (status 0, kkt_stat < 1e-7, kkt_eq < 1e-9, dx and du
+    within 5e-6, objectives within 1e-8) and its latency criterion (best
+    of five blocks < 33.3 ms, :73-89); `RateLoop` at 100 Hz for 1 s
+    (:92-101's criteria over the span: 0.8 to 5 times it, every tick
+    counted); `PoseRingBuffer` pushed past its capacity and drained."""
+    from mpc_blaster_tpu_torch.qp.data import qp_objective
+    from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
+    from mpc_blaster_tpu_torch.runtime import bindings as RB
+    so = RB.library_path()
+    fresh = not so.exists()
+    t0 = time.perf_counter()
+    RB.load_native()
+    out = {"library": str(so.relative_to(REPO)), "built_here": fresh,
+           "load_s": time.perf_counter() - t0}
+    check(so.exists() and so.parent == REPO / "mpc_blaster_tpu_torch" /
+          "build", "native library in the port's build dir", **out)
+    native, qps = RB.NativeQPSolver(iters=15), []
+    for seed in range(4):
+        qp = random_qp(seed=seed, bound_scale=2.0, dev=dev)
+        dx, du, st = native.solve(qp)
+        sol = box_qp_solve(qp, iters=15)
+        o_n = qp_objective(qp, torch.as_tensor(dx, device=dev),
+                           torch.as_tensor(du, device=dev)).item()
+        o_p = qp_objective(qp, sol.dx, sol.du).item()
+        r = {"seed": seed, "status": st["status"],
+             "kkt_stat": st["kkt_stat"], "kkt_eq": st["kkt_eq"],
+             "du_gap": float(np.abs(du - sol.du.cpu().numpy()).max()),
+             "dx_gap": float(np.abs(dx - sol.dx.cpu().numpy()).max()),
+             "obj_gap": abs(o_n - o_p)}
+        check(r["status"] == 0 and r["kkt_stat"] < 1e-7 and
+              r["kkt_eq"] < 1e-9 and r["du_gap"] <= 5e-6 and
+              r["dx_gap"] <= 5e-6 and r["obj_gap"] <= max(1e-8,
+                                                          1e-8 * abs(o_p)),
+              "native QP against box_qp_solve on the card", **r)
+        qps.append(r)
+    out["qp"] = qps
+    lat = random_qp(N=20, nx=17, nu=6, seed=7, bound_scale=5.0, dev=dev)
+    native10 = RB.NativeQPSolver(iters=10)
+    native10.solve(lat)
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            native10.solve(lat)
+        best = min(best, (time.perf_counter() - t0) / 4 * 1e3)
+    out["native_qp_best_ms_n20_17x6_10it"] = best
+    check(best < 33.3, "native QP within 33.3 ms", best_ms=best)
+    rl, n = RB.RateLoop(RATE_HZ), int(RATE_HZ * RATE_S)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rl.sleep()
+    elapsed = time.perf_counter() - t0
+    out["rate_loop"] = {"hz": RATE_HZ, "elapsed_s": elapsed, **rl.stats()}
+    check(0.8 * RATE_S < elapsed < 5 * RATE_S and
+          out["rate_loop"]["ticks"] == n and
+          out["rate_loop"]["deadline_misses"] <= n, "RateLoop at 100 Hz",
+          **out["rate_loop"])
+    ring = RB.PoseRingBuffer(capacity=8)
+    empty = ring.latest() is None
+    for i in range(12):
+        ring.push(float(i), [i, 0, 0], [1, 0, 0, 0])
+    latest, drained = ring.latest(), ring.drain(max_records=16)
+    out["ring_ok"] = bool(empty and latest[0] == 11.0 and len(drained) == 8
+                          and drained[0][0] == 4.0
+                          and drained[-1][0] == 11.0)
+    check(out["ring_ok"], "PoseRingBuffer push and drain")
+    log("native_runtime", **out)
+    return out
+
+
+def flight_preset_on(profile: str):
+    from mpc_blaster_tpu_torch import config as cfg
+    pre = cfg.flight_preset()
+    return dataclasses.replace(pre, ocp=dataclasses.replace(
+        pre.ocp, solver=cfg.deployed_solver(profile)))
+
+
+def fly_node(profile: str, wire: str, dev) -> dict:
+    """Phase 23b's flight: tests/test_transport.py:91-150 on the port's
+    FlightNode (the flight preset, float32, measured-pose feedback) under
+    `deployed_solver(profile)`, "fastest" with warm_start=True: the first
+    tick, then FLIGHT_TICKS ticks under the native `RateLoop` at 10 Hz
+    with a pose datagram before each, then the hover-out message."""
+    from mpc_blaster_tpu_torch.io.flight import FlightNode
+    from mpc_blaster_tpu_torch.io.transport import (UdpAttitudeAdapter,
+                                                     UdpEndpoint)
+    from mpc_blaster_tpu_torch.runtime import PoseRingBuffer, RateLoop
+    n = FLIGHT_TICKS
+    ep = UdpEndpoint(wire=wire).start()
+    adapter = UdpAttitudeAdapter(("127.0.0.1", ep.port), recv_port=0,
+                                 wire=wire)
+    try:
+        node = FlightNode(preset=flight_preset_on(profile), adapter=adapter,
+                          use_measured_pose=True,
+                          warm_start=profile == "fastest", device=dev)
+        native_ring = isinstance(adapter._ring, PoseRingBuffer)
+        node.tick()
+        rate = RateLoop(10.0)
+        work = []
+        t0 = time.monotonic()
+        for _ in range(n):
+            ep.send_pose(("127.0.0.1", adapter.recv_port), time.monotonic(),
+                         node.history_x[-1][0:3], [1.0, 0, 0, 0])
+            tw = time.perf_counter()
+            node.tick()
+            work.append(time.perf_counter() - tw)
+            rate.sleep()
+        elapsed = time.monotonic() - t0
+        node.shutdown()
+        stats = rate.stats()
+        deadline = time.monotonic() + 2.0
+        while len(ep.received) < n + 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        msgs = [m for _, _, m in ep.received]
+    finally:
+        adapter.close()
+        ep.stop()
+    trips = int(node._wd.trips) if profile == "fastest" else 0
+    row = {"profile": profile, "wire": wire, "ticks": n,
+           "elapsed_s": elapsed, **stats,
+           "work_ms_mean": 1e3 * float(np.mean(work)),
+           "work_ms_max": 1e3 * float(np.max(work)),
+           "frames": len(msgs), "pose_frames": adapter.pose_frames,
+           "native_ring": native_ring, "watchdog_trips": trips}
+    unit = all(abs(np.linalg.norm(m.orientation) - 1.0) <= 1e-5
+               for m in msgs[:-1])
+    crit = {
+        "pacing": 0.6 * n / 10.0 < elapsed < 2.0 * n / 10.0,
+        "ticks": stats["ticks"] == n,
+        "deadline_misses": stats["deadline_misses"] <= n // 2,
+        "worst_lateness": stats["worst_lateness_s"] < 0.25,
+        "mean_lateness": stats["mean_lateness_s"] < 0.06,
+        "frames": len(msgs) == n + 2,
+        "type_mask": all(m.type_mask == 7 for m in msgs),
+        "unit_quaternions": unit,
+        "shutdown_thrust": bool(msgs) and abs(msgs[-1].thrust - 0.705)
+        < 1e-6,
+        "pose_frames": adapter.pose_frames >= n,
+        "native_ring": native_ring,
+        "no_watchdog_trip": trips == 0,
+        "finite": bool(np.isfinite(np.asarray(node.history_x)).all())}
+    row["criteria_met"] = crit
+    check(all(crit.values()), "flight node at 10 Hz over UDP", **row)
+    return row
+
+
+def scripted_controller(dev, n: int):
+    """n ticks of the mission's controller on "pallas" (on the card) with
+    scripted hover-region measurements, as tests/test_torch_mission.py
+    feeds it (for capturing its launches)."""
+    from mpc_blaster_tpu_torch.io.endurance import (TARGET, mission_ocp)
+    from mpc_blaster_tpu_torch.io.mission import OffsetFreeFlightController
+    from mpc_blaster_tpu_torch.ocp.spec import build_spec
+    ocp = mission_ocp("pallas")
+    ctrl = OffsetFreeFlightController(ocp, build_spec(
+        ocp, yref=tuple(TARGET) + (0.0,) * 20, device=dev))
+    for k in range(n):
+        ctrl.tick(np.array([0.5 + 0.01 * k, 1.0 - 0.01 * k, 3.5 + 0.005 * k]),
+                  np.array([0.01 * np.sin(k / 3), -0.005, 0.002 * k]),
+                  np.array([0.1, -0.1, 0.05]))
+
+
+def start_cli() -> subprocess.Popen:
+    """`python -m mpc_blaster_tpu_torch` from the checkout, on the card
+    (no --device), started now and read by phase 23d."""
+    proc = subprocess.Popen([sys.executable, "-m", "mpc_blaster_tpu_torch"],
+                            cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def phase23(dev, cli_proc: subprocess.Popen) -> dict:
+    """Phase 23: the flight I/O shell and the native runtime on the card.
+    (a) `native_runtime`; (b) the flight node at 10 Hz over UDP loopback
+    (`fly_node`) under "safe" (one K6 launch a tick, N=30, 6 iterations,
+    the framed wire) and "fastest" (the guarded warm chain: K3 at N=30, 3
+    iterations, and the watchdog's redo, K6's cold launch, which returns
+    at once; MAVLink 2), each counted, and one launch of each captured
+    from a node's ticks and held to its twin (`captured_parity`); (d)
+    `python -m mpc_blaster_tpu_torch` in a subprocess (`start_cli`,
+    started beside the worker pool: it takes ~20 s, mostly CUDA's start
+    and one eager Riccati tick); (c) the 6 s
+    endurance mission (`io/endurance.py`: the vehicle and telemetry
+    processes, the faulty MAVLink link) with the offset-free controller on
+    "pallas" (K1 on the first tick and each redo, K3 on the warm ticks:
+    PLAIN, N=10, B=1, 6 iterations), tests/test_endurance.py:396-407's
+    smoke criteria, the worst work reported against the 0.090 s
+    certification bound. (d) runs before (c): the mission lowers this
+    process's priority (os.nice), which a child would inherit."""
+    from mpc_blaster_tpu_torch.io.endurance import mission_ocp, run_mission
+    out = {"launches": {}}
+    out["native"] = native_runtime(dev)
+    wall("23a native runtime")
+
+    n = FLIGHT_TICKS
+    out["flight"] = {}
+    for profile, wire, want in (
+            ("safe", "framed", {"fused_rti_solve": n + 1}),
+            ("fastest", "mavlink2", {"fused_rti_solve": 2 * (n + 1),
+                                     "fused_rti_solve.warm": 2 * (n + 1)})):
+        row, c = counted(want, f"phase 23b flight node {profile}",
+                         lambda p=profile, w=wire: fly_node(p, w, dev))
+        out["flight"][profile] = row
+        log("flight_node", **row)
+    out["launches"].update(
+        k6_safe=n + 1, k6_fastest_cold_and_redo=n + 2, k3_fastest=n)
+
+    def node_ticks(profile):
+        from mpc_blaster_tpu_torch.io.flight import FlightNode
+        node = FlightNode(preset=flight_preset_on(profile),
+                          warm_start=profile == "fastest", device=dev)
+        for _ in range(3):
+            node.tick()
+    out["captured"] = {
+        "k6_fuse_lin_n30_6it": captured_parity(
+            "fused_rti_solve", capture_launch(
+                "fused_rti_solve", 0, lambda: node_ticks("safe")),
+            "flight safe"),
+        "k3_fuse_lin_n30_3it": captured_parity(
+            "fused_rti_solve", capture_launch(
+                "fused_rti_solve", 2, lambda: node_ticks("fastest")),
+            "flight fastest")}
+    wall("23b flight node")
+
+    stdout, stderr = cli_proc.communicate(timeout=600)
+    name = torch.cuda.get_device_name(0)
+    cli = {"rc": cli_proc.returncode, "names_card": name in stdout,
+           "stdout": stdout[-600:], "stderr": stderr[-600:]}
+    if cli_proc.returncode == 0:
+        u0 = parse_cli_u0(stdout)
+        cli["u0"] = u0.tolist()
+        cli["u0_gap"] = float(np.abs(u0 - np.asarray(CLI_U0_JAX)).max())
+    check(cli_proc.returncode == 0 and cli["names_card"] and
+          cli.get("u0_gap", 1.0) <= CLI_U0_TOL,
+          "python -m mpc_blaster_tpu_torch on the card", **cli)
+    out["cli"] = cli
+    log("cli", **cli)
+    wall("23d CLI")
+
+    reset_counts()
+    r = run_mission(MISSION_S, mission_ocp("pallas"), device=dev)
+    got = counts()
+    ticks = len(r["errs"]) + 1   # the warm-up tick and the mission's
+    want = {k: 0 for k in got}
+    want.update({"box_qp_solve": 2 * ticks, "box_qp_solve.warm": 2 * ticks})
+    check(got == want, "phase 23c mission launches", got=got, want=want)
+    lay = layout_counts()
+    check(lay == {"resident": 2 * ticks}, "phase 23c layout", got=lay)
+    m = {"ticks": ticks - 1, "rx_total": r["rx_total"],
+         "rx_final": r["rx_final"], "veh_ticks": r["veh"]["rate"]["ticks"],
+         "dropped": r["veh"]["dropped"], "truncated": r["veh"]["truncated"],
+         "bursts": r["veh"]["bursts"],
+         "bad_frames": r["parser"]["bad_frames"],
+         "ctrl": r["ctrl"], "io": r["io"], "veh": r["veh"]["rate"],
+         "worst_work_s": r["ctrl"]["worst_work_s"],
+         "work_ms_mean": 1e3 * float(np.mean(r["work_s"])) if ticks > 1
+         else None,
+         "work_ms_median": 1e3 * float(np.median(r["work_s"]))
+         if ticks > 1 else None,
+         "certification_bound_s": CERT_WORK_S,
+         "within_certification_bound": r["ctrl"]["worst_work_s"]
+         < CERT_WORK_S,
+         "err_final_m": float(r["errs"][-1]) if ticks > 1 else None,
+         "err_max_m": float(r["errs"].max()) if ticks > 1 else None,
+         "d_est": r["d_est"].tolist(),
+         "watchdog_trips": r["watchdog_trips"]}
+    crit = {"rx_total": r["rx_total"] > 300,
+            "ticked": ticks > 1,
+            "errs_finite": bool(np.isfinite(r["errs"]).all()),
+            "veh_ticks": r["veh"]["rate"]["ticks"] == int(MISSION_S * 100),
+            "worst_work": r["ctrl"]["worst_work_s"] < 0.5,
+            "final_p_finite": bool(np.isfinite(r["veh"]["final_p"]).all())}
+    m["criteria_met"] = crit
+    check(all(crit.values()), "endurance mission smoke criteria", **m)
+    out["mission"] = m
+    log("mission", **m)
+    # without a trip every tick after the first is warm (K3) and every
+    # redo cold (K1); a trip's cold hold moves ticks from K3 to K1, which
+    # the counts cannot tell apart, so then the split is not reported
+    if r["watchdog_trips"] == 0:
+        out["launches"].update(k1_mission=ticks + 1, k3_mission=ticks - 1)
+    else:
+        out["launches"].update(k1_or_k3_mission=2 * ticks)
+    out["captured"].update({
+        "k1_plain_n10_6it": captured_parity(
+            "box_qp_solve", capture_launch(
+                "box_qp_solve", 0, lambda: scripted_controller(dev, 3)),
+            "mission cold"),
+        "k3_plain_n10_6it": captured_parity(
+            "box_qp_solve", capture_launch(
+                "box_qp_solve", 2, lambda: scripted_controller(dev, 3)),
+            "mission warm")})
+    for k, v in out["captured"].items():
+        log("phase23_kernel_vs_twin", launch=k, **v)
+    wall("23c mission")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this "
@@ -3973,6 +4376,9 @@ def run(dev: torch.device) -> int:
     # K3 in PLAIN), the blast scan's rows (19a: K6), the step-1 rows,
     # Jacobian reuse and the SQP (19b-c: K1, K3), the four sweeps (17: K1)
     # and the deep SQP with its twins on the CPU (21: K1)
+    # phase 23d's CLI runs beside the pool (its result does not depend on
+    # time; read in phase 23)
+    cli = start_cli()
     pool = run_workers([f"cond:{t}" for t in COND_TASKS]
                        + [f"step4:{r}" for r in STEP4_ROWS]
                        + [f"blast:{r}" for r in BLAST_ROWS]
@@ -4049,6 +4455,10 @@ def run(dev: torch.device) -> int:
     p22["condensed_loops"] = cond_loops({t: pool[f"cond:{t}"]
                                          for t in COND_TASKS})
     wall("22 solvers, sharding, utilities")
+    # phase 23: the flight I/O shell, the native runtime, the CLI and the
+    # endurance mission
+    p23 = phase23(dev, cli)
+    wall("23 flight shell, runtime, CLI, mission")
 
     if FAILURES:
         for f in FAILURES:
@@ -4112,6 +4522,14 @@ def run(dev: torch.device) -> int:
     k6_21 = {"phase21_k6_b1_safe": l21["k6_b1_safe"]["fused_rti_solve"],
              "phase21_k3_fastest_redo": k3_21,
              "phase21_recovery_safe": l21["recovery_k6_safe"]}
+    l23, c23 = p23["launches"], p23["captured"]
+    k1_19.update({f"phase23_{k}": v for k, v in l23.items()
+                  if k in ("k1_mission", "k1_or_k3_mission")})
+    k6_21.update({"phase23_flight_safe": l23["k6_safe"],
+                  "phase23_flight_fastest_cold_and_redo":
+                  l23["k6_fastest_cold_and_redo"]})
+    k3_23 = {"phase23_flight_fastest": l23["k3_fastest"],
+             "phase23_mission": l23.get("k3_mission", 0)}
     k4_21 = {f"phase21_{k}": sum(v.values()) // 2 for k, v in l21.items()
              if k.startswith("k4")}
     warm_n20 = next(r for r in warm_rows if r["case"] == "plain_n20_b1")
@@ -4171,13 +4589,13 @@ def run(dev: torch.device) -> int:
         {"name": "box_qp_ipm_warm", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["box_qp_ipm_warm"],
          "launches": warm_launches + sum(p19["k3"].values())
-         + sum(p20["k3"].values()) + k3_21,
+         + sum(p20["k3"].values()) + k3_21 + sum(k3_23.values()),
          "launches_by_path": {"fuse_lin_warm_chains": warm_launches,
                               **{f"phase19_{k}_plain": v
                                  for k, v in p19["k3"].items()},
                               **{f"phase20_{k}_plain": v
                                  for k, v in p20["k3"].items()},
-                              "phase21_k3_fastest": k3_21},
+                              "phase21_k3_fastest": k3_21, **k3_23},
          "max_abs_err": max(max(r["blend_max_abs_err"], r["max_abs_err_1it"])
                             for r in warm_rows),
          "blend_max_abs_err": max(r["blend_max_abs_err"] for r in warm_rows),
@@ -4306,6 +4724,25 @@ def run(dev: torch.device) -> int:
          "ns_per_step": probes["p2"]["ns_per_step"],
          "chains4_over_chains1": probes["p2"]["chains4_over_chains1"]},
     ]}
+    # phase 23's shapes: each captured launch's kernel and twin ms, its
+    # bound and its one-iteration error
+    p23_shapes = {
+        "box_qp_ipm": (("k1_plain_n10_6it", "plain", 10, SAFE_ITERS, False),),
+        "box_qp_ipm_fuse_lin": (("k6_fuse_lin_n30_6it", "fuse_lin", 30,
+                                 SAFE_ITERS, False),),
+        "box_qp_ipm_warm": (("k3_fuse_lin_n30_3it", "fuse_lin", 30,
+                             FASTEST_ITERS, True),
+                            ("k3_plain_n10_6it", "plain", 10, SAFE_ITERS,
+                             True))}
+    for e in report["kernels"]:
+        for key, mode, N, iters, warm in p23_shapes.get(e["name"], ()):
+            r = c23[key]
+            e["phase23_" + key] = {
+                "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": launch_bound(mode, N, 1, iters,
+                                         warm=warm)["bound_ms"],
+                "max_abs_err_1it": r["max_abs_err_1it"]}
+            e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err_1it"])
     wall("report")
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {

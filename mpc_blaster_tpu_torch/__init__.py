@@ -10,7 +10,7 @@ in the plain and fuse_lin modes, for the 17x6 BLASTER and the 13x4 quad13
 models, at any horizon) is a hand-written CUDA C++ kernel for sm_90a
 (`csrc/box_qp_ipm.cu`, wrapped by `ops/box_qp_ipm.py`).
 
-Ported so far (the RTI ticks and closed loop, cold, warm-started or
+Ported (the RTI ticks and closed loop, cold, warm-started or
 soft-bounded, on the presets' default `qp_backend="riccati"`, on `"pallas"`
 and on the deployed one-launch `"pallas_fused"`, with the divergence
 watchdog; the batched ticks on the "xla", "pallas" and "pallas_fused"
@@ -39,11 +39,19 @@ backends; the quad13 model; the offset-free loop and figure-8 tracking):
                   sweep, the `torch.distributed` process group
   - ``utils``     solve statistics, timers and profiler traces, device
                   timing, checkpoints
+  - ``io``        the flight I/O shell: the flight node and its adapters,
+                  the UDP transport (framed and MAVLink 1/2), the MAVLink
+                  codec, the pose probes, the endurance-mission harness
+                  (SITL-lite vehicle, faulty link, offset-free controller)
+  - ``runtime``   the native C++ runtime (host code: the CPU box-QP IPM,
+                  the fixed-rate loop, the lock-free pose ring), built
+                  with g++ at first use into the git-ignored `build/`
   - ``convert``   numpy <-> port containers (state shared with the JAX side)
 
-The I/O and runtime subpackages, the CLI and the bench are not ported
-yet (ROADMAP queue 1 steps 8b and 9); an option the port lacks raises
-`NotImplementedError` naming the ROADMAP item that ports it. Presets are the port's own copy of
+`python -m mpc_blaster_tpu_torch [--device cpu]` is the build-sanity CLI;
+`examples/torch_*.py` are the JAX package's examples on the port. An
+option the port lacks raises `NotImplementedError` naming the ROADMAP
+item that ports it. Presets are the port's own copy of
 `mpc_blaster_tpu.config` (`config.py`): the port imports nothing of the
 JAX package.
 

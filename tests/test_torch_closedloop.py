@@ -129,7 +129,15 @@ PORT_MODULES = [
     "mpc_blaster_tpu_torch.utils.profiling",
     "mpc_blaster_tpu_torch.utils.timing",
     "mpc_blaster_tpu_torch.utils.checkpoint",
+    "mpc_blaster_tpu_torch.io", "mpc_blaster_tpu_torch.io.telemetry",
+    "mpc_blaster_tpu_torch.io.mavlink", "mpc_blaster_tpu_torch.io.flight",
+    "mpc_blaster_tpu_torch.io.transport", "mpc_blaster_tpu_torch.io.mission",
+    "mpc_blaster_tpu_torch.io.endurance", "mpc_blaster_tpu_torch.runtime",
+    "mpc_blaster_tpu_torch.runtime.bindings", "mpc_blaster_tpu_torch.__main__",
 ]
+# The port's examples (examples/torch_*.py), imported as modules.
+EXAMPLE_MODULES = sorted(
+    f"examples.{p.stem}" for p in (REPO / "examples").glob("torch_*.py"))
 
 
 def _imports_clean(modules):
@@ -150,7 +158,8 @@ def _imports_clean(modules):
 
 
 def test_port_imports_no_jax():
-    """Importing every port module, chip_smoke.py and kernel_ab.py loads
+    """Importing every port module, the port's examples, chip_smoke.py and
+    kernel_ab.py loads
     nothing of JAX or of the JAX package, and the module list above covers
     every file of the package."""
     found = sorted(
@@ -159,7 +168,9 @@ def test_port_imports_no_jax():
         for p in (REPO / "mpc_blaster_tpu_torch").rglob("*.py"))
     subpackages = {m for m in found if (REPO / m.replace(".", "/")).is_dir()}
     assert set(found) - subpackages <= set(PORT_MODULES), found
-    _imports_clean(PORT_MODULES + ["chip_smoke", "kernel_ab"])
+    assert len(EXAMPLE_MODULES) == 4, EXAMPLE_MODULES
+    _imports_clean(PORT_MODULES + EXAMPLE_MODULES + ["chip_smoke",
+                                                     "kernel_ab"])
 
 
 def test_default_device_is_the_card():
@@ -201,7 +212,8 @@ def test_default_device_is_the_card():
     assert res.xs.device.type == "cpu" and torch.isfinite(res.xs).all()
 
 
-@pytest.mark.parametrize("module", PORT_MODULES + ["chip_smoke"])
+@pytest.mark.parametrize("module", PORT_MODULES + EXAMPLE_MODULES
+                         + ["chip_smoke"])
 def test_port_module_imports_nothing_of_jax(module):
     """The same check for each module alone, so that no module passes only
     because another one was imported first."""
@@ -355,6 +367,8 @@ PAIRED_MODULES = [
     "sim.scenarios", "sim.tasks", "parallel.mesh", "qp.pscan",
     "qp.sqrt_riccati", "qp.condense", "parallel.distributed", "sim.plots",
     "utils.metrics", "utils.profiling", "utils.timing", "utils.checkpoint",
+    "io.telemetry", "io.mavlink", "io.flight", "io.transport", "io.mission",
+    "runtime.bindings", "__main__",
 ]
 
 # Public functions that differ from the JAX package on purpose (or, where

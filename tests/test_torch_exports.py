@@ -20,7 +20,7 @@ REPO = Path(__file__).resolve().parents[1]
 JAX_PKG = REPO / "mpc_blaster_tpu"
 
 # Whole subpackages of the JAX package that the port does not have yet.
-SUBPACKAGES_NOT_YET = {"io": "step 8", "runtime": "step 8"}
+SUBPACKAGES_NOT_YET: dict = {}
 # Single names not ported yet, per subpackage.
 NAMES_NOT_YET: dict = {}
 # The JAX `ops` exports Pallas entry points; the port's `ops` exports its
