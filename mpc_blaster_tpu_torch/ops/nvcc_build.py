@@ -3,7 +3,9 @@
 The kernels have a plain C interface and are loaded with ctypes; each is
 compiled at first use into the git-ignored `mpc_blaster_tpu_torch/build/`
 for Hopper (`sm_90a`), under a name that hashes the source and the flags,
-so a changed source is rebuilt and an unchanged one is not.
+so a changed source is rebuilt and an unchanged one is not. The native
+host runtime (`runtime/bindings.py`) builds its C++ sources with g++
+through the same two functions.
 """
 from __future__ import annotations
 
@@ -29,38 +31,51 @@ def nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path(source: Path, stem: str) -> Path:
-    """Path of the built library for the current source and flags."""
-    h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+def library_path(sources, stem: str, flags=NVCC_FLAGS, target: str = "",
+                 build_dir: Path = BUILD_DIR) -> Path:
+    """Path of the built library for the current sources (one path or a
+    sequence), flags and compile target."""
+    h = hashlib.sha256()
+    for src in _sources(sources):
+        h.update(src.read_bytes())
+    h.update(" ".join((*flags, target) if target else flags).encode())
+    return build_dir / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(source: Path, stem: str):
-    """Compile `source` with nvcc into `build/` (rebuilt when the source or
-    flags change). Returns (path, seconds, compiler log); seconds is 0.0
-    when an up-to-date build already existed. Raises RuntimeError with
-    the compiler's output when nvcc fails."""
-    so = library_path(source, stem)
+def build(sources, stem: str, compiler: str | None = None, flags=NVCC_FLAGS,
+          target: str = "", build_dir: Path = BUILD_DIR):
+    """Compile `sources` with `compiler` (nvcc by default) into
+    `build_dir` (rebuilt when a source, the flags or the target change).
+    Returns (path, seconds, compiler log); seconds is 0.0 when an
+    up-to-date build already existed. Raises RuntimeError with the
+    compiler's output when it fails."""
+    srcs = _sources(sources)
+    so = library_path(srcs, stem, flags, target, build_dir)
     log = so.with_suffix(".log")
     if so.exists():
         return so, 0.0, log.read_text() if log.exists() else ""
-    exe = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    exe = compiler or nvcc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     try:
         t0 = time.perf_counter()
-        res = subprocess.run([exe, *NVCC_FLAGS, "-o", tmp, str(source)],
+        res = subprocess.run([exe, *flags, "-o", tmp, *map(str, srcs)],
                              capture_output=True, text=True)
         secs = time.perf_counter() - t0
         text = res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} "
-                               f"({res.returncode}):\n{text}")
+            raise RuntimeError(
+                f"{Path(exe).name} failed on "
+                f"{', '.join(s.name for s in srcs)} ({res.returncode}):\n"
+                f"{text}")
         log.write_text(text)
         os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so, secs, text
+
+
+def _sources(sources) -> tuple:
+    return (sources,) if isinstance(sources, Path) else tuple(sources)

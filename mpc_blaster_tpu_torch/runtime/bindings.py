@@ -3,9 +3,8 @@
 Builds `libblaster_rt.so` on first use with g++ from the port's own copy
 of the sources (`runtime/native/riccati_qp.cpp`, `executor.cpp`) into the
 git-ignored `mpc_blaster_tpu_torch/build/`, under a name that hashes the
-sources, the flags and the target `-march=native` resolves to (as
-`ops/nvcc_build.py::library_path` does for the CUDA sources), then
-exposes:
+sources, the flags and the target `-march=native` resolves to, through
+the CUDA sources' build functions (`ops/nvcc_build.py`), then exposes:
 
   - `NativeQPSolver` — the CPU real-time OCP-QP solver (acados/HPIPM role:
     flight-computer deployments and differential testing of the IPMs);
@@ -20,16 +19,16 @@ card, and `NativeQPSolver` copies the port's tensors to host float64.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from mpc_blaster_tpu_torch.ops import nvcc_build
 
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 SOURCES = ("riccati_qp.cpp", "executor.cpp")
@@ -44,44 +43,33 @@ _build_error: Optional[str] = None
 _D = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 
 
-def _native_target() -> str:
-    """The -march that -march=native resolves to on this host, so that a
-    checkout moved to another host rebuilds instead of loading code for
-    the wrong CPU."""
+def _target() -> str:
+    """The compiler and the target its -march=native resolves to on this
+    host (part of the library's name: a checkout moved to another host
+    rebuilds instead of loading code for the wrong CPU)."""
     res = subprocess.run([CXX, "-march=native", "-Q", "--help=target"],
                          capture_output=True, text=True, check=True)
-    return " ".join(ln.split()[-1] for ln in res.stdout.splitlines()
-                    if ln.strip().startswith(("-march=", "-mtune=")))
+    return " ".join([CXX] + [ln.split()[-1] for ln in res.stdout.splitlines()
+                             if ln.strip().startswith(("-march=",
+                                                       "-mtune="))])
 
 
 def library_path() -> Path:
     """Path of the built library for the current sources, flags and host
     target."""
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((NATIVE_DIR / name).read_bytes())
-    h.update(" ".join((CXX, *CXXFLAGS, _native_target())).encode())
-    return BUILD_DIR / f"libblaster_rt_{h.hexdigest()[:16]}.so"
+    return nvcc_build.library_path(_sources(), "libblaster_rt", CXXFLAGS,
+                                   _target(), BUILD_DIR)
 
 
-def _build(so: Path) -> None:
-    """Compile the sources into `so` (atomically: a concurrent build or
-    load never sees half a file). Raises CalledProcessError on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run(
-            [CXX, *CXXFLAGS, "-o", tmp,
-             *(str(NATIVE_DIR / n) for n in SOURCES)],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise subprocess.CalledProcessError(
-                res.returncode, res.args, res.stdout, res.stderr)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+def _sources() -> tuple:
+    return tuple(NATIVE_DIR / n for n in SOURCES)
+
+
+def _build() -> Path:
+    """`library_path()`, compiled first if it is not there (atomically: a
+    concurrent build or load never sees half a file)."""
+    return nvcc_build.build(_sources(), "libblaster_rt", CXX, CXXFLAGS,
+                            _target(), BUILD_DIR)[0]
 
 
 def load_native() -> ctypes.CDLL:
@@ -93,13 +81,9 @@ def load_native() -> ctypes.CDLL:
         if _build_error is not None:
             raise RuntimeError(_build_error)
         try:
-            so = library_path()
-            if not so.exists():
-                _build(so)
-            lib = ctypes.CDLL(str(so))
-        except (OSError, subprocess.CalledProcessError) as e:
-            detail = getattr(e, "stderr", None) or ""
-            _build_error = f"native runtime unavailable: {e}\n{detail}"
+            lib = ctypes.CDLL(str(_build()))
+        except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+            _build_error = f"native runtime unavailable: {e}"
             raise RuntimeError(_build_error) from e
 
         lib.blaster_qp_solve.restype = ctypes.c_int

@@ -250,6 +250,19 @@ def _linearize(spec, state, F, params, linearizer):
                             params)
 
 
+def _linearize_pair(spec, a: RTIState, b: RTIState, F, params, linearizer):
+    """(x_next, A, B) at the nodes of two iterates of one horizon N, from
+    one linearization over 2N nodes, a's then b's (every linearizer reads
+    xbar[:-1], ubar and stage_params node by node)."""
+    N = a.ubar.shape[0]
+    both = RTIState(xbar=torch.cat([a.xbar[:-1], b.xbar], 0),
+                    ubar=torch.cat([a.ubar, b.ubar], 0))
+    sp = torch.cat([spec.stage_params, spec.stage_params], 0)
+    lin = _linearize(spec._replace(stage_params=sp), both, F, params,
+                     linearizer)
+    return tuple(t[:N] for t in lin), tuple(t[N:] for t in lin)
+
+
 def build_qp(spec: OCPSpec, state: RTIState, x0: torch.Tensor, F,
              params: BlasterParams, linearizer=None, solver=None) -> QPData:
     """Linearize dynamics + cost around the iterate -> delta-form QP.
@@ -533,28 +546,37 @@ def rti_step_warm_guarded(spec: OCPSpec, state: RTIState,
     kernel backends return at once on an accepted tick (one short launch)
     and the results are selected with `torch.where`. No host sync per
     tick. The eager Riccati backend and the plain twins always compute the
-    redo. Returns (u0, new_state, warm_out, wd_out, diag), diag of the
-    ACCEPTED solve.
+    redo. Off "pallas_fused" one linearizer call over the two iterates'
+    2N nodes (`_linearize_pair`) serves both solves: an eager
+    linearization costs its op count more than its width. Returns (u0,
+    new_state, warm_out, wd_out, diag), diag of the ACCEPTED solve.
     """
     force_cold = wd.hold > 0
     warm_in = warm._replace(valid=torch.where(
         force_cold, torch.zeros_like(warm.valid), warm.valid))
+    x0_safe = torch.where(torch.isfinite(x0), x0, torch.zeros_like(x0))
+    xb = torch.where(torch.isfinite(state.xbar), state.xbar, x0_safe)
+    ub = torch.where(torch.isfinite(state.ubar), state.ubar,
+                     torch.zeros_like(state.ubar))
+    ub = torch.minimum(torch.maximum(ub, spec.lbu), spec.ubu)
+    sane = RTIState(xbar=xb, ubar=ub)
+    lin_keep = lin_redo = linearizer
+    if solver.qp_backend != "pallas_fused":
+        at_keep, at_redo = _linearize_pair(spec, state, sane, F, params,
+                                           linearizer)
+        lin_keep, lin_redo = (lambda *_: at_keep), (lambda *_: at_redo)
+
     keep = rti_step_warm(spec, state, warm_in, x0, params, F, solver,
-                         linearizer=linearizer, dyn_statics=dyn_statics)
+                         linearizer=lin_keep, dyn_statics=dyn_statics)
     u0, _, _, diag1 = keep
     thresh = torch.clamp(jump * wd.ema_eq, min=floor)
     bad = (~torch.isfinite(u0).all() | ~torch.isfinite(diag1.qp_kkt_eq)
            | (diag1.qp_kkt_eq > thresh) | (diag1.bound_viol > viol_cap))
 
     warm_cold = warm._replace(valid=torch.zeros_like(warm.valid))
-    x0_safe = torch.where(torch.isfinite(x0), x0, torch.zeros_like(x0))
-    xb = torch.where(torch.isfinite(state.xbar), state.xbar, x0_safe)
-    ub = torch.where(torch.isfinite(state.ubar), state.ubar,
-                     torch.zeros_like(state.ubar))
-    ub = torch.minimum(torch.maximum(ub, spec.lbu), spec.ubu)
-    redo = rti_step_warm(spec, RTIState(xbar=xb, ubar=ub), warm_cold, x0,
-                         params, F, solver, linearizer=linearizer,
-                         dyn_statics=dyn_statics, skip=~bad)
+    redo = rti_step_warm(spec, sane, warm_cold, x0, params, F, solver,
+                         linearizer=lin_redo, dyn_statics=dyn_statics,
+                         skip=~bad)
     u0g, stg, warmg, diagg = _select(bad, redo, keep)
 
     eq_acc = diagg.qp_kkt_eq

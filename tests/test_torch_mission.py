@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+import chip_smoke
 from mpc_blaster_tpu import config as jcfg
 from mpc_blaster_tpu.io import mission as J
 from mpc_blaster_tpu.ocp.spec import build_spec as jbuild_spec
@@ -172,6 +173,26 @@ def test_offset_free_controller_matches_jax_f32():
     g = _gaps(jc, tc, 15)
     assert (g[0] <= 1e-6).all(), g[0]
     assert (g.max(0) <= [0.04, 0.5, 4.0]).all(), g.max(0)
+
+
+def test_offset_free_controller_pallas_twin_matches_riccati():
+    """chip_smoke.py's mission witness on the CPU: the controller on
+    "pallas" (here the kernel's plain twin) against "riccati" over the
+    same fifteen scripted ticks, no watchdog trip on either, the gaps
+    within the bounds the card's run is held to (`WITNESS_TOL`, this
+    file's f32 bounds on the port against JAX; measured 7.8e-3, 0.24 and
+    2.0), the first (cold) tick within `WITNESS_FIRST_TOL` (measured
+    1.7e-8, 0 and 0)."""
+    assert chip_smoke.WITNESS_TICKS == 15
+    assert chip_smoke.WITNESS_TOL == (0.04, 0.5, 4.0)
+    p = chip_smoke.scripted_controller(DEV, 15, "pallas")
+    r = chip_smoke.scripted_controller(DEV, 15, "riccati")
+    assert p["trips"] == r["trips"] == 0
+    g = np.stack([np.abs(p["q"] - r["q"]).max(1),
+                  np.abs(p["thrust"] - r["thrust"]),
+                  np.abs(p["d_est"] - r["d_est"]).max(1)], 1)
+    assert (g[0] <= chip_smoke.WITNESS_FIRST_TOL).all(), g[0]
+    assert (g.max(0) <= chip_smoke.WITNESS_TOL).all(), g.max(0)
 
 
 def test_offset_free_controller_refuses_pallas_fused():

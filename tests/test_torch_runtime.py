@@ -191,6 +191,28 @@ def test_library_is_built_in_the_ports_build_dir():
     assert after == before
 
 
+def test_native_build_goes_through_the_cuda_builder(tmp_path):
+    """The native runtime is built by `ops/nvcc_build.py`, as the kernels
+    are: its name hashes both sources, the flags and the host target, and
+    a compiler that fails raises RuntimeError naming it and the sources,
+    leaving no file behind."""
+    from mpc_blaster_tpu_torch.ops import nvcc_build
+    srcs = tuple(bindings.NATIVE_DIR / n for n in bindings.SOURCES)
+    assert bindings.library_path() == nvcc_build.library_path(
+        srcs, "libblaster_rt", bindings.CXXFLAGS, bindings._target(),
+        bindings.BUILD_DIR)
+    other = nvcc_build.library_path(srcs, "libblaster_rt",
+                                    bindings.CXXFLAGS, "another target")
+    assert other.name != bindings.library_path().name
+    assert nvcc_build.library_path(srcs[0], "x") == nvcc_build.library_path(
+        (srcs[0],), "x")
+    with pytest.raises(RuntimeError, match="false failed on riccati_qp.cpp, "
+                                           "executor.cpp"):
+        nvcc_build.build(srcs, "libblaster_rt", "false", bindings.CXXFLAGS,
+                         "t", tmp_path)
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_failed_build_raises(monkeypatch, tmp_path):
     """A failed native build raises RuntimeError (and keeps raising), as in
     the JAX package; the transport then falls back to its deque."""

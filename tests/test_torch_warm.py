@@ -489,6 +489,56 @@ def test_watchdog_trips_out_of_envelope():
     assert torch.isfinite(u_g).all()
 
 
+@pytest.mark.parametrize("lin_backend", ["fused", "jacfwd"])
+def test_watchdog_linearizes_once_a_tick(lin_backend, monkeypatch):
+    """Off "pallas_fused" the guarded tick makes one linearization, over
+    the carried iterate's and its sanitized copy's 2N nodes (a NaN row
+    and an out-of-box control make the two differ), and each half equals
+    that iterate's own linearization bit for bit."""
+    ocp, spec, params, F, lin, sv = _wd_setup(iters=3)
+    calls = []
+    if lin_backend == "fused":
+        fused = lin
+
+        def lin(xbar, ubar, sp):
+            calls.append(ubar.shape[0])
+            return fused(xbar, ubar, sp)
+        own = fused
+    else:
+        lin, nodes = None, trti._linearize_nodes
+
+        def spy(F_, xbar, ubar, sp, params_):
+            calls.append(ubar.shape[0])
+            return nodes(F_, xbar, ubar, sp, params_)
+        monkeypatch.setattr(trti, "_linearize_nodes", spy)
+
+        def own(xbar, ubar, sp):
+            return nodes(F, xbar, ubar, sp, params)
+    x0 = torch.zeros(NX)
+    x0[2] = 1.0
+    st = trti.init_rti_state(ocp, x0, device=DEV)
+    xbar, ubar = st.xbar.clone(), st.ubar.clone()
+    xbar[4, 0] = float("nan")
+    ubar[2, 0] = spec.ubu[0] + 1.0
+    st = trti.RTIState(xbar=xbar, ubar=ubar)
+    warm = tipm.IpmWarmStart.zeros(WD_N, NX, NU, device=DEV)
+    wd = trti.WatchdogState.init(device=DEV)
+    spied = []
+    pair = trti._linearize_pair
+    monkeypatch.setattr(trti, "_linearize_pair", lambda *a: spied.append(
+        pair(*a)) or spied[-1])
+    trti.rti_step_warm_guarded(spec, st, warm, wd, x0, params, F, sv,
+                               linearizer=lin)
+    assert calls == [2 * WD_N] and len(spied) == 1
+    sane = trti.RTIState(
+        xbar=torch.where(torch.isfinite(xbar), xbar, x0),
+        ubar=torch.minimum(torch.maximum(ubar, spec.lbu), spec.ubu))
+    for got, it in zip(spied[0], (st, sane)):
+        want = own(it.xbar, it.ubar, spec.stage_params)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
 def test_watchdog_quiet_on_deployed_chain():
     """The deployed warm profile (3-iteration shifted primal chain, the
     settings of deployed_solver("fastest")) through the climb transient
