@@ -147,6 +147,15 @@ after:
      smoke criteria, the worst work reported beside the 0.090 s
      certification bound; one launch of each kernel on these paths held
      to its twin at its shape.
+ 24. The horizon ("hp") sharding of the log-depth scans (eager PyTorch,
+     no kernel of ours): (a) tests/test_pscan.py:107-125's QP (N=64,
+     float64 and float32) through `lqr_solve_pscan` on 4- and 8-chunk
+     "hp" meshes of the card against the unsharded solve and
+     `lqr_solve`; (b) the simulation preset's QP at N=240 (float32)
+     through `box_qp_solve(riccati="pscan")` on a 4-chunk mesh against the
+     unsharded solve (objective, kkt_eq), both timed, the gap to K7's
+     solve reported; (c) (b) again under a one-rank NCCL process group,
+     bit for bit.
 
 The host-bound paths of phases 17, 19, 20, 21 and 22 (the four sweeps, the
 blast rows, the paths of 19b-c, the phase-20 rows, the deep SQP, phase
@@ -4106,6 +4115,179 @@ def phase23(dev, cli_proc: subprocess.Popen) -> dict:
     return out
 
 
+# ---- phase 24: the horizon ("hp") sharding of the log-depth scans ----
+HP_SHARDS = (4, 8)     # 24a's meshes: chunks of cuda:0
+HP_BOX_SHARDS = 4      # 24b-c
+HP_N = 240             # 24b: phase 15's long horizon
+HP_LQR_TOL = {"rtol": 1e-6, "atol": 1e-7}   # tests/test_pscan.py:124-125
+# f64 gaps on this host's CPU 2.8e-16-5.0e-16 (sharded against unsharded
+# and `lqr_solve`); held at 1e-12
+HP_LQR_F64_ATOL = 1e-12
+# 24b on the CPU (float32): the objective's relative gap 2.1e-8, kkt_eq
+# 8.04e-6 against 7.93e-6; held at 1e-5 (phase 22a's bound between modes)
+# and 1e-5 on kkt_eq's gap, kkt_eq below 1e-4 (phase 22a's)
+HP_OBJ_RTOL = 1e-5
+HP_EQ_GAP = 1e-5
+
+
+def hp_lqr(dev) -> dict:
+    """Phase 24a: tests/test_pscan.py:107-125's QP (N=64, nx=4, nu=2, seed
+    5) through `lqr_solve_pscan` on 4- and 8-chunk "hp" meshes of the card,
+    in float64 and float32, against the unsharded `lqr_solve_pscan` and
+    `lqr_solve` on the card."""
+    from mpc_blaster_tpu_torch.parallel.mesh import make_mesh
+    from mpc_blaster_tpu_torch.qp.pscan import lqr_solve_pscan
+    from mpc_blaster_tpu_torch.qp.riccati import lqr_solve
+    out = {}
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        qp = random_qp(N=64, nx=4, nu=2, seed=5, dev=dev, dtype=dtype)
+        fns = {"unsharded": lambda: lqr_solve_pscan(qp),
+               "sequential": lambda: lqr_solve(qp)}
+        for n in HP_SHARDS:
+            mesh = make_mesh(n, axis="hp", device=dev)
+            fns[f"hp{n}"] = lambda mesh=mesh: lqr_solve_pscan(qp, mesh=mesh)
+        sols, rounds = timed_rounds(fns, TIMED_ROUNDS)
+        row = {"ms": {k: min(v) for k, v in rounds.items()}}
+        # in float32 the log-depth scan and the sequential sweep part by a
+        # few ulps, sharded or not (run 1: 2.2e-7 unsharded, 2.4e-7
+        # sharded, past tests/test_pscan.py's f64 tolerance): against
+        # `lqr_solve` the sharded solve may part by that tolerance more
+        # than the unsharded scan does, element by element
+        par, seq = sols["unsharded"].du, sols["sequential"].du
+        own = (par - seq).abs() if name == "f32" else torch.zeros_like(seq)
+        row["du_gap_unsharded_sequential"] = float((par - seq).abs().max())
+        row["unsharded_within_f64_tol_of_sequential"] = bool(
+            torch.allclose(par, seq, **HP_LQR_TOL))
+        for n in HP_SHARDS:
+            s = sols[f"hp{n}"]
+            for ref, extra in (("unsharded", 0.0), ("sequential", own)):
+                r = sols[ref]
+                gap = float((s.du - r.du).abs().max())
+                row[f"hp{n}_du_gap_{ref}"] = gap
+                ok = bool(((s.du - r.du).abs() <= HP_LQR_TOL["atol"]
+                           + HP_LQR_TOL["rtol"] * r.du.abs() + extra).all())
+                if name == "f64":
+                    ok = ok and gap <= HP_LQR_F64_ATOL
+                check(ok and s.du.device == dev and s.dx.shape == (65, 4),
+                      "phase 24a sharded lqr_solve_pscan", dtype=name,
+                      shards=n, ref=ref, gap=gap)
+        out[name] = row
+        log("hp_lqr", dtype=name, N=64, **row)
+    return out
+
+
+def hp_box(dev, K, mesh):
+    """Phase 24b: the 17x6 QP `build_qp` assembles for the simulation
+    preset at N=240 (float32) through `box_qp_solve(riccati="pscan",
+    iters=12)` on a 4-chunk "hp" mesh of the card against the unsharded
+    solve (the objective's relative gap, kkt_eq); both timed, one warm-up
+    each; the objective's gap to K7's solve of the same QP reported (a
+    different solver: ROADMAP's parity rules). Returns (row, the sharded
+    solution, the QP)."""
+    from mpc_blaster_tpu_torch.qp.data import QPData, qp_objective
+    from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
+    t0 = time.perf_counter()
+    qp = blaster_qps(HP_N, 1, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q64 = QPData(*(x.double() for x in qp))
+
+    def obj(s):
+        return float(qp_objective(q64, s.dx.double(), s.du.double()))
+
+    def eager():
+        first = timed(lambda: box_qp_solve(qp, iters=FULL_ITERS,
+                                           riccati="pscan", mesh=mesh), 1)
+        return first, *timed_rounds(
+            {"unsharded": lambda: box_qp_solve(qp, iters=FULL_ITERS,
+                                               riccati="pscan"),
+             "hp": lambda: box_qp_solve(qp, iters=FULL_ITERS,
+                                        riccati="pscan", mesh=mesh)}, 1)
+    ((first, first_ms), sols, rounds), _ = counted(
+        {}, "phase 24b eager solves", eager)
+    sh, ref = sols["hp"], sols["unsharded"]
+    (k7, _), c = counted({"box_qp_solve": 1}, "phase 24b K7", lambda: timed(
+        lambda: K.box_qp_solve(qp, iters=FULL_ITERS), 1), layout="global")
+    o_sh, o_ref, o_k7 = obj(sh), obj(ref), obj(k7)
+    row = {"N": HP_N, "shards": mesh.size, "iters": FULL_ITERS,
+           "ms_unsharded": rounds["unsharded"][0], "ms_hp": rounds["hp"][0],
+           "ms_hp_first_call": first_ms, "qp_build_s": build_s,
+           "objective": {"hp": o_sh, "unsharded": o_ref, "k7": o_k7},
+           "obj_rel_gap": abs(o_sh - o_ref) / abs(o_ref),
+           "obj_rel_gap_k7_reported": abs(o_sh - o_k7) / abs(o_k7),
+           "kkt_eq": {"hp": float(sh.kkt_eq.max()),
+                      "unsharded": float(ref.kkt_eq.max()),
+                      "k7": float(k7.kkt_eq.max())},
+           "kkt_stat": {"hp": float(sh.kkt_stat.max()),
+                        "unsharded": float(ref.kkt_stat.max())},
+           "du_gap": float((sh.du - ref.du).abs().max()),
+           "repeat_equal": all(torch.equal(a, b) for a, b in zip(first, sh)
+                               if isinstance(a, torch.Tensor)),
+           "k7_launches": c["box_qp_solve"]}
+    eq_gap = abs(row["kkt_eq"]["hp"] - row["kkt_eq"]["unsharded"])
+    check(all(bool(torch.isfinite(getattr(sh, f)).all())
+              for f in ("dx", "du", "kkt_eq")) and sh.du.device == dev
+          and sh.dx.shape == ref.dx.shape, "phase 24b finite, whole", **row)
+    check(row["obj_rel_gap"] <= HP_OBJ_RTOL, "phase 24b objective", **row)
+    check(eq_gap <= HP_EQ_GAP and row["kkt_eq"]["hp"] < 1e-4,
+          "phase 24b kkt_eq", eq_gap=eq_gap, **row)
+    return row, sh, qp
+
+
+def phase24(dev, K) -> dict:
+    """Phase 24: the horizon sharding (`qp/horizon.py`) on the card: (a)
+    `hp_lqr`; (b) `hp_box`; (c) (b)'s sharded solve under a one-rank NCCL
+    process group (its exchanges through `dist.all_gather` on the card),
+    equal to (b)'s bit for bit. No kernel of ours runs in (a) or in the
+    eager solves of (b) and (c) (counted: none)."""
+    import os
+    import torch.distributed as dist
+    from mpc_blaster_tpu_torch.parallel.distributed import initialize
+    from mpc_blaster_tpu_torch.parallel.mesh import make_mesh
+    from mpc_blaster_tpu_torch.qp.ipm import box_qp_solve
+    out = {"lqr": counted({}, "phase 24a sharded lqr",
+                          lambda: hp_lqr(dev))[0]}
+    wall("24a sharded lqr_solve_pscan")
+    mesh = make_mesh(HP_BOX_SHARDS, axis="hp", device=dev)
+    out["box"], sh, qp = hp_box(dev, K, mesh)
+    log("hp_box", **out["box"])
+    wall("24b sharded box_qp_solve N=240")
+
+    env = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK")}
+    os.environ.update(WORLD_SIZE="1", RANK="0")
+    try:
+        initialize(f"localhost:{_free_port()}")
+
+        def solve():
+            return box_qp_solve(qp, iters=FULL_ITERS, riccati="pscan",
+                                mesh=mesh)
+        # the first call also creates the NCCL communicator; the second
+        # is timed
+        ((first, (sol, ms))), _ = counted({}, "phase 24c under NCCL",
+                                          lambda: (solve(),
+                                                   timed(solve, 1)))
+        grp = {"backend": dist.get_backend(),
+               "world_size": dist.get_world_size(), "ms": ms,
+               "equal_to_24b": all(
+                   torch.equal(a, b) and torch.equal(c, b)
+                   for a, c, b in zip(first, sol, sh)
+                   if isinstance(b, torch.Tensor))}
+        check(grp["backend"] == "nccl" and grp["world_size"] == 1
+              and grp["equal_to_24b"], "phase 24c equal to 24b", **grp)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["nccl"] = grp
+    log("hp_nccl", **grp)
+    wall("24c sharded box_qp_solve under NCCL")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible; this "
@@ -4763,6 +4945,9 @@ def run(dev: torch.device) -> int:
     # endurance mission
     p23 = phase23(dev, cli)
     wall("23 flight shell, runtime, CLI, mission")
+    # phase 24: the horizon ("hp") sharding of the log-depth scans
+    phase24(dev, K)
+    wall("24 horizon sharding")
 
     if FAILURES:
         for f in FAILURES:

@@ -39,6 +39,14 @@ makes one launch per shard and tick), and the reductions run over the
 shards and then, where a `torch.distributed` process group is up
 (`parallel/distributed.py`), as `all_reduce` over the ranks. A mesh may
 name one device several times (the CPU tests' shards).
+
+A mesh whose axis is "hp" (`make_mesh(n, axis="hp")`) shards the stage
+axis of one QP instead, as the JAX package's sequence parallelism does:
+the `mesh=` of `qp/pscan.py`'s solves and of `qp/ipm.py::box_qp_solve`
+splits the horizon into one contiguous chunk of stages per mesh entry
+(and per rank), and the scans, the reductions over the stages and the
+rows where chunks meet cross the chunks (`qp/horizon.py`). The batched
+ticks here keep the "dp" axis.
 """
 from __future__ import annotations
 

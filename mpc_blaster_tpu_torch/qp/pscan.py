@@ -20,9 +20,19 @@ its operands as (later, earlier), which is why the suffix scans swap them.
 Its summation order differs from XLA's odd/even recursion, so f32 results
 differ from the JAX package's in the last bits. No Pallas kernel computes
 any of this; the (nx, nx) systems of the combine are `torch.linalg.solve`.
-Every tensor may carry leading batch axes before the stage axis (the
-horizon itself runs on one device: the JAX package's horizon sharding
-over a mesh is not ported).
+Every tensor may carry leading batch axes before the stage axis.
+
+Horizon sharding ("hp" sequence parallelism): the JAX package shards the
+stage axis of its inputs over a mesh and lets GSPMD partition the scans.
+Here `lqr_solve_pscan`, `eqp_solve_pscan`, `riccati_factorize_pscan` and
+`riccati_solve_rhs_pscan` take the mesh (`mesh=`, an "hp" mesh of
+`parallel/mesh.py::make_mesh`) and split the stage axis into contiguous
+chunks over its entries and the ranks of a process group
+(`qp/horizon.py`): each chunk scans its own stages, the chunk totals are
+scanned once, and each chunk applies its carry once per element (the
+`*_hp` generators below). The suffix scans run over N+1 elements; the
+terminal one lies on the last chunk. With `mesh=None` the whole stage
+axis is the one chunk: no carry, no exchange, the one-device scans.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 
+from mpc_blaster_tpu_torch.qp import horizon as hp
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
 from mpc_blaster_tpu_torch.qp.riccati import RiccatiFactor, _mv, _t
 from mpc_blaster_tpu_torch.qp.smallalg import chol_inverse
@@ -99,37 +110,6 @@ def _stage_dim(A):
     return A.dim() - 3
 
 
-def backward_pass_pscan(A, B, c, Q, q, R, r, reg: float = 0.0
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(P (..., N+1, nx, nx), p (..., N+1, nx)) by a log-depth suffix
-    scan."""
-    nu = B.shape[-1]
-    Rinv = chol_inverse(R + reg * torch.eye(nu, dtype=A.dtype,
-                                            device=A.device))
-    BRinv = B @ Rinv
-    elems = _Elem(
-        A=_append_zero(A),
-        b=torch.cat([c - _mv(BRinv, r), torch.zeros_like(c[..., :1, :])],
-                    -2),
-        C=_append_zero(BRinv @ _t(B)),
-        eta=-q,
-        J=Q,
-    )
-    # reverse=True feeds the combine (later-combined, earlier); _combine
-    # takes (earlier, later), hence the swap
-    suffix = associative_scan(lambda a, b: _combine(b, a), elems,
-                              reverse=True, dim=_stage_dim(A))
-    return suffix.J, -suffix.eta
-
-
-def lqr_solve_pscan(data: QPData, reg: float = 0.0) -> QPSolution:
-    """Equality-only OCP QP solved with O(log N) parallel depth: the
-    solution of `riccati.lqr_solve`."""
-    dx, du = eqp_solve_pscan(data.A, data.B, data.c, data.Q, data.q,
-                             data.R, data.r, data.dx0, reg)
-    return QPSolution(dx=dx, du=du)
-
-
 def _gains(A, B, R, P1, reg):
     """(K, inv(H_uu)) of every stage from P_{k+1}, all stages at once."""
     nu = B.shape[-1]
@@ -146,26 +126,8 @@ def _compose(m1, m2):
     return F2 @ F1, _mv(F2, g1) + g2
 
 
-def _rollout(F, g, K, kff, dx0, d):
-    """dx_{k+1} = F_k dx_k + g_k as a prefix scan; du = K dx + kff."""
-    Fs, gs = associative_scan(_compose, (F, g), dim=d)
-    dx = torch.cat([dx0.unsqueeze(-2), _mv(Fs, dx0.unsqueeze(-2)) + gs], -2)
-    return dx, _mv(K, dx[..., :-1, :]) + kff
-
-
-def eqp_solve_pscan(A, B, c, Q, q, R, r, dx0, reg: float = 0.0):
-    """Equality-constrained LQR solve with O(log N) parallel depth (the
-    whole solve; the IPM's "pscan" mode uses the factor / solve split
-    below instead, so its two right-hand sides share one factor)."""
-    P, p = backward_pass_pscan(A, B, c, Q, q, R, r, reg)
-    P1, p1 = P[..., 1:, :, :], p[..., 1:, :]
-    K, Hinv = _gains(A, B, R, P1, reg)
-    Gu = r + _mv(_t(B), _mv(P1, c) + p1)
-    kff = -_mv(Hinv, Gu)
-    return _rollout(A + B @ K, _mv(B, kff) + c, K, kff, dx0, _stage_dim(A))
-
-
-# --------- factor/solve split for the IPM (one factor, many RHS) ---------
+# the factor / solve split for the IPM (one factor, many right-hand sides):
+# the matrix-only scan of the factorization, the costate scan of a solve
 
 class _MatElem(NamedTuple):
     """Matrix-only part of the value-function element (factorization)."""
@@ -185,21 +147,6 @@ def _combine_mat(e1: _MatElem, e2: _MatElem) -> _MatElem:
     return _MatElem(A=A, C=C, J=J)
 
 
-def riccati_factorize_pscan(A, B, Q, R, reg: float = 0.0) -> RiccatiFactor:
-    """Log-depth Riccati factorization through a matrix-only associative
-    scan: the `RiccatiFactor` (gains, inverses of H_uu, value Hessians) of
-    `riccati.riccati_factorize`."""
-    nu = B.shape[-1]
-    Rinv = chol_inverse(R + reg * torch.eye(nu, dtype=A.dtype,
-                                            device=A.device))
-    elems = _MatElem(A=_append_zero(A), C=_append_zero(B @ Rinv @ _t(B)),
-                     J=Q)
-    P = associative_scan(lambda a, b: _combine_mat(b, a), elems,
-                         reverse=True, dim=_stage_dim(A)).J
-    K, Hinv = _gains(A, B, R, P[..., 1:, :, :], reg)
-    return RiccatiFactor(K=K, Hinv=Hinv, P=P)
-
-
 def _comp_suffix(earlier, later):
     """p_k = M_k p_{k+1} + v_k composed over a span (earlier, later)."""
     Me, ve = earlier
@@ -207,22 +154,153 @@ def _comp_suffix(earlier, later):
     return Me @ Ml, _mv(Me, vl) + ve
 
 
-def riccati_solve_rhs_pscan(fac: RiccatiFactor, A, B, c, q, r, dx0
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+_S, _X, _REP = hp.STAGE, hp.STATE, hp.REP
+
+
+def backward_pass_pscan(A, B, c, Q, q, R, r, reg: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P (..., N+1, nx, nx), p (..., N+1, nx)) by a log-depth suffix
+    scan."""
+    return hp.shard_map(
+        None, lambda ch, *a: _backward_hp(ch, *a, reg),
+        (A, B, c, Q, q, R, r), (_S, _S, _S, _X, _X, _S, _S), (_X, _X),
+        _stage_dim(A))
+
+
+def lqr_solve_pscan(data: QPData, reg: float = 0.0,
+                    mesh=None) -> QPSolution:
+    """Equality-only OCP QP solved with O(log N) parallel depth: the
+    solution of `riccati.lqr_solve`. With `mesh`, the stage axis is
+    sharded over its "hp" chunks (the module docstring)."""
+    dx, du = eqp_solve_pscan(data.A, data.B, data.c, data.Q, data.q,
+                             data.R, data.r, data.dx0, reg, mesh)
+    return QPSolution(dx=dx, du=du)
+
+
+def eqp_solve_pscan(A, B, c, Q, q, R, r, dx0, reg: float = 0.0,
+                    mesh=None):
+    """Equality-constrained LQR solve with O(log N) parallel depth (the
+    whole solve; the IPM's "pscan" mode uses the factor / solve split
+    below instead, so its two right-hand sides share one factor). With
+    `mesh`, the stage axis is sharded over its "hp" chunks."""
+    def body(ch, A, B, c, Q, q, R, r, dx0):
+        dx0 = yield from ch.bcast_first(dx0)
+        return (yield from _eqp_hp(ch, A, B, c, Q, q, R, r, dx0, reg))
+    return hp.shard_map(mesh, body, (A, B, c, Q, q, R, r, dx0),
+                        (_S, _S, _S, _X, _X, _S, _S, _REP), (_X, _S),
+                        _stage_dim(A))
+
+
+def riccati_factorize_pscan(A, B, Q, R, reg: float = 0.0,
+                            mesh=None) -> RiccatiFactor:
+    """Log-depth Riccati factorization through a matrix-only associative
+    scan: the `RiccatiFactor` (gains, inverses of H_uu, value Hessians) of
+    `riccati.riccati_factorize`. With `mesh`, the stage axis is sharded
+    over its "hp" chunks."""
+    def body(ch, A, B, Q, R):
+        fac, _ = yield from _factorize_hp(ch, A, B, Q, R, reg)
+        return fac
+    return hp.shard_map(mesh, body, (A, B, Q, R), (_S, _S, _X, _S),
+                        RiccatiFactor(_S, _S, _X), _stage_dim(A))
+
+
+def riccati_solve_rhs_pscan(fac: RiccatiFactor, A, B, c, q, r, dx0,
+                            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Log-depth right-hand-side solve against an existing
     `RiccatiFactor`: the costate recursion p_k = F_k' p_{k+1} + h_k
     (F_k = A_k + B_k K_k) as a suffix scan and the forward rollout as a
     prefix scan of affine maps. The solution of
-    `riccati.riccati_solve_rhs`."""
-    K, Hinv, P = fac.K, fac.Hinv, fac.P
-    d = _stage_dim(A)
-    F = A + B @ K
-    Pc = _mv(P[..., 1:, :, :], c)
-    h = q[..., :-1, :] + _mv(_t(K), r) + _mv(_t(F), Pc)
-    Ms = _append_zero(_t(F))
-    vs = torch.cat([h, q[..., -1:, :]], -2)
-    _, ps = associative_scan(lambda a, b: _comp_suffix(b, a), (Ms, vs),
-                             reverse=True, dim=d)
-    Gu = r + _mv(_t(B), Pc + ps[..., 1:, :])
+    `riccati.riccati_solve_rhs`. With `mesh`, the stage axis is sharded
+    over its "hp" chunks (`fac` in the layout `riccati_factorize_pscan`
+    returns with the same mesh)."""
+    def body(ch, fac, A, B, c, q, r, dx0):
+        halo = yield from ch.next_first((fac.P,))
+        dx0 = yield from ch.bcast_first(dx0)
+        return (yield from _solve_rhs_hp(
+            ch, fac, ch.succ(fac.P, halo and halo[0]), A, B, c, q, r, dx0))
+    return hp.shard_map(mesh, body, (fac, A, B, c, q, r, dx0),
+                        (RiccatiFactor(_S, _S, _X), _S, _S, _S, _X, _S,
+                         _REP), (_X, _S), _stage_dim(A))
+
+
+# --------- the solves on one chunk of the stage axis ---------
+# Generators run by `horizon.shard_map`: `ch` is the chunk (its stages
+# s..e-1; per-state arrays also hold state N on the last chunk; without
+# a mesh the whole axis is one chunk), and every exchange with the other
+# chunks is a `yield from ch....`.
+
+def _states_hp(ch, F, g, dx0):
+    """The states s..e of dx_{k+1} = F_k dx_k + g_k from dx_0 = dx0: the
+    prefix scan of affine maps across the chunks."""
+    (Fs, gs), carry = yield from ch.scan(_compose, (F, g))
+    x0 = dx0.unsqueeze(-2)
+    xs = x0 if carry is None else _mv(carry[0], x0) + carry[1]
+    return torch.cat([xs, _mv(Fs, x0) + gs], -2)
+
+
+def _rollout_hp(ch, F, g, K, kff, dx0):
+    """`_rollout` on a chunk: (dx (state rows), du)."""
+    xs = yield from _states_hp(ch, F, g, dx0)
+    dx = xs if ch.last else xs[..., :-1, :]
+    return dx, _mv(K, xs[..., :-1, :]) + kff
+
+
+def _backward_hp(ch, A, B, c, Q, q, R, r, reg):
+    """`backward_pass_pscan` on a chunk: (P, p), state rows."""
+    nu = B.shape[-1]
+    Rinv = chol_inverse(R + reg * torch.eye(nu, dtype=A.dtype,
+                                            device=A.device))
+    BRinv = B @ Rinv
+    elems = _Elem(A=ch.pad_terminal(A), b=ch.pad_terminal(c - _mv(BRinv, r)),
+                  C=ch.pad_terminal(BRinv @ _t(B)), eta=-q, J=Q)
+    # reverse=True feeds the combine (later-combined, earlier); _combine
+    # takes (earlier, later), hence the swap
+    suffix, _ = yield from ch.scan(lambda a, b: _combine(b, a), elems,
+                                   reverse=True)
+    return suffix.J, -suffix.eta
+
+
+def _eqp_hp(ch, A, B, c, Q, q, R, r, dx0, reg):
+    P, p = yield from _backward_hp(ch, A, B, c, Q, q, R, r, reg)
+    halo = yield from ch.next_first((P, p))
+    P1 = ch.succ(P, halo and halo[0])
+    p1 = ch.succ(p, halo and halo[1])
+    K, Hinv = _gains(A, B, R, P1, reg)
+    Gu = r + _mv(_t(B), _mv(P1, c) + p1)
     kff = -_mv(Hinv, Gu)
-    return _rollout(F, _mv(B, kff) + c, K, kff, dx0, d)
+    return (yield from _rollout_hp(ch, A + B @ K, _mv(B, kff) + c, K, kff,
+                                   dx0))
+
+
+def _factorize_hp(ch, A, B, Q, R, reg):
+    """`riccati_factorize_pscan` on a chunk: (its RiccatiFactor, P_{k+1}
+    of its stages)."""
+    nu = B.shape[-1]
+    Rinv = chol_inverse(R + reg * torch.eye(nu, dtype=A.dtype,
+                                            device=A.device))
+    elems = _MatElem(A=ch.pad_terminal(A),
+                     C=ch.pad_terminal(B @ Rinv @ _t(B)), J=Q)
+    suffix, _ = yield from ch.scan(lambda a, b: _combine_mat(b, a), elems,
+                                   reverse=True)
+    P = suffix.J
+    halo = yield from ch.next_first((P,))
+    P1 = ch.succ(P, halo and halo[0])
+    K, Hinv = _gains(A, B, R, P1, reg)
+    return RiccatiFactor(K=K, Hinv=Hinv, P=P), P1
+
+
+def _solve_rhs_hp(ch, fac, P1, A, B, c, q, r, dx0):
+    """`riccati_solve_rhs_pscan` on a chunk (P1: P_{k+1} of its stages)."""
+    K, Hinv = fac.K, fac.Hinv
+    F = A + B @ K
+    Pc = _mv(P1, c)
+    n = A.shape[-3]
+    h = q[..., :n, :] + _mv(_t(K), r) + _mv(_t(F), Pc)
+    vs = torch.cat([h, q[..., n:, :]], -2)
+    (_, ps), _ = yield from ch.scan(lambda a, b: _comp_suffix(b, a),
+                                    (ch.pad_terminal(_t(F)), vs),
+                                    reverse=True)
+    halo = yield from ch.next_first((ps,))
+    Gu = r + _mv(_t(B), Pc + ch.succ(ps, halo and halo[0]))
+    kff = -_mv(Hinv, Gu)
+    return (yield from _rollout_hp(ch, F, _mv(B, kff) + c, K, kff, dx0))

@@ -10,8 +10,8 @@ agree to rounding, not bit for bit): solves rtol 1e-7 / atol 1e-8, the
 factor/solve split rtol 1e-6, the IPM modes du rtol 1e-3 / atol 5e-4
 with the objective at rtol 1e-5. The scan against a fold, and the
 scanned KKT residuals against the sequential ones: 1e-12 (f64).
-N=64 runs on one device: the JAX test shards the horizon over an 8-device
-mesh, which the port does not port.
+N=64 runs here on one device; tests/test_torch_pscan_hp.py runs it with
+the stage axis sharded, as the JAX test does.
 """
 import numpy as np
 import jax
@@ -138,7 +138,8 @@ def test_ipm_riccati_backend_validated():
 
 def test_pscan_long_horizon_one_device():
     """tests/test_pscan.py's N=64 QP on one device (the JAX test shards
-    the stage axis over a mesh; the port's scan runs on one device)."""
+    the stage axis over a mesh; the port's sharded run of it is
+    tests/test_torch_pscan_hp.py::test_lqr_pscan_hp_matches_jax_sharded)."""
     jd = _free(N=64, nx=4, nu=2, seed=5)
     d = _t(jd)
     sol = lqr_solve_pscan(d)
