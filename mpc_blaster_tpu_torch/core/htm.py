@@ -11,6 +11,7 @@ import torch
 
 from mpc_blaster_tpu_torch.core.rotations import (euler_zyx_to_rot, rot_x,
                                                   rot_y, rot_z)
+from mpc_blaster_tpu_torch.utils.capture import filled
 
 # Mount offsets of the reference nozzle chain.
 OFFSET_B_S1 = (0.01672, 0.0, -0.22937)
@@ -19,10 +20,11 @@ OFFSET_S2_N = (-0.05322, 0.0, -0.15946)
 
 
 def _make_T(R: torch.Tensor, t) -> torch.Tensor:
-    t = torch.as_tensor(t, dtype=R.dtype, device=R.device)
+    # the offsets and the bottom row are filled on the device
+    t = (t.to(dtype=R.dtype, device=R.device) if isinstance(t, torch.Tensor)
+         else filled(t, R.dtype, R.device))
     top = torch.cat([R, t.reshape(3, 1)], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
-                          device=R.device)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
     return torch.cat([top, bottom], dim=0)
 
 

@@ -85,6 +85,12 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[0] * b[1] - a[1] * b[0]])
 
 
+def _unit_z(like: torch.Tensor) -> torch.Tensor:
+    """(0, 0, 1) in like's dtype and device, filled on the device (a tick
+    makes no tensor from host data)."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[2]
+
+
 def blaster_ode(x: torch.Tensor, u: torch.Tensor, p: torch.Tensor,
                 params: BlasterParams) -> torch.Tensor:
     """xdot = f(x, u, p) for one node.
@@ -107,7 +113,7 @@ def blaster_ode(x: torch.Tensor, u: torch.Tensor, p: torch.Tensor,
     # Translational dynamics: collective thrust along body z plus the
     # blast reaction along nozzle z, both rotated to world.
     total_thrust = torch.sum(thrust)
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype, device=x.device)
+    e3 = _unit_z(x)
     f_world = R @ (e3 * total_thrust) + R @ (R_gimbal @ (e3 * t_blast))
     g_vec = torch.stack([torch.zeros_like(params.gravity),
                          torch.zeros_like(params.gravity), -params.gravity])

@@ -12,8 +12,10 @@ are reproduced, feedback as an option the reference lacks.
 The tick runs on the node's device (the card unless `device` says
 otherwise, `device.py`); under `deployed_solver(...)` it is one launch of
 the IPM kernel (K6), or the warm chain's launch and the watchdog's redo
-(K3). The published message and the histories are host numpy: one host
-copy a tick.
+(K3). The tick (`make_rti_step`'s, or the warm chain's) and the plant's
+belief advance are `utils/capture.py` runners, as the JAX package jits
+them: a CUDA graph replay each on the card. The published message and
+the histories are host numpy: one host copy a tick.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec, build_spec
 from mpc_blaster_tpu_torch.sqp.rti import (RTIState, init_rti_state,
                                            make_rti_step)
+from mpc_blaster_tpu_torch.utils import capture
 
 # Thrust normalization (`mavros_blaster_sim.py:24-30`): mean rotor thrust ->
 # normalized collective setpoint via the calibrated cubic.
@@ -100,7 +103,8 @@ class FlightNode:
         self.spec: OCPSpec = build_spec(ocp, yref=self.preset.loop.yref,
                                         dtype=dtype, device=dev)
         self.params = BlasterParams.from_config(ocp.model, dtype, dev)
-        self._plant = discrete_dynamics(blaster_ode, ocp.dt, num_steps=1)
+        self._plant = capture.jit(discrete_dynamics(blaster_ode, ocp.dt,
+                                                    num_steps=1))
         self._plant_params = self.spec.stage_params[0]
         self.x = torch.as_tensor(self.preset.loop.x0, dtype=dtype,
                                  device=dev)
@@ -120,7 +124,7 @@ class FlightNode:
                                                        make_linearizer,
                                                        rti_step_warm,
                                                        rti_step_warm_guarded)
-            F = self._plant
+            F = self._plant.__wrapped__
             lin = make_linearizer(ocp, self.params)
             dyn = (fused_dyn_statics(ocp, 1)
                    if ocp.solver.qp_backend == "pallas_fused" else None)
@@ -137,7 +141,7 @@ class FlightNode:
                     return rti_step_warm(spec, st, w, x, self.params, F,
                                          ocp.solver, linearizer=lin,
                                          dyn_statics=dyn)
-            self._step_warm = step_warm
+            self._step_warm = capture.jit(step_warm)
         else:
             self._step = make_rti_step(ocp, dtype=dtype, device=dev)
 

@@ -42,6 +42,7 @@ from mpc_blaster_tpu_torch.io.flight import (THRUSTER_COEFFICIENT,
                                              thruster_cumul)
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.sim.scenarios import dist_param_ode
+from mpc_blaster_tpu_torch.utils import capture
 
 
 def invert_thruster_cumul(norm: float) -> float:
@@ -157,9 +158,15 @@ class OffsetFreeFlightController:
     The tick runs on the spec's device (or `device`). As in the JAX
     package it passes no `dyn_statics`, so `qp_backend="pallas_fused"`
     raises on the first tick; "pallas" launches the plain IPM kernel (K3
-    warm, K1 cold and for the watchdog's redo). One host copy a tick
-    carries u0, the velocity prediction, the command quaternion and the
-    next tick's omega / gimbal belief.
+    warm, K1 cold and for the watchdog's redo). The tick's device work
+    (the guarded tick, the velocity prediction, the command quaternion) is
+    `_tick`, a `utils/capture.py` runner, as the JAX package jits it: on
+    the card one CUDA graph replay a tick, its inputs (the disturbance
+    estimate's rows of the stage parameters, the measured state and the
+    carried iterate, warm start and watchdog state) copied into its
+    static buffers before the replay. One host copy a tick carries u0,
+    the velocity prediction, the command quaternion and the next tick's
+    omega / gimbal belief.
     """
 
     def __init__(self, ocp: cfg.OCPConfig, spec: OCPSpec,
@@ -198,13 +205,21 @@ class OffsetFreeFlightController:
         self._belief = self.state.xbar[1, 9:14].cpu().numpy()
         F = self.F
         solver = ocp.solver
+        sp0 = self._sp0
+        self._predict = lambda x, u, sp: F(x, u, sp, params)[6:12]
 
-        def _tick(spec_t, st, warm, wd, x):
-            return rti_step_warm_guarded(spec_t, st, warm, wd, x, params,
-                                         F, solver, linearizer=lin)
+        def _tick(d, st, warm, wd, x):
+            # the stage parameters with the estimate's rows 25-30
+            sp = torch.cat([sp0[:, :25], d.expand(spec.horizon, 6)], 1)
+            u0, st, warm, wd, diag = rti_step_warm_guarded(
+                spec._replace(stage_params=sp), st, warm, wd, x, params, F,
+                solver, linearizer=lin)
+            quat = euler_zyx_to_quat(st.xbar[1, 3:6])
+            host = torch.cat([u0, self._predict(x, u0, sp[0]), quat,
+                              st.xbar[1, 9:14]])
+            return host, st, warm, wd, diag
 
-        self._tick = _tick
-        self._predict = lambda x, u, sp: self.F(x, u, sp, params)[6:12]
+        self._tick = capture.jit(_tick)
 
     def warmup(self, x_like: np.ndarray) -> None:
         self.tick(x_like[0:3], x_like[3:6], x_like[6:9])
@@ -221,16 +236,12 @@ class OffsetFreeFlightController:
             self.d_est[0:3] += (self.gain
                                 * (np.asarray(v_meas) - self._v_pred[0:3])
                                 / self.ocp.dt)
-        sp = self._sp0.clone()
-        sp[:, 25:31] = torch.as_tensor(self.d_est, dtype=self.dtype)
-        spec_t = self.spec._replace(stage_params=sp)
+        d = torch.as_tensor(self.d_est, dtype=self.dtype).to(self.device)
         xj = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        u0, self.state, self.warm, self.wd, diag = self._tick(
-            spec_t, self.state, self.warm, self.wd, xj)
-        quat = euler_zyx_to_quat(self.state.xbar[1, 3:6])
-        nu = u0.shape[-1]
-        host = torch.cat([u0, self._predict(xj, u0, sp[0]), quat,
-                          self.state.xbar[1, 9:14]]).cpu().numpy()
+        host, self.state, self.warm, self.wd, diag = self._tick(
+            d, self.state, self.warm, self.wd, xj)
+        nu = self.state.ubar.shape[-1]
+        host = host.cpu().numpy()
         u0_np = host[:nu]
         self._v_pred = host[nu:nu + 6]
         self._belief = host[nu + 10:]

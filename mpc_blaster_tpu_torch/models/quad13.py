@@ -27,10 +27,12 @@ import torch
 from mpc_blaster_tpu_torch import config as cfg
 from mpc_blaster_tpu_torch.core.rotations import quat_mul, quat_to_rot
 from mpc_blaster_tpu_torch.device import resolve_device
-from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams, _cross
+from mpc_blaster_tpu_torch.dynamics.blaster import (BlasterParams, _cross,
+                                                    _unit_z)
 from mpc_blaster_tpu_torch.dynamics.integrators import discrete_dynamics
 from mpc_blaster_tpu_torch.ocp.spec import OCPSpec
 from mpc_blaster_tpu_torch.sqp.rti import RTIState, _check_backend, rti_step
+from mpc_blaster_tpu_torch.utils import capture
 
 QUAD13_NX = 13
 QUAD13_NU = 4
@@ -74,7 +76,7 @@ def quad13_ode(x: torch.Tensor, u: torch.Tensor, p: torch.Tensor,
 
     qn = q / torch.linalg.norm(q)
     R = quat_to_rot(qn)
-    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=x.dtype, device=x.device)
+    e3 = _unit_z(x)
     zero = torch.zeros_like(params.gravity)
     g_vec = torch.stack([zero, zero, -params.gravity])
     v_dot = R @ (e3 * torch.sum(thrust)) / params.mass + g_vec
@@ -166,9 +168,9 @@ def make_quad13_rti_step(c: Quad13Config, dtype=torch.float32,
     Riccati IPM), "pallas" (one launch of the 13x4 box-QP IPM kernel) or
     "pallas_fused" (one launch of the kernel with the "quad13" prologue:
     linearization, assembly and solve). `lin_backend="fused"` maps to the
-    rows-form linearizer on the host path. `jit` holds the JAX package's
-    slot (a positional call binds as it does there); the eager port
-    ignores it."""
+    rows-form linearizer on the host path. With `jit` the step is a
+    `utils/capture.py` runner (a CUDA graph per shape on the card), as
+    `sqp/rti.py::make_rti_step`'s; `jit=False` returns the eager step."""
     params = _params(c, dtype, device)
     F = discrete_dynamics(quad13_ode, c.dt, num_steps=1)
     solver = solver if solver is not None else cfg.SolverConfig()
@@ -189,7 +191,7 @@ def make_quad13_rti_step(c: Quad13Config, dtype=torch.float32,
         return rti_step(spec, state, x0, params, F, solver,
                         linearizer=lin, dyn_statics=dyn)
 
-    return step
+    return capture.jit(step) if jit else step
 
 
 def hover_state(z: float = 2.0, dtype=torch.float32,

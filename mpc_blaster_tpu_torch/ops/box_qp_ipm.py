@@ -106,6 +106,7 @@ from mpc_blaster_tpu_torch.dynamics.blaster import BlasterParams
 from mpc_blaster_tpu_torch.dynamics.fastlin import fast_linearize
 from mpc_blaster_tpu_torch.ops import nvcc_build
 from mpc_blaster_tpu_torch.qp.data import QPData, QPSolution
+from mpc_blaster_tpu_torch.utils import capture
 # The 6x6 Huu inverse of the kernel's `chol_inverse`: one implementation,
 # shared with the Riccati IPM.
 from mpc_blaster_tpu_torch.qp.smallalg import \
@@ -338,7 +339,7 @@ def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
                                  p.r)
     Bsz, N, nx, nu = A.shape[0], A.shape[1], A.shape[-1], Bm.shape[-1]
     dev = A.device
-    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
 
     # Bound groups: (bound, sign, mask, is_state). Masks are derived from
     # the sanitized bound magnitude; they never change during a solve.
@@ -730,11 +731,11 @@ def batched_fused_tick_plain(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x,
 def _model_params(model, device):
     """BlasterParams (float32) from `fused_dyn_statics`' model tuple
     (family, mass, g, arm_x, arm_y, yaw_c, Jx, Jy, Jz)."""
-    def t(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=device)
-    return BlasterParams(mass=t(model[1]), gravity=t(model[2]),
-                         arm_length_x=t(model[3]), arm_length_y=t(model[4]),
-                         yaw_coefficient=t(model[5]), inertia=t(model[6:9]))
+    mass, g, ax, ay, yaw = capture.filled(model[1:6], torch.float32, device)
+    return BlasterParams(mass=mass, gravity=g, arm_length_x=ax,
+                         arm_length_y=ay, yaw_coefficient=yaw,
+                         inertia=capture.filled(model[6:9], torch.float32,
+                                                device))
 
 
 def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
@@ -983,12 +984,16 @@ def instance_name(nx: int, nu: int, family=None, soft=False) -> str:
 
 
 def _count(wrapper, warm, inst, plan: LaunchPlan):
-    wrapper.launches += 1
-    wrapper.by_instance[inst] = wrapper.by_instance.get(inst, 0) + 1
-    wrapper.by_layout[plan.layout] = wrapper.by_layout.get(plan.layout,
-                                                           0) + 1
-    if warm is not None:
-        wrapper.warm_launches += 1
+    """Count one launch on the wrapper; under a CUDA graph capture the
+    count is recorded and added on each replay (`utils/capture.py`)."""
+    def apply():
+        wrapper.launches += 1
+        wrapper.by_instance[inst] = wrapper.by_instance.get(inst, 0) + 1
+        wrapper.by_layout[plan.layout] = wrapper.by_layout.get(
+            plan.layout, 0) + 1
+        if warm is not None:
+            wrapper.warm_launches += 1
+    capture.launched(apply)
 
 
 def _prepare_launch(lib, dev, N, mode, soft, nx, nu, family=None

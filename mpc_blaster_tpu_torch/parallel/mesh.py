@@ -71,6 +71,7 @@ from mpc_blaster_tpu_torch.sqp.rti import (RTIDiagnostics, RTIState,
                                            solve_batched_qp,
                                            solve_qp_backend,
                                            spec_batch_dims)
+from mpc_blaster_tpu_torch.utils import capture
 
 
 def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
@@ -83,20 +84,23 @@ def batched_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
     takes one spec per scenario), states/x0s carry a leading batch axis. `backend="xla"` runs the tick
     of `make_rti_step(ocp)` over the batch (the module docstring),
     `backend="pallas"` solves the host-built QPs with the box-QP IPM
-    kernel, `backend="pallas_fused"` runs the fuse_cost kernel. `jit`
-    holds the JAX package's slot (a positional call binds as it does
-    there); the eager port ignores it.
+    kernel, `backend="pallas_fused"` runs the fuse_cost kernel. With `jit`
+    the step is a `utils/capture.py` runner (a CUDA graph per shape on the
+    card, the buffer handling alone on the CPU), as the JAX package jits
+    it; `jit=False` returns the eager step.
     """
     device = resolve_device(device)
     if backend == "xla":
-        return _batched_tick(ocp, dtype, device, per_scenario=False)
-    if backend == "pallas":
-        return _batched_tick(_with_backend(ocp, "pallas"), dtype, device,
+        step = _batched_tick(ocp, dtype, device, per_scenario=False)
+    elif backend == "pallas":
+        step = _batched_tick(_with_backend(ocp, "pallas"), dtype, device,
                              per_scenario=False)
-    if backend == "pallas_fused":
-        return _batched_rti_step_pallas_fused(ocp, dtype=dtype,
+    elif backend == "pallas_fused":
+        step = _batched_rti_step_pallas_fused(ocp, dtype=dtype,
                                               device=device)
-    raise ValueError(f"unknown batched backend {backend!r}")
+    else:
+        raise ValueError(f"unknown batched backend {backend!r}")
+    return capture.jit(step) if jit else step
 
 
 def batched_rti_step_per_scenario_spec(ocp: cfg.OCPConfig,
@@ -109,9 +113,10 @@ def batched_rti_step_per_scenario_spec(ocp: cfg.OCPConfig,
     them and makes one launch of the box-QP IPM kernel, "pallas_fused"
     makes one launch of the fuse_lin kernel. A spec field without the
     batch axis is refused (`batched_rti_step` takes a shared spec). `jit`
-    is the JAX package's slot, accepted and ignored."""
-    return _batched_tick(ocp, dtype, resolve_device(device),
+    as in `batched_rti_step`."""
+    step = _batched_tick(ocp, dtype, resolve_device(device),
                          per_scenario=True)
+    return capture.jit(step) if jit else step
 
 
 def _with_backend(ocp: cfg.OCPConfig, backend: str) -> cfg.OCPConfig:

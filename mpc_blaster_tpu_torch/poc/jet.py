@@ -19,9 +19,16 @@ from mpc_blaster_tpu_torch.dynamics.integrators import erk_integrate
 GRAVITY = 9.81
 
 
+def _down(like: torch.Tensor, scale: float) -> torch.Tensor:
+    """(0, 0, -scale) in like's dtype and device, filled on the device (a
+    tick makes no tensor from host data)."""
+    return torch.cat([torch.zeros(2, dtype=like.dtype, device=like.device),
+                      torch.full((1,), -scale, dtype=like.dtype,
+                                 device=like.device)])
+
+
 def _gravity(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, -GRAVITY], dtype=like.dtype,
-                        device=like.device)
+    return _down(like, GRAVITY)
 
 
 def jet_init_conditions(euler, alpha, position, stream_velocity,
@@ -32,7 +39,7 @@ def jet_init_conditions(euler, alpha, position, stream_velocity,
     alpha = torch.as_tensor(alpha)
     position = torch.as_tensor(position)
     p, R = nozzle_pose(euler, alpha, position, convention)
-    down = torch.tensor([0.0, 0.0, -1.0], dtype=R.dtype, device=R.device)
+    down = _down(R, 1.0)
     v_exit = R @ down * stream_velocity
     return torch.cat([p, v_exit])
 
@@ -43,8 +50,10 @@ def jet_state(t, init, drag: float):
     g = _gravity(init)
     c = drag
     v_inf = g / c
-    decay = torch.exp(-c * torch.as_tensor(t, dtype=init.dtype,
-                                           device=init.device))
+    tt = (t.to(device=init.device, dtype=init.dtype)
+          if isinstance(t, torch.Tensor) else
+          torch.full((), t, dtype=init.dtype, device=init.device))
+    decay = torch.exp(-c * tt)
     v = v_inf + (v0 - v_inf) * decay
     p = p0 + v_inf * t + (v0 - v_inf) * (1.0 - decay) / c
     return torch.cat([p, v], dim=-1)

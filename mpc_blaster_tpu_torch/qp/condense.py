@@ -275,8 +275,7 @@ def condensed_qp_solve(data: QPData, M: int, iters: int = 12,
 
 
 def _where(m, a, b):
-    return torch.where(m, a, torch.as_tensor(b, dtype=a.dtype,
-                                             device=a.device))
+    return torch.where(m, a, b)
 
 
 def _csolve(cqp: CondensedQP, data: QPData, iters, mu0, alpha_frac, reg,
@@ -296,8 +295,8 @@ def _csolve(cqp: CondensedQP, data: QPData, iters, mu0, alpha_frac, reg,
     else:
         sigma_max = lam_max = 1e14
         eps_s = 1e-16
-    big = torch.tensor(_BIG, dtype=dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    big = torch.full((), _BIG, dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
 
     lbX, ubX = cqp.lbX[..., 1:, :], cqp.ubX[..., 1:, :]
     mask_lX, mask_uX = torch.isfinite(lbX), torch.isfinite(ubX)
@@ -643,4 +642,4 @@ def _csolve(cqp: CondensedQP, data: QPData, iters, mu0, alpha_frac, reg,
     return QPSolution(
         dx=dx, du=du, lam_lx=lam_lx, lam_ux=lam_ux, lam_lu=lam_lu,
         lam_uu=lam_uu, mu=comp_sum(best) / n_ineq, kkt_stat=kkt_stat,
-        kkt_eq=kkt_eq, iters=torch.tensor(iters))
+        kkt_eq=kkt_eq, iters=torch.full((), iters, device=dev))

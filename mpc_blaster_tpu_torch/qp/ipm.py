@@ -99,8 +99,7 @@ class IpmWarmStart(NamedTuple):
 
 
 def _where(m, a, b):
-    return torch.where(m, a, torch.as_tensor(b, dtype=a.dtype,
-                                             device=a.device))
+    return torch.where(m, a, b)
 
 
 def _clip(x, lo, hi):
@@ -144,8 +143,8 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
     N = data.horizon
     dtype, dev = data.A.dtype, data.A.device
     mu_min, reg, sigma_max, lam_max, eps_s = _floors(dtype, mu_min, reg)
-    big = torch.tensor(_BIG, dtype=dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    big = torch.full((), _BIG, dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
 
     bounds = (data.lbx[..., 1:, :], data.ubx[..., 1:, :], data.lbu,
               data.ubu)
@@ -278,13 +277,13 @@ def _start(dx, x, du, bounds, masks, mu0, s_min, big, warm, lam_max
                > 0.5)[..., None, None]
 
         def blend(w, cold, mask):
-            w = _clip(torch.where(mask, w.to(dtype), big), big.new_tensor(
-                s_min * 1e-2), big)
+            w = _clip(torch.where(mask, w.to(dtype), big), big.new_full(
+                (), s_min * 1e-2), big)
             return torch.where(use & mask & torch.isfinite(w), w, cold)
 
         def blend_l(w, cold, mask):
-            w = _clip(w.to(dtype), big.new_tensor(0.0),
-                      big.new_tensor(lam_max))
+            w = _clip(w.to(dtype), big.new_full((), 0.0),
+                      big.new_full((), lam_max))
             return torch.where(use & mask & torch.isfinite(w),
                                torch.clamp(w, min=1e-8), cold)
 
@@ -474,7 +473,7 @@ def _solution(best: _IpmState, mu, kkt_stat, kkt_eq, iters) -> QPSolution:
         lam_lx=best.lam_lx, lam_ux=best.lam_ux,
         lam_lu=best.lam_lu, lam_uu=best.lam_uu,
         mu=mu, kkt_stat=kkt_stat, kkt_eq=kkt_eq,
-        iters=torch.tensor(iters),
+        iters=torch.full((), iters, device=best.dx.device),
         s_lx=best.s_lx, s_ux=best.s_ux, s_lu=best.s_lu, s_uu=best.s_uu)
 
 
@@ -499,8 +498,8 @@ def _ipm_hp(ch, data: QPData, warm_du, warm, iters, mu0, alpha_frac, reg,
     n = data.A.shape[-3]
     dtype, dev = data.A.dtype, data.A.device
     mu_min, reg, sigma_max, lam_max, eps_s = _floors(dtype, mu_min, reg)
-    big = torch.tensor(_BIG, dtype=dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    big = torch.full((), _BIG, dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
     newton = _HpNewton(ch, data, riccati, reg)
     yield from newton.setup()
 

@@ -85,7 +85,9 @@ def _inv_I_plus(C1, J2):
     nx = C1.shape[-1]
     I = torch.eye(nx, dtype=C1.dtype, device=C1.device)
     M = I + C1 @ J2
-    return torch.linalg.solve(M, I.expand(M.shape))
+    # solve_ex: `solve` would check its info on the host, a sync that a
+    # captured tick cannot make
+    return torch.linalg.solve_ex(M, I.expand(M.shape))[0]
 
 
 def _combine(e1: _Elem, e2: _Elem) -> _Elem:

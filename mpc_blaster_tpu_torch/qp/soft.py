@@ -177,8 +177,8 @@ def soft_box_qp_solve(data: QPData, soft: SoftBounds, iters: int = 12,
         lam_max = 1e14
         eps_s = 1e-16
     sigma_max = lam_max
-    big = torch.tensor(_BIG, dtype=dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    big = torch.full((), _BIG, dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
 
     bounds = (data.lbx[..., 1:, :], data.ubx[..., 1:, :], data.lbu,
               data.ubu)
@@ -411,7 +411,7 @@ def soft_box_qp_solve(data: QPData, soft: SoftBounds, iters: int = 12,
         lam_lx=best.gs[0].lam, lam_ux=best.gs[1].lam,
         lam_lu=best.gs[2].lam, lam_uu=best.gs[3].lam,
         mu=comp_sum(best.gs) / n_pairs, kkt_stat=kkt_stat, kkt_eq=kkt_eq,
-        iters=torch.tensor(iters),
+        iters=torch.full((), iters, device=dev),
         s_lx=best.gs[0].s, s_ux=best.gs[1].s,
         s_lu=best.gs[2].s, s_uu=best.gs[3].s)
 

@@ -7,11 +7,12 @@ Jacobian-reuse ticks (`jac_refresh > 1`, cold or warm), with the POC
 stage parameters frozen or re-linearized every tick ("online",
 "online_stagewise"), on the `"riccati"` (the presets' default),
 `"pallas"` or deployed one-launch `"pallas_fused"` QP backend.
-The JAX package runs the whole rollout as one `lax.scan`; here it is a
-Python loop of ticks whose tensors stay on the device of the spec (on
-CUDA the kernel backends' QP solve is one kernel launch per tick; the
-guarded chain adds the redo launch, which returns at once unless the tick
-tripped).
+The JAX package runs the whole rollout as one jitted `lax.scan`; here
+`closed_loop` is a Python loop of eager ticks whose tensors stay on the
+device of the spec, and `make_closed_loop` captures the tick as a CUDA
+graph and replays it (`utils/capture.py::Scan`). On CUDA the kernel
+backends' QP solve is one kernel launch per tick; the guarded chain adds
+the redo launch, which returns at once unless the tick tripped.
 The plant is the same RK4 model with its own stage parameters (T_blast
 pinned to 2.2*9.81, as the reference's simulation entry point sets it).
 """
@@ -31,6 +32,7 @@ from mpc_blaster_tpu_torch.poc.solver import (poc_stage_params,
 from mpc_blaster_tpu_torch.sqp import rti as R
 from mpc_blaster_tpu_torch.sqp.rti import (RTIState, fused_dyn_statics,
                                            init_rti_state, make_linearizer)
+from mpc_blaster_tpu_torch.utils import capture
 
 
 class ClosedLoopResult(NamedTuple):
@@ -63,31 +65,23 @@ def poc_relinearizer(poc_mode: str, pc: cfg.PocSolverConfig):
     return f
 
 
-def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
-                plant_params: Optional[torch.Tensor] = None,
-                dtype=torch.float32, plant_substeps: int = 1,
-                rti0: Optional[RTIState] = None,
-                poc_mode: str = "frozen",
-                poc_cfg: Optional[cfg.PocSolverConfig] = None,
-                warm_start: bool = False,
-                jac_refresh: int = 1) -> ClosedLoopResult:
-    """Run `n_steps` control ticks from x0 on the spec's device.
+class _Carry(NamedTuple):
+    """What one tick hands the next (None where the loop has none)."""
 
-    poc_mode: "frozen" keeps the spec's stage parameters for the whole run
-    (the reference computes its POC Jacobians once before the loop);
-    "online" re-linearizes the jet POC Jacobians at the current pose every
-    tick (one jet solve, every stage the same row); "online_stagewise"
-    linearizes stage k at its predicted pose xbar[k] (N jet solves in one
-    vmap). `poc_cfg` sets the jet (default `PocSolverConfig()`).
-    warm_start=True carries IPM slack/dual warm starts between ticks
-    (`rti_step_warm`), under the watchdog when `solver.warm_watchdog`
-    (`rti_step_warm_guarded`); pair it with a reduced `solver.ipm_iters`
-    and `solver.warm_shift=True` (raw unshifted chains degrade on
-    transients). jac_refresh > 1 re-linearizes the dynamics only every
-    jac_refresh-th tick and keeps the shooting defects exact on every
-    tick (`rti_step_jacreuse`, or `rti_step_warm_jacreuse` with
-    warm_start).
-    """
+    x: torch.Tensor
+    state: RTIState
+    warm: Optional[R.IpmWarmStart]
+    wd: Optional[R.WatchdogState]
+    cache: Optional[R.JacCache]
+
+
+def _loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, plant_params, dtype,
+          plant_substeps, rti0, poc_mode, poc_cfg, warm_start, jac_refresh):
+    """The closed loop as (consts, carry0, tick): tick(consts, carry,
+    refresh) -> (carry, (x_next, u0, cost, kkt_stat, kkt_eq)), `refresh`
+    the Python bool of the Jacobian-reuse ticks. `consts` (the spec and
+    the plant's stage parameters) and the carry hold every tensor that
+    depends on the call; the tick closes over the configuration alone."""
     # One substep count feeds both the forward map and the linearizer.
     ctrl_substeps = 1
     solver = ocp.solver
@@ -121,18 +115,20 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
     state = rti0 if rti0 is not None else init_rti_state(ocp, x, dtype)
     guarded = warm_start and solver.warm_watchdog
     nx, nu = x.shape[-1], state.ubar.shape[-1]
-    if warm_start:
-        warm = R.IpmWarmStart.zeros(spec.horizon, nx, nu, dtype, device)
-        wd = R.WatchdogState.init(dtype, device)
-    if jac_refresh > 1:
-        cache = R.JacCache.zeros(spec.horizon, nx, nu, dtype, device)
+    carry = _Carry(
+        x=x, state=state,
+        warm=(R.IpmWarmStart.zeros(spec.horizon, nx, nu, dtype, device)
+              if warm_start else None),
+        wd=R.WatchdogState.init(dtype, device) if warm_start else None,
+        cache=(R.JacCache.zeros(spec.horizon, nx, nu, dtype, device)
+               if jac_refresh > 1 else None))
     kw = dict(linearizer=lin, dyn_statics=dyn)
 
-    xs, us, costs, stats, eqs = [x], [], [], [], []
-    for k in range(n_steps):
+    def tick(consts, c: _Carry, refresh: bool):
+        spec, plant_params = consts
+        x, state, warm, wd, cache = c
         spec_t = spec._replace(stage_params=stage_params_for(
             spec.stage_params, x, state.xbar))
-        refresh = k % jac_refresh == 0
         # the tick functions are looked up per call, so a caller can wrap
         # them (chip_smoke.py reads the watchdog's trips this way)
         if warm_start and jac_refresh > 1:
@@ -152,28 +148,79 @@ def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
         else:
             u0, state, diag = R.rti_step(spec_t, state, x, params, F,
                                          solver, **kw)
-        x = F_plant(x, u0, plant_params, params)
-        xs.append(x)
-        us.append(u0)
-        costs.append(total_cost(spec_t, state.xbar, state.ubar))
-        stats.append(diag.qp_kkt_stat)
-        eqs.append(diag.qp_kkt_eq)
-    return ClosedLoopResult(xs=torch.stack(xs), us=torch.stack(us),
-                            costs=torch.stack(costs),
-                            kkt_stat=torch.stack(stats),
-                            kkt_eq=torch.stack(eqs))
+        x_next = F_plant(x, u0, plant_params, params)
+        out = (x_next, u0, total_cost(spec_t, state.xbar, state.ubar),
+               diag.qp_kkt_stat, diag.qp_kkt_eq)
+        return _Carry(x_next, state, warm, wd, cache), out
+
+    return (spec, plant_params), carry, tick
+
+
+def _result(x0: torch.Tensor, outs) -> ClosedLoopResult:
+    xs, us, costs, stats, eqs = outs
+    return ClosedLoopResult(xs=torch.cat([x0[None], xs], 0), us=us,
+                            costs=costs, kkt_stat=stats, kkt_eq=eqs)
+
+
+def closed_loop(spec: OCPSpec, ocp: cfg.OCPConfig, x0, n_steps: int,
+                plant_params: Optional[torch.Tensor] = None,
+                dtype=torch.float32, plant_substeps: int = 1,
+                rti0: Optional[RTIState] = None,
+                poc_mode: str = "frozen",
+                poc_cfg: Optional[cfg.PocSolverConfig] = None,
+                warm_start: bool = False,
+                jac_refresh: int = 1) -> ClosedLoopResult:
+    """Run `n_steps` control ticks from x0 on the spec's device, eagerly
+    (the JAX package's traced body; `make_closed_loop` captures it).
+
+    poc_mode: "frozen" keeps the spec's stage parameters for the whole run
+    (the reference computes its POC Jacobians once before the loop);
+    "online" re-linearizes the jet POC Jacobians at the current pose every
+    tick (one jet solve, every stage the same row); "online_stagewise"
+    linearizes stage k at its predicted pose xbar[k] (N jet solves in one
+    vmap). `poc_cfg` sets the jet (default `PocSolverConfig()`).
+    warm_start=True carries IPM slack/dual warm starts between ticks
+    (`rti_step_warm`), under the watchdog when `solver.warm_watchdog`
+    (`rti_step_warm_guarded`); pair it with a reduced `solver.ipm_iters`
+    and `solver.warm_shift=True` (raw unshifted chains degrade on
+    transients). jac_refresh > 1 re-linearizes the dynamics only every
+    jac_refresh-th tick and keeps the shooting defects exact on every
+    tick (`rti_step_jacreuse`, or `rti_step_warm_jacreuse` with
+    warm_start).
+    """
+    consts, carry, tick = _loop(spec, ocp, x0, plant_params, dtype,
+                                plant_substeps, rti0, poc_mode, poc_cfg,
+                                warm_start, jac_refresh)
+    outs = []
+    for k in range(n_steps):
+        carry, out = tick(consts, carry, k % jac_refresh == 0)
+        outs.append(out)
+    return _result(torch.as_tensor(x0, dtype=dtype, device=spec.Q.device),
+                   tuple(torch.stack(col) for col in zip(*outs)))
 
 
 def make_closed_loop(ocp: cfg.OCPConfig, n_steps: int, dtype=torch.float32,
                      plant_substeps: int = 1, poc_mode: str = "frozen",
                      poc_cfg: Optional[cfg.PocSolverConfig] = None,
                      warm_start: bool = False, jac_refresh: int = 1):
-    """Closed-loop runner `run(spec, x0)` with static configuration."""
+    """Closed-loop runner `run(spec, x0)` with static configuration: the
+    JAX package's jitted `lax.scan`, as a `utils/capture.py` Scan. On the
+    card each tick (the RTI tick, the plant step and the cost) is one
+    CUDA graph replayed `n_steps` times (a refresh and a reuse graph with
+    `jac_refresh > 1`), the carry handed on inside the graph and the
+    history written into preallocated outputs, with no host sync until
+    the end; on the CPU the same steps run without a graph. The results
+    equal `closed_loop`'s bit for bit."""
+    scan = capture.Scan()
+    refresh = [k % jac_refresh == 0 for k in range(n_steps)]
+
     def run(spec: OCPSpec, x0):
-        return closed_loop(spec, ocp, x0, n_steps, dtype=dtype,
-                           plant_substeps=plant_substeps, poc_mode=poc_mode,
-                           poc_cfg=poc_cfg, warm_start=warm_start,
-                           jac_refresh=jac_refresh)
+        consts, carry, tick = _loop(spec, ocp, x0, None, dtype,
+                                    plant_substeps, None, poc_mode, poc_cfg,
+                                    warm_start, jac_refresh)
+        outs, _ = scan(tick, consts, carry, refresh)
+        return _result(carry.x, outs)
+    run.scan = scan
     return run
 
 

@@ -50,6 +50,7 @@ from mpc_blaster_tpu_torch.qp.ipm import (IpmWarmStart, box_qp_solve,
 from mpc_blaster_tpu_torch.qp.soft import (SoftBounds, SoftQPSolution,
                                            _violation, soft_box_qp_solve,
                                            violations_from_primal)
+from mpc_blaster_tpu_torch.utils import capture
 
 QP_BACKENDS = ("riccati", "condensed", "pallas", "pallas_fused")
 
@@ -235,8 +236,7 @@ def qp_hessian_R(spec: OCPSpec, solver) -> torch.Tensor:
     determined controls); the QP gradient always keeps `spec.R`."""
     if solver is None or solver.qp_r_floor is None:
         return spec.R
-    fl = torch.as_tensor(solver.qp_r_floor, dtype=spec.R.dtype,
-                         device=spec.R.device)
+    fl = capture.filled(solver.qp_r_floor, spec.R.dtype, spec.R.device)
     d = torch.diagonal(spec.R, dim1=-2, dim2=-1)
     return spec.R + torch.diag_embed(torch.clamp(fl - d, min=0.0))
 
@@ -640,9 +640,11 @@ def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
                   num_steps: int = 1, jit: bool = True, device=None):
     """Build `step(spec, state, x0) -> (u0, state, diag)` closed over the
     static configuration, for specs and states on `device` (default: the
-    card, `device.py`). `jit` holds the JAX package's slot so that a
-    positional call binds as it does there; the eager port accepts it and
-    ignores it."""
+    card, `device.py`). With `jit` (the JAX package's `jax.jit(step)`) the
+    step is a `utils/capture.py` runner: on CUDA tensors it captures the
+    tick as a CUDA graph per shape and replays it, on CPU tensors it runs
+    the same buffer handling without a graph; `jit=False` returns the
+    eager step."""
     params = BlasterParams.from_config(ocp.model, dtype, device)
     F = discrete_dynamics(blaster_ode, ocp.dt, num_steps=num_steps)
     solver = ocp.solver
@@ -655,7 +657,7 @@ def make_rti_step(ocp: cfg.OCPConfig, dtype=torch.float32,
         return rti_step(spec, state, x0, params, F, solver, linearizer=lin,
                         dyn_statics=dyn)
 
-    return step
+    return capture.jit(step) if jit else step
 
 
 @dataclasses.dataclass(frozen=True)

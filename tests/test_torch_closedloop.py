@@ -130,6 +130,7 @@ PORT_MODULES = [
     "mpc_blaster_tpu_torch.utils.profiling",
     "mpc_blaster_tpu_torch.utils.timing",
     "mpc_blaster_tpu_torch.utils.checkpoint",
+    "mpc_blaster_tpu_torch.utils.capture",
     "mpc_blaster_tpu_torch.io", "mpc_blaster_tpu_torch.io.telemetry",
     "mpc_blaster_tpu_torch.io.mavlink", "mpc_blaster_tpu_torch.io.flight",
     "mpc_blaster_tpu_torch.io.transport", "mpc_blaster_tpu_torch.io.mission",
