@@ -11,9 +11,12 @@ the hardware probes P1 and P2 from `mpc_blaster_tpu_torch/csrc/` with
 nvcc (one nvcc per source, both started together), holds each mode,
 cold, warm and soft, against its plain PyTorch twin on the card (phases
 2, 2b and 2c, which also holds the long horizons N=120 and 240, kernel
-K7's shapes), then drives the port's main paths, each with the launch
-counts (the probes' included) set to 0 just before it and read just
-after:
+K7's shapes; phase 2 also the single plan's fuse_lin prologue grid
+launched alone, `fused_lin_prologue`, at each family's B=1 shapes), then
+drives the port's main paths, each with the launch counts (the probes'
+and the prologue grid's included) set to 0 just before it and read just
+after (the prologue grid's held to the path's B=1 fuse_lin launches, one
+before each, and summed into its report entry):
 
   3. the batched RTI tick, backend "pallas" (N=20, B=1024, 10 ticks);
   4. the simulation preset's closed loop, backend "pallas" (N=60, frozen
@@ -201,8 +204,9 @@ the device record, each one JSON object. Each kernel entry carries its
 bound: the larger of the FLOPs of the launch over the card's 67 TFLOP/s
 float32 rate and its bytes (each input read once, each output written
 once) over 3.35 TB/s, both counted from the launch's shapes
-(`launch_work`); `library_ms` is null: no single PyTorch call solves a
-box-constrained OCP-QP.
+(`launch_work`; the prologue grid's: `prologue_bound`); `library_ms` is
+null: no single PyTorch call solves a box-constrained OCP-QP or runs the
+prologue's RK4 on dual numbers.
 
 Tolerances (kernel vs plain twin, both float32 on the card):
   - one IPM iteration, pointwise: u0 atol 2e-3, dx/du (or the new xbar/
@@ -382,6 +386,8 @@ REPLACES = {"box_qp_ipm": "mpc_blaster_tpu/ops/pallas_ipm.py:215",
             "box_qp_ipm_long_horizon": "mpc_blaster_tpu/ops/pallas_ipm.py:293",
             "box_qp_ipm_fuse_lin_batched":
                 "mpc_blaster_tpu/ops/pallas_ipm.py:1163",
+            # the fuse_lin prologue inside the Pallas kernel
+            "box_qp_ipm_prologue": "mpc_blaster_tpu/ops/pallas_ipm.py:508",
             "probe_smem_capacity": "scripts/probe_vmem_ceiling.py:32",
             "probe_fma_chain": "scripts/probe_r5_sublane.py:85"}
 FULL_ITERS = 12   # the simulation preset's ipm_iters
@@ -723,14 +729,34 @@ def launch_work(mode: str, N: int, B: int, iters: int, soft_rows: int = 0,
     return float(B * flops), float(4 * B * (floats_in + floats_out))
 
 
-def launch_bound(mode, N, B, iters, **kw) -> dict:
-    """The least time the card could take for one launch, and what sets
+def work_bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for this work, and what sets
     it."""
-    flops, nbytes = launch_work(mode, N, B, iters, **kw)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def launch_bound(mode, N, B, iters, **kw) -> dict:
+    """The least time the card could take for one launch, and what sets
+    it."""
+    return work_bound(*launch_work(mode, N, B, iters, **kw))
+
+
+def prologue_bound(N: int, family: str = "blaster", nsteps: int = 1,
+                   nx: int = 17, nu: int = 6) -> dict:
+    """`launch_bound` of the single plan's fuse_lin prologue grid alone
+    (B=1): `launch_work`'s prologue FLOPs (the RK4 of the family's ODE on
+    dual numbers, its value part once per node and its tangent part once
+    per (node, column) pair, and the defect); bytes: the iterate and the
+    stage parameters read once, A, B and c written once (float32)."""
+    from mpc_blaster_tpu_torch.ops.box_qp_ipm import FAMILY_NP
+    value, tangent = rk4_flops(family, nx)
+    flops = N * nsteps * (value + (nx + nu) * tangent) + N * nx
+    floats = ((N + 1) * nx + N * nu + N * FAMILY_NP[family]
+              + N * (nx * nx + nx * nu + nx))
+    return work_bound(float(flops), float(4 * floats))
 
 
 def log(phase: str, **kv):
@@ -747,6 +773,24 @@ def check(ok: bool, what: str, **detail):
         FAILURES.append({"check": what, **detail})
 
 
+def report_failures():
+    """Log every failed check on stdout in full, and name each on stderr
+    (its check and short details, a criteria dict by its false entries,
+    one line each), so that the end of the error stream says which checks
+    failed."""
+    for f in FAILURES:
+        log("FAILED", **f)
+        brief = {}
+        for k, v in f.items():
+            if isinstance(v, dict) and v and all(
+                    isinstance(x, bool) for x in v.values()):
+                brief[k + "_false"] = [c for c, x in v.items() if not x]
+            elif len(json.dumps(v, default=str)) <= 200:
+                brief[k] = v
+        print("chip_smoke FAILED: " + json.dumps(brief, default=str)[:800],
+              file=sys.stderr, flush=True)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call, CUDA events around `reps` calls."""
     t0 = torch.cuda.Event(enable_timing=True)
@@ -759,8 +803,32 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of `reps` calls captured once as a CUDA
+    graph (after a warm call on a side stream) and replayed three times:
+    the device's time, the host's work off the clock. The calls' launch
+    counts are taken once, at the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(g.replay, 3) / reps
+
+
 WRAPPERS = ("box_qp_solve", "batched_fused_tick", "fused_rti_solve")
 KERNEL_WRAPPERS: dict = {}   # the wrappers that hold the launch counts
+# the count of the single plan's fuse_lin prologue grid, a launch of its
+# own before each B=1 fuse_lin solve (`fused_lin_prologue.launches`), and
+# its launches per counted path (`tally_prologue`)
+PROLOGUE_WRAPPERS: dict = {}
+PROLOGUE_LAUNCHES: dict = {}
 PROBES = ("smem_capacity", "fma_chain")
 PROBE_WRAPPERS: dict = {}    # the probes' wrappers (no main path runs them)
 
@@ -788,18 +856,33 @@ def reset_counts():
         fn.warm_launches = 0
         fn.by_instance = {}
         fn.by_layout = {}
-    for fn in PROBE_WRAPPERS.values():
+    for fn in (*PROBE_WRAPPERS.values(), *PROLOGUE_WRAPPERS.values()):
         fn.launches = 0
 
 
-def layout_counts() -> dict:
+def tally_prologue(what: str):
+    """After a counted path: its prologue grid launches, held to its
+    single-plan fuse_lin launches (one grid before each), added to
+    PROLOGUE_LAUNCHES under `what`."""
+    for fn in PROLOGUE_WRAPPERS.values():
+        single = sum(v for k, v in KERNEL_WRAPPERS[
+            "fused_rti_solve"].by_layout.items() if k[1] == "single")
+        check(fn.launches == single, f"{what} prologue launches",
+              got=fn.launches, want=single)
+        if fn.launches:
+            PROLOGUE_LAUNCHES[what] = (PROLOGUE_LAUNCHES.get(what, 0)
+                                       + fn.launches)
+
+
+def layout_counts(part: int = 0) -> dict:
     """The IPM launches per layout ("resident", "global") over every
-    wrapper, the non-zero ones."""
+    wrapper, the non-zero ones; with part=1, per plan ("single", "batch")
+    instead (a wrapper's `by_layout` is keyed (layout, plan))."""
     out: dict = {}
     for fn in KERNEL_WRAPPERS.values():
         for k, v in fn.by_layout.items():
             if v:
-                out[k] = out.get(k, 0) + v
+                out[k[part]] = out.get(k[part], 0) + v
     return out
 
 
@@ -837,27 +920,37 @@ def ptxas_usage(build_log: str) -> dict:
 
 
 def ipm_ptxas_usage(build_log: str) -> dict:
-    """ptxas_usage of the IPM library's kernels by instantiation: (mode,
-    soft, nx, nu, family) as in `BUILT` -> registers, stack and spills."""
+    """ptxas_usage of the IPM library's kernels: each solve kernel by its
+    instantiation and plan, (mode, soft, nx, nu, family) as in `BUILT` and
+    its threads -> registers, stack and spills; the single plan's
+    prologue kernels by ("prologue", nx, nu, family, soft)."""
     from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
     fams = {v: k for k, v in K.FAMILY_IDS.items()}
     out = {}
     for name, use in ptxas_usage(build_log).items():
         m = re.search(r"box_qp_ipm_kernelILi(\d)ELb(\d)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d)E", name)
+                      r"ELi(\d)ELi(\d+)E", name)
+        p = re.search(r"box_qp_ipm_prologueILi(\d+)ELi(\d+)ELi(\d)ELb(\d)E",
+                      name)
         if m:
-            mode, soft, nx, nu, fam = (int(g) for g in m.groups())
+            mode, soft, nx, nu, fam, threads = (int(g) for g in m.groups())
             out[(mode, bool(soft), nx, nu,
-                 fams[fam] if mode == K.FUSE_LIN else None)] = use
+                 fams[fam] if mode == K.FUSE_LIN else None, threads)] = use
+        elif p:
+            nx, nu, fam, soft = (int(g) for g in p.groups())
+            out[("prologue", nx, nu, fams[fam], bool(soft))] = use
     return out
 
 
-def launch_keys(K, N, mode, nx=17, nu=6, family=None, soft=False) -> dict:
-    """A report entry's launch: the plan's layout, threads and dynamic
-    shared bytes; the compiled kernel's registers and blocks per SM."""
-    info = K.kernel_info(N, mode, nx, nu, family, soft)
-    return {k: info[k] for k in ("layout", "threads", "smem_bytes",
-                                 "blocks_per_sm", "registers")}
+def launch_keys(K, N, mode, nx=17, nu=6, family=None, soft=False,
+                B=1) -> dict:
+    """A report entry's launch of B problems: the plan, its layout,
+    threads, dynamic shared bytes and prologue grid; the plan's compiled
+    kernel's registers and blocks per SM."""
+    info = K.kernel_info(N, mode, nx, nu, family, soft, B=B)
+    return {k: info[k] for k in ("plan", "layout", "threads", "smem_bytes",
+                                 "prologue_blocks", "blocks_per_sm",
+                                 "registers")}
 
 
 def instance_counts() -> dict:
@@ -885,6 +978,7 @@ def counted(expected: dict, what: str, fn, instances=None,
     lay = layout_counts()
     check(lay == ({layout: n} if n else {}), f"{what} layout", got=lay,
           want=layout)
+    tally_prologue(what)
     return out, got
 
 
@@ -1257,6 +1351,55 @@ def compare_fuse_lin(name, N, dev, K, family="blaster", stagewise=False):
             xbar, ubar, sp, x0, *args, iters=iters, **kw), reps=10)
         row["plain_ms" + sfx] = plain_ms[iters]
     return row
+
+
+def compare_prologue(name, N, dev, K, family="blaster"):
+    """The single plan's fuse_lin prologue grid launched alone
+    (`fused_lin_prologue`, B=1) against its plain version on the same
+    inputs (`fused_lin_prologue_plain`: A, B and c within 2e-4 + 2e-4
+    |ref|, compare_fuse_lin's rule) and against the record the full B=1
+    launch's prologue writes (the same bits); timed eagerly (CUDA events
+    around each call, the host's work included), on graph replays
+    (`graph_ms`) and the twin; the report row."""
+    from mpc_blaster_tpu_torch.sqp.rti import fused_dyn_statics
+    if family == "quad13":
+        statics, sp, xbar, ubar, x0, args, _ = quad13_fused_case(
+            N, 1, dev, N + 2)
+    else:
+        ocp, sp, xbar, ubar, x0, args, _ = fused_case(N, 1, dev, N + 2,
+                                                      family)
+        statics = fused_dyn_statics(ocp, family=family)
+    model, dt, ns = statics
+
+    def run():
+        return K.fused_lin_prologue(xbar, ubar, sp, model, dt, ns)
+    n0 = K.fused_lin_prologue.launches
+    got = run()
+    torch.cuda.synchronize()
+    check(K.fused_lin_prologue.launches == n0 + 1, "kernel launched",
+          case=name)
+    ref, plain_ms = timed(lambda: K.fused_lin_prologue_plain(
+        xbar, ubar, sp, model, dt, ns), 1)
+    _, lin = K.fused_rti_solve(xbar, ubar, sp, x0, *args, iters=1,
+                               return_lin=True, model=model, dt=dt,
+                               num_steps=ns)
+    torch.cuda.synchronize()
+    errs = dict(zip(("A", "B", "c"), ((g - r).abs().max().item()
+                                      for g, r in zip(got, ref))))
+    check(all(bool(((g - r).abs() <= 2e-4 + 2e-4 * r.abs()).all())
+              for g, r in zip(got, ref)), "prologue alone vs its twin",
+          case=name, errs=errs)
+    check(all(torch.equal(a, b) for a, b in zip(got, lin)),
+          "prologue alone is the launch's prologue", case=name)
+    return {"case": name, "B": 1, "N": N, "family": family,
+            "num_steps": ns, "max_abs_err": max(errs.values()),
+            "errs": errs, "kernel_ms": cuda_ms(run, reps=10),
+            "replay_ms": graph_ms(run, 10), "plain_ms": plain_ms,
+            "prologue_blocks": K.launch_plan(
+                N, K.FUSE_LIN, False, xbar.shape[-1], ubar.shape[-1],
+                1).prologue_blocks,
+            **prologue_bound(N, family, ns, xbar.shape[-1],
+                             ubar.shape[-1])}
 
 
 def steady_chain(N: int, dev, keep: int):
@@ -2511,14 +2654,17 @@ def worker(dev) -> int:
     from mpc_blaster_tpu_torch.ops import probes as P
     KERNEL_WRAPPERS.update({w: getattr(K, w) for w in WRAPPERS})
     PROBE_WRAPPERS.update({w: getattr(P, w) for w in PROBES})
+    PROLOGUE_WRAPPERS["fused_lin_prologue"] = K.fused_lin_prologue
     for line in sys.stdin:
         task = line.strip()
         if not task:
             break
         FAILURES.clear()
+        PROLOGUE_LAUNCHES.clear()
         try:
             r = worker_task(task, dev)
             r["timed_beside_workers"] = WORKERS - 1
+            r["prologue_launches"] = dict(PROLOGUE_LAUNCHES)
         except Exception:
             r = None
             FAILURES.append({"check": "worker task ran", "task": task,
@@ -2611,8 +2757,7 @@ def run_workers(tasks: list) -> dict:
                              "stderr": tail})
             broken.append(rc)
     if broken:
-        for f in FAILURES:
-            log("FAILED", **f)
+        report_failures()
         raise SystemExit(f"chip_smoke: {len(broken)} worker task(s) or "
                          "process(es) failed")
     return out
@@ -4087,6 +4232,7 @@ def fly_mission(dev) -> tuple:
     check(got == want, "phase 23c mission launches", got=got, want=want)
     lay = layout_counts()
     check(lay == {"resident": 2 * ticks}, "phase 23c layout", got=lay)
+    tally_prologue("phase 23c mission")
     check(sum(kinds.values()) == 2 * ticks, "phase 23c launch kinds",
           **kinds)
     m = mission_record(r)
@@ -4736,8 +4882,7 @@ def run_phase25(dev: torch.device) -> int:
     wall("1 build")
     phase25(dev)
     wall("25 capture")
-    for f in FAILURES:
-        log("FAILED", **f)
+    report_failures()
     return 1 if FAILURES else 0
 
 
@@ -4756,6 +4901,7 @@ def run(dev: torch.device) -> int:
     from mpc_blaster_tpu_torch.ops import probes as P
     KERNEL_WRAPPERS.update({w: getattr(K, w) for w in WRAPPERS})
     PROBE_WRAPPERS.update({w: getattr(P, w) for w in PROBES})
+    PROLOGUE_WRAPPERS["fused_lin_prologue"] = K.fused_lin_prologue
 
     # ---- phase 1: build both kernel libraries from the checkout, one
     # nvcc for each source, started together ----
@@ -4773,14 +4919,22 @@ def run(dev: torch.device) -> int:
     for nx, nu, mode, family, soft in sorted(
             K.BUILT, key=lambda b: (b[0], b[2], str(b[3]), b[4])):
         for N in ((20, 30, 60, 120, 240) if nx == 17 else (20,)):
-            info = K.kernel_info(N, mode, nx, nu, family, soft)
-            check(info["layout"] == ("global" if N > 120 else "resident"),
-                  "launch plan layout", N=N, **info)
-            log("launch_plan", instance=K.instance_name(nx, nu, family, soft),
-                mode=K._MODE_NAMES[mode], N=N, **info,
-                ptxas=usage.get((mode, soft, nx, nu, family)),
-                waves={str(B): -(-B // (info["blocks_per_sm"] * sms))
-                       for B in (1, 256, BATCH)})
+            for B in (1, BATCH):   # the single plan (B=1), the batch plan
+                info = K.kernel_info(N, mode, nx, nu, family, soft, B=B)
+                check(info["layout"] == ("global" if N > 120 else
+                                         "resident")
+                      and info["plan"] == ("single" if K.single_plan(mode, B)
+                                           else "batch"),
+                      "launch plan layout", N=N, B=B, **info)
+                log("launch_plan",
+                    instance=K.instance_name(nx, nu, family, soft),
+                    mode=K._MODE_NAMES[mode], N=N, B=B, **info,
+                    ptxas=usage.get((mode, soft, nx, nu, family,
+                                     info["threads"])),
+                    prologue_ptxas=usage.get(("prologue", nx, nu, family,
+                                              soft)),
+                    waves={str(b): -(-b // (info["blocks_per_sm"] * sms))
+                           for b in ((1,) if B == 1 else (256, BATCH))})
     wall('1 build')
     # ---- phase 2: each kernel mode vs its plain twin on the card ----
     for w in KERNEL_WRAPPERS.values():
@@ -4822,6 +4976,16 @@ def run(dev: torch.device) -> int:
                                  ("n60_b1_stagewise", 60, True))]
     for r in lin_rows:
         log("fuse_lin_vs_plain", **r)
+    # the single plan's prologue grid alone, at the B=1 fuse_lin shapes
+    # of the main path (K3 and K6 of each family)
+    pro_rows = [compare_prologue(n, N, dev, K, family=f)
+                for n, N, f in (("n20_b1", 20, "blaster"),
+                                ("n30_b1", 30, "blaster"),
+                                ("n60_b1", 60, "blaster"),
+                                ("dist_n30_b1", 30, "blaster_dist"),
+                                ("q13_n20_b1", 20, "quad13"))]
+    for r in pro_rows:
+        log("prologue_vs_plain", **r)
     warm_opts = {"plain_n20_b1": P20_WARM, "plain_n10_b1": P23_WARM}
     warm_rows = [compare_warm(n, mode, N, B, dev, K, **warm_opts.get(n, {}))
                  for n, mode, N, B in (
@@ -4853,6 +5017,9 @@ def run(dev: torch.device) -> int:
     lay = layout_counts()
     check(set(lay) == {"resident"}, "phases 2-2b layout", got=lay,
           want="resident")
+    # B=1 launches (the single plan) and batches (the batch plan) both
+    plans = layout_counts(part=1)
+    check(set(plans) == {"single", "batch"}, "phases 2-2b plans", got=plans)
     wall("2b soft kernel vs twin")
     # ---- phase 2c: the other models' instantiations and long horizons ----
     q13_rows = layouts_only("phase 2c 13x4", "resident", lambda: [
@@ -5387,10 +5554,17 @@ def run(dev: torch.device) -> int:
     # phase 25: the ticks captured as CUDA graphs against the eager ticks
     phase25(dev)
     wall("25 capture")
+    # the prologue grid's launches on the counted paths, the worker
+    # pool's included
+    pro_paths = dict(PROLOGUE_LAUNCHES)
+    for row in pool.values():
+        for k, v in row.get("prologue_launches", {}).items():
+            pro_paths[k] = pro_paths.get(k, 0) + v
+    check(sum(pro_paths.values()) > 0, "the prologue grid ran on the "
+          "main path", launches=pro_paths)
 
     if FAILURES:
-        for f in FAILURES:
-            log("FAILED", **f)
+        report_failures()
         raise SystemExit(f"chip_smoke: {len(FAILURES)} check(s) failed")
 
     main_row = next(r for r in rows if r["case"] == "n60_b1")
@@ -5402,6 +5576,7 @@ def run(dev: torch.device) -> int:
     warm_main = next(r for r in warm_rows if r["case"] == "fuse_lin_n60_b1")
 
     soft_main = next(r for r in soft_rows if r["case"] == "fuse_lin_n60_b1")
+    pro_main = next(r for r in pro_rows if r["case"] == "n60_b1")
 
     def bound_keys(b):
         """The bound of the entry's timed launch (library_ms: no single
@@ -5481,7 +5656,7 @@ def run(dev: torch.device) -> int:
               fused_launches + l21["k5_batched"]["batched_fused_tick"],
               cost_rows, cost_main,
               launch_bound("fuse_cost", 20, BATCH, FULL_ITERS),
-              **launch_keys(K, 20, K.FUSE_COST),
+              **launch_keys(K, 20, K.FUSE_COST, B=BATCH),
               ms_6it=cost_main["kernel_ms_6it"],
               plain_ms_6it=cost_main["plain_ms_6it"],
               tick_ms={str(k): v for k, v in fused_tick_ms.items()},
@@ -5622,7 +5797,7 @@ def run(dev: torch.device) -> int:
          "ms": kb_time["kernel_ms_6it"], "plain_ms": kb_time["plain_ms_6it"],
          "iters": SAFE_ITERS,
          **bound_keys(launch_bound("fuse_lin", 20, BATCH, SAFE_ITERS)),
-         **launch_keys(K, 20, K.FUSE_LIN, family="blaster"),
+         **launch_keys(K, 20, K.FUSE_LIN, family="blaster", B=BATCH),
          "ms_12it": kb_time["kernel_ms"],
          "plain_ms_12it": kb_time["plain_ms"],
          "bound_ms_12it": kb_time["bound_ms"],
@@ -5632,6 +5807,18 @@ def run(dev: torch.device) -> int:
          "sharded_sweep": p22["sharded_sweep"],
          "by_shape": {r["case"]: r for r in kb_rows + [kb_time,
                                                       p22["sweep_kernel_row"]]}},
+        {"name": "box_qp_ipm_prologue", "route": "cuda",
+         "source": KERNEL_SOURCE,
+         "replaces": REPLACES["box_qp_ipm_prologue"],
+         "launches": sum(pro_paths.values()),
+         "launches_by_path": pro_paths,
+         "max_abs_err": max(r["max_abs_err"] for r in pro_rows),
+         "ms": pro_main["kernel_ms"], "plain_ms": pro_main["plain_ms"],
+         **bound_keys(pro_main), "replay_ms": pro_main["replay_ms"],
+         "prologue_blocks": pro_main["prologue_blocks"],
+         "by_shape": {r["case"]: {k: r[k] for k in (
+             "kernel_ms", "replay_ms", "plain_ms", "bound_ms",
+             "max_abs_err")} for r in pro_rows}},
         {"name": "probe_smem_capacity", "route": "cuda",
          "source": PROBE_SOURCE, "replaces": REPLACES["probe_smem_capacity"],
          "launches": 0, "max_abs_err": probes["p1"]["max_abs_err"],

@@ -12,10 +12,15 @@ another module name; it builds its own `csrc/box_qp_ipm.cu` with nvcc
 below is launched through each checkout's own wrapper on the same inputs
 (made once by `chip_smoke.py`'s case functions), warmed up once, then
 timed with CUDA events over REPS launches in the order other, this, this,
-other. Each build's ptxas lines (registers, stack, spills per
-instantiation) are printed; for this checkout's kernel each instantiation's
-launch plan, registers and blocks per SM
-(`ops/box_qp_ipm.py::kernel_info`) at the shapes it is timed at.
+other: eagerly, each call's host work included (`this_ms`, `other_ms`,
+their `ratio` and `spread`: the difference between the two turns of each
+over their sum), and on replays of a CUDA graph that captured REPS
+launches (the host's work off the clock, as on the port's captured
+ticks: `replay_this_ms`, `replay_other_ms`, `replay_ratio`,
+`replay_spread`). Each build's ptxas lines (registers,
+stack, spills per instantiation) are printed; for this checkout's kernel
+each instantiation's launch plans (B=1 and a batch), registers and blocks
+per SM (`ops/box_qp_ipm.py::kernel_info`) at the shapes it is timed at.
 
 The soft-bound shapes (K4) start outside the box (the initial state 2.2
 past the x box) with soft position bounds, or every state soft ("dense",
@@ -31,11 +36,16 @@ Z on warp 0, the solves' vector phases or sweeps, their barriers, the
 waits for the cp.async ring, the KKT pass's adjoint sweep, each row pass
 of an iteration: the complementarity sum, the factorization's barrier
 weights, the right-hand sides, the step lengths, the affine
-complementarity, the update, the merit; everything else), at the plain
-mode, N=60, B=1: hard at 12 iterations and soft (position bounds, from
-outside the box) at 6. The stamp sites fit the kernel before the
-shared-memory redesign (one thread per output) and after it; a source
-they do not fit is refused.
+complementarity, the update, the merit; the FUSE_LIN prologue on the
+solve's block; everything else), at B=1: the plain mode at N=60, hard at
+12 iterations and soft (position bounds, from outside the box) at 6, and
+kernel K3's warm launches at fuse_lin N=60, 3 iterations ("fastest") and
+plain N=10, 6 (the mission). Thread 0 of block 0 runs the solve's
+critical path in either plan; the single plan's prologue grid is a launch
+of its own, outside the stamps (the "K6 prologue ... 0it" rows time it).
+The stamp sites fit the kernel before the shared-memory redesign (one
+thread per output), after it, and the single-problem plan; a source they
+do not fit is refused.
 
 Prints one JSON object per line and the card's name and power limit;
 with --out also writes them to FILE.
@@ -56,7 +66,7 @@ import torch
 
 import chip_smoke as S
 
-REPS = 10
+REPS = 20
 LINES: list = []
 
 
@@ -90,18 +100,23 @@ def soft_bounds(soft, N, dev):
     return S.soft_specs(N, dev, idx=SOFT_STATES[soft])[0]
 
 
-def plain(N, B, iters, nx=17, soft=None):
+def plain(N, B, iters, nx=17, soft=None, warm=False):
     def make(dev):
-        if nx == 13:
+        w = sb = None
+        if warm:
+            from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+            _, inp, w, _ = S.warm_case(N, B, dev, N)
+            qp = S.warm_runners("plain", None, inp, K)[2]
+        elif nx == 13:
             qp = S.quad13_qps(N, B, dev)
         else:
             qp = S.blaster_qps(N, B, dev)
-        sb = None
         if soft is not None:
             qp = qp._replace(dx0=qp.dx0.clone())
             qp.dx0[:, 0] += 2.2
             sb = soft_bounds(soft, N, dev)
-        return lambda M: (lambda: M.box_qp_solve(qp, iters=iters, soft=sb))
+        return lambda M: (lambda: M.box_qp_solve(qp, iters=iters, soft=sb,
+                                                 warm=w))
     return make
 
 
@@ -162,8 +177,21 @@ SHAPES = [
                                                    family="quad13")),
     ("K6 prologue N=60 B=1 0it", "fuse_lin", fuse_lin(60, 1, 0)),
     ("K6 prologue N=20 B=1024 0it", "fuse_lin", fuse_lin(20, 1024, 0)),
+    # K3 at every shape the main paths launch it (PERF.md section 6): the
+    # "fastest" ticks (fuse_lin N=60), bench.py's warm rows (plain N=20,
+    # 3 and 4 iterations), the 60 s mission's controller (plain N=10, 6),
+    # the warm reuse loop (plain N=10, 3), the stress states' "fastest"
+    # (fuse_lin N=20) and the flight node's (fuse_lin N=30)
     ("K3 fuse_lin warm N=60 B=1 3it", "fuse_lin",
      fuse_lin(60, 1, 3, warm=True)),
+    ("K3 plain warm N=20 B=1 3it", "plain", plain(20, 1, 3, warm=True)),
+    ("K3 plain warm N=20 B=1 4it", "plain", plain(20, 1, 4, warm=True)),
+    ("K3 plain warm N=10 B=1 6it", "plain", plain(10, 1, 6, warm=True)),
+    ("K3 plain warm N=10 B=1 3it", "plain", plain(10, 1, 3, warm=True)),
+    ("K3 fuse_lin warm N=20 B=1 3it", "fuse_lin",
+     fuse_lin(20, 1, 3, warm=True)),
+    ("K3 fuse_lin warm N=30 B=1 3it", "fuse_lin",
+     fuse_lin(30, 1, 3, warm=True)),
     ("K4 fuse_lin soft N=60 B=1 6it", "fuse_lin",
      fuse_lin(60, 1, 6, soft="position")),
     ("K4 fuse_lin soft dense N=60 B=1 6it", "fuse_lin",
@@ -186,8 +214,34 @@ SHAPES = [
 ]
 
 
+class Replay:
+    """REPS calls of a launch captured once as a CUDA graph (after a warm
+    call on a side stream), replayed: the device's time for the wrapper's
+    work with the host's off the clock, as on the port's captured ticks.
+    Launch counts are taken once, at the capture."""
+
+    def __init__(self, fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            for _ in range(REPS):
+                fn()
+
+    def ms(self) -> float:
+        """Mean ms per launch over one replay."""
+        return S.cuda_ms(self.graph.replay, 1) / REPS
+
+
 def timed_turns(old, new) -> dict:
-    """Mean ms per launch of each, timed other, this, this, other."""
+    """Mean ms per launch of each, timed other, this, this, other: eagerly,
+    each call's host work included (`other_ms`, `this_ms`, their `ratio`
+    and `spread`), and on replays of a CUDA graph of REPS launches
+    (`Replay`: the host's work off the clock; the same keys with
+    `replay_` before them)."""
     old()
     new()
     torch.cuda.synchronize()
@@ -195,21 +249,35 @@ def timed_turns(old, new) -> dict:
     n1 = S.cuda_ms(new, REPS)
     n2 = S.cuda_ms(new, REPS)
     o2 = S.cuda_ms(old, REPS)
-    return {"other_ms": [o1, o2], "this_ms": [n1, n2],
-            "ratio": (n1 + n2) / (o1 + o2)}
+    go, gn = Replay(old), Replay(new)
+    go.graph.replay()
+    gn.graph.replay()
+    torch.cuda.synchronize()
+    ro1, rn1, rn2, ro2 = go.ms(), gn.ms(), gn.ms(), go.ms()
+
+    def turns(o1, n1, n2, o2, pre=""):
+        return {pre + "other_ms": [o1, o2], pre + "this_ms": [n1, n2],
+                pre + "ratio": (n1 + n2) / (o1 + o2),
+                pre + "spread": (abs(o1 - o2) + abs(n1 - n2)) / (o1 + o2)}
+    return {**turns(o1, n1, n2, o2), **turns(ro1, rn1, rn2, ro2, "replay_")}
 
 
 def plan_rows(K, dev) -> list:
-    """This checkout's launch per instantiation at the timed horizons."""
+    """This checkout's launch per instantiation at the timed horizons, for
+    a single problem and for a batch (its two plans)."""
     rows = []
     for nx, nu, mode, family, soft in sorted(
             K.BUILT, key=lambda b: (b[0], b[2], str(b[3]), b[4])):
         for N in (20, 30, 60, 120, 240):
             if nx == 13 and N > 20:
                 continue
-            info = K.kernel_info(N, mode, nx, nu, family, soft, device=dev)
-            rows.append({"instance": K.instance_name(nx, nu, family, soft),
-                         "mode": K._MODE_NAMES[mode], "N": N, **info})
+            for B in (1, 1024):
+                info = K.kernel_info(N, mode, nx, nu, family, soft,
+                                     device=dev, B=B)
+                rows.append({"instance": K.instance_name(nx, nu, family,
+                                                         soft),
+                             "mode": K._MODE_NAMES[mode], "N": N, "B": B,
+                             **info})
     return rows
 
 
@@ -227,7 +295,10 @@ STAMP_PHASES = ("other", "factorize_matrix", "factorize_barriers",
                 "chol_factor", "chol_inverse",
                 # the row passes of an IPM iteration
                 "rows_comp_sum", "rows_weights", "rows_rhs", "rows_alphas",
-                "rows_mu_aff", "rows_update", "rows_merit")
+                "rows_mu_aff", "rows_update", "rows_merit",
+                # the FUSE_LIN prologue on the solve's block (the single
+                # plan runs it as a grid of its own before the solve: 0)
+                "prologue")
 NSTAMP = len(STAMP_PHASES)
 ROWS = {p: STAMP_PHASES.index(p) for p in STAMP_PHASES if p.startswith("rows")}
 # a launch's first stamp opens the clock: the gap since the previous
@@ -272,7 +343,8 @@ def stamped_source(src: str) -> str:
     src = _once(src, "namespace {\n", STAMP_STATE + "\nnamespace {\n")
     src = _once(src, "    if constexpr (MODE == FUSE_LIN) linearize(md);\n",
                 "    stamp(-1);\n"
-                "    if constexpr (MODE == FUSE_LIN) linearize(md);\n")
+                "    if constexpr (MODE == FUSE_LIN) linearize(md);\n"
+                f"    stamp({STAMP_PHASES.index('prologue')});\n")
     for call, phase in ROW_CALLS:
         src = _once(src, f"      {call}\n", f"      stamp(0);\n      {call}\n"
                     f"      stamp({ROWS[phase]});\n")
@@ -367,13 +439,20 @@ def stamped_wrapper(root_in: Path, root: Path, name: str):
     return load_wrapper(root, name)
 
 
-STAMP_CASES = (("plain 17x6 N=60 B=1 12it", 60, 12, None),
-               ("plain 17x6 soft N=60 B=1 6it", 60, 6, "position"))
+STAMP_CASES = (("plain 17x6 N=60 B=1 12it", 60, 12, plain(60, 1, 12)),
+               ("plain 17x6 soft N=60 B=1 6it", 60, 6,
+                plain(60, 1, 6, soft="position")),
+               ("K3 fuse_lin warm N=60 B=1 3it", 60, 3,
+                fuse_lin(60, 1, 3, warm=True)),
+               ("K3 plain warm N=10 B=1 6it", 10, 6,
+                plain(10, 1, 6, warm=True)))
 
 
 def stamps(M, dev, label) -> list:
-    """Phase split of a stamped kernel's plain mode at N=60, B=1 (hard, 12
-    iterations; soft from outside the box, 6): the cycles of each case's
+    """Phase split of a stamped kernel at B=1 (STAMP_CASES: the plain
+    mode at N=60, hard at 12 iterations and soft from outside the box at
+    6; K3's "fastest" fuse_lin launch at N=60, 3 iterations, and the
+    mission's plain launch at N=10, 6): the cycles of each case's
     launches, the read before it taken off."""
     lib = M._library()
     lib.box_qp_ipm_stamps.argtypes = [ctypes.c_void_p]
@@ -387,14 +466,14 @@ def stamps(M, dev, label) -> list:
         return list(buf)
 
     out = []
-    for case, N, iters, soft in STAMP_CASES:
-        run = plain(N, 1, iters, soft=soft)(dev)(M)
+    for case, N, iters, make in STAMP_CASES:
+        run = make(dev)(M)
         before = read()
         ms = timed_turns(run, run)
         cyc = dict(zip(STAMP_PHASES, (a - b for a, b in zip(read(),
                                                              before))))
         total = sum(cyc.values())
-        launch_ms = sum(ms["this_ms"]) / 2
+        launch_ms = sum(ms["replay_this_ms"]) / 2
         stage_iters = N * iters
         out.append({"kernel": label, "case": case, "cycles": cyc,
                     "launch_ms": launch_ms, "cycles_total": total,

@@ -98,12 +98,38 @@
 // iterations is ~33 MFLOP and ~0.15 MB of inputs and outputs). The layout
 // shortens that chain and keeps memory latency off it:
 //
-//   - One problem per block of THREADS = 128 threads (four warps,
-//     __launch_bounds__(128, 2)); a batch of B problems is B blocks. A
-//     matrix phase of the Riccati factorization gives each thread a 2x2
-//     tile of its products (P'A, P'B; B'PB, B'PA, A'PA): four independent
-//     17-long sums in registers, each shared-memory operand feeding two
-//     of them (the phases are bound by shared-memory loads, not FMAs).
+//   - One problem per block. The host picks one of two plans from B and
+//     the mode alone (box_qp_ipm_plan, ops/box_qp_ipm.py::launch_plan):
+//     the batch plan, 128 threads (four warps, __launch_bounds__(128, 2):
+//     two blocks per SM at B=1024), a batch of B problems B blocks; and
+//     the single plan for B=1 in PLAIN and FUSE_LIN (the flight loop's
+//     ticks, the warm launches of kernel K3), 256 threads
+//     (__launch_bounds__(256, 1)): the launch has one SM to itself, and
+//     eight warps of it shorten the block's phases. The solve's thread
+//     count is a template parameter (THREADS), so each instantiation of
+//     BUILT has a kernel per plan (FUSE_COST, the batched tick, only the
+//     batch plan's). A matrix phase of the Riccati factorization gives
+//     each thread a 2x2 tile of its products (P'A, P'B; B'PB, B'PA,
+//     A'PA): four independent 17-long sums in registers, each
+//     shared-memory operand feeding two of them (the phases are bound by
+//     shared-memory loads, not FMAs). The single plan computes A'PA (read
+//     only by P_k) on warps 1-3 and 5-7 (not on warp 0's SM
+//     sub-partition) while warp 0 runs the Cholesky inverse; its row
+//     passes and the block's loops over stages stride by its 256 threads.
+//   - The single plan takes the FUSE_LIN prologue off the solve's block:
+//     its N ceil((NX + NU) / 2) items (720 at N=60, each an RK4 of the
+//     ODE on dual numbers, the prologue's whole time at ~6 items a thread
+//     on 128 threads) run as a grid of their own (box_qp_ipm_prologue,
+//     one item a thread in blocks of LIN_THREADS, on as many SMs) that
+//     writes the record the solve then reads, on the same stream before
+//     the solve: two launches, which a CUDA graph captures in order. The
+//     grid runs the batch plan's Solver::linearize_items, the one compiled
+//     prologue both plans call, so the two records are the same bits. A
+//     thread-block cluster whose other CTAs linearize into the leader's
+//     record would do the same work in one launch; it was not built or
+//     timed (the record lives in global memory either way, since the ring
+//     streams A_k and B_k from it). The prologue grid can also be launched
+//     alone (`iters` = PROLOGUE_ONLY at B=1), to time and check it apart.
 //   - The Riccati factor stacks P_0..P_N, Z_0..Z_{N-1} and Hinv_0..Hinv_{N-1}
 //     live in dynamic shared memory (the "resident" layout, opted in up to
 //     232448 B per block, the card's ceiling measured by probe P1) whenever
@@ -147,16 +173,21 @@
 //     of the one-thread form is kept, in its order.
 //
 // Block barriers per stage and IPM iteration: 4, all in the factorization
-// (PA|PB; Huu|Hux|A'PA; the Cholesky inverse and Z on warp 0; the
+// (PA|PB; Huu|Hux|A'PA, the single plan's A'PA in the next phase; the
+// Cholesky inverse and Z on warp 0; the
 // symmetrized P_k, computed for a pair (i, j) with i <= j by one thread as
 // 0.5 (Pt_ij + Pt_ji) and written to both entries). The sweeps take none
 // per stage (the ring's flags and __syncwarp); each sweep and each row pass
 // adds two or three barriers per iteration, not per stage. Every output
 // keeps the operation order of the one-thread-per-output form: the same
 // products in the same order, so a fused multiply-add is contracted the
-// same way. The per-problem block sums (complementarity, mu_aff, the
-// inequality count) are reduced over 128 threads in another order than
-// over 256.
+// same way. The per-problem block sums (complementarity, mu_aff) keep the
+// order of a 256-thread block in both plans (`block_sum`), and the maxima,
+// minima and counts do not depend on an order, so the two plans give the
+// same bits: with g++ against tests/cuda_cpu/
+// (tests/test_torch_kernel_cpu.py) and on the card, where nvcc contracts
+// both plans' multiply-adds alike as long as their tiles and their
+// FUSE_LIN Solver's layout are the same (tests/test_torch_cuda.py).
 //
 // The long-horizon variants of the Pallas kernel (stream_p / stream_big,
 // pallas_ipm.py:293-393, kernel K7) stream P, the A/B record and the Z
@@ -170,8 +201,8 @@
 // Before the first launch of an instantiation the host calls
 // box_qp_ipm_set_optin, which opts it in to SMEM_OPTIN bytes of dynamic
 // shared memory; a launch whose plan exceeds that is refused. The
-// FUSE_LIN prologue (`linearize`) is compiled out of line, so that the
-// registers its dual numbers take do not crowd the solve's loops.
+// FUSE_LIN prologue (`Solver::linearize_items`) is compiled out of line, so
+// that the registers its dual numbers take do not crowd the solve's loops.
 // Build without --use_fast_math: the guards rely on IEEE division, square
 // root, sin/cos/tan and NaN behaviour.
 
@@ -181,8 +212,16 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
+// Threads per block of the two launch plans (a template parameter of the
+// solve): the batch plan's four warps, two blocks per SM at B=1024,
+// and the single-problem plan's eight warps for a B=1 launch, which has
+// one SM to itself.
+constexpr int BATCH_THREADS = 128;
+constexpr int SINGLE_THREADS = 256;
+// warps 1..PRODUCERS fill the ring in either plan
+constexpr int PRODUCERS = 3;
+// threads per block of the single plan's FUSE_LIN prologue grid
+constexpr int LIN_THREADS = 128;
 constexpr unsigned FULL = 0xffffffffu;
 // The most dynamic shared memory one block may opt in to on the H100
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin; probe P1 reads it back).
@@ -228,8 +267,9 @@ struct OpMin {
   __device__ float operator()(float a, float b) const { return nmin(a, b); }
 };
 
-// Per-problem reduction across the block; every thread gets the result.
-template <class Op>
+// Per-problem reduction across the block of WARPS warps; every thread gets
+// the result.
+template <int WARPS, class Op>
 __device__ float block_reduce(float v, float* red, Op op) {
   for (int o = 16; o > 0; o >>= 1) {
     v = op(v, __shfl_xor_sync(FULL, v, o));
@@ -243,26 +283,37 @@ __device__ float block_reduce(float v, float* red, Op op) {
 }
 
 // The per-problem sums keep the summation order of a 256-thread block
-// (SUM_THREADS): thread t carries the partial sums of the virtual threads
-// t and t + 128 (rows t, t + 256, ... and t + 128, t + 384, ...), each is
-// reduced over its virtual warp by the same butterfly, and the eight warp
-// sums are added in order. Rounding then does not depend on the block
-// size: a sum over 128 threads would part from the twin's and the earlier
+// (SUM_THREADS): thread t of a THREADS-thread block carries the partial
+// sums of the virtual threads t + h THREADS (h < SUM_THREADS / THREADS:
+// in the batch plan t and t + 128, rows t, t + 256, ... and t + 128,
+// t + 384, ...; in the single plan t alone), each is reduced over its
+// virtual warp by the same butterfly, and the eight warp sums are added
+// in order. Rounding then does not depend on the block size or the plan:
+// a sum over 128 threads would part from the twin's and the earlier
 // kernels' f32 trajectories on unconverged solves.
 constexpr int SUM_THREADS = 256;
 constexpr int SUM_WARPS = SUM_THREADS / 32;
-static_assert(SUM_THREADS == 2 * THREADS, "two virtual threads per thread");
+template <int THREADS>
+__host__ __device__ constexpr int sum_parts() {
+  static_assert(SUM_THREADS % THREADS == 0, "whole virtual threads");
+  return SUM_THREADS / THREADS;
+}
 
-__device__ float block_sum(const float (&v)[2], float* red) {
-  float a = v[0], b = v[1];
+template <int THREADS>
+__device__ float block_sum(const float (&v)[sum_parts<THREADS>()],
+                           float* red) {
+  constexpr int VT = sum_parts<THREADS>(), WARPS = THREADS / 32;
+  float a[VT];
+#pragma unroll
+  for (int h = 0; h < VT; ++h) a[h] = v[h];
   for (int o = 16; o > 0; o >>= 1) {
-    a = a + __shfl_xor_sync(FULL, a, o);
-    b = b + __shfl_xor_sync(FULL, b, o);
+#pragma unroll
+    for (int h = 0; h < VT; ++h) a[h] = a[h] + __shfl_xor_sync(FULL, a[h], o);
   }
   __syncthreads();  // earlier readers of red are done
   if ((threadIdx.x & 31) == 0) {
-    red[threadIdx.x >> 5] = a;
-    red[WARPS + (threadIdx.x >> 5)] = b;
+#pragma unroll
+    for (int h = 0; h < VT; ++h) red[h * WARPS + (threadIdx.x >> 5)] = a[h];
   }
   __syncthreads();
   float out = red[0];
@@ -308,14 +359,15 @@ struct Shared {
   float Huu[NU * NU];
   float L[NU * NU];    // the Cholesky inverse's factor and its inverse
   float Li[NU * NU];
-  float red[2 * WARPS];  // block reductions (sums: SUM_WARPS slots)
+  float red[SUM_WARPS];  // block reductions (a slot per warp, and per
+                        // virtual warp of the sums)
   int full[RING_SLOTS];   // the sweep step whose data a slot holds
   int empty[RING_SLOTS];  // the last step a slot served
 };
 
 template <int NX, int NU>
 __host__ __device__ constexpr int shared_floats() {
-  return 2 * NX * NX + 2 * NX * NU + 3 * NU * NU + 2 * WARPS + 2 * RING_SLOTS;
+  return 2 * NX * NX + 2 * NX * NU + 3 * NU * NU + SUM_WARPS + 2 * RING_SLOTS;
 }
 static_assert(sizeof(Shared<17, 6>) == 4 * shared_floats<17, 6>(), "");
 static_assert(sizeof(Shared<13, 4>) == 4 * shared_floats<13, 4>(), "");
@@ -403,6 +455,27 @@ __host__ __device__ size_t workspace_floats(int N, int mode, bool soft) {
   if (!resident<NX, NU>(N)) w += stack_floats<NX, NU>(N);
   return w;
 }
+
+// The single plan's launch shapes. A B=1 launch takes the single plan in
+// the modes a single-problem path runs (PLAIN, FUSE_LIN); FUSE_COST is the
+// batched tick and keeps the batch plan at any B (its single variant is
+// not built). The FUSE_LIN prologue's items (a node and LIN_COLS tangent
+// columns each) then run as a grid of their own, one item per thread.
+__host__ __device__ constexpr bool single_plan(int mode, int B) {
+  return B == 1 && mode != FUSE_COST;
+}
+template <int NX, int NU>
+__host__ __device__ constexpr int lin_items(int N) {
+  return N * ((NX + NU + LIN_COLS - 1) / LIN_COLS);
+}
+template <int NX, int NU>
+__host__ __device__ constexpr int lin_blocks(int N) {
+  return (lin_items<NX, NU>(N) + LIN_THREADS - 1) / LIN_THREADS;
+}
+// The `iters` of a FUSE_LIN entry call at B=1 that launches the single
+// plan's prologue grid alone, its record in `lin` (the prologue's own
+// wrapper, ops/box_qp_ipm.py::fused_lin_prologue).
+constexpr int PROLOGUE_ONLY = -1;
 
 struct Inputs {  // problem-major float32, NX x NU the instantiation's model
   const float* A;    // (B, N, NX, NX)
@@ -858,10 +931,16 @@ struct SoftRows<true> {
   int E;
 };
 
-// One problem's solve, run by one thread block: an NX-state, NU-control
-// model; FAM is the FUSE_LIN prologue's ODE.
-template <int MODE, bool SOFT, int NX, int NU, int FAM>
+// One problem's solve, run by one thread block of THREADS threads (the
+// plan's): an NX-state, NU-control model; FAM is the FUSE_LIN prologue's
+// ODE.
+template <int MODE, bool SOFT, int NX, int NU, int FAM, int THREADS>
 struct Solver : SoftRows<SOFT> {
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr bool SINGLE = THREADS != BATCH_THREADS;
+  static_assert(THREADS == BATCH_THREADS || THREADS == SINGLE_THREADS, "");
+  static_assert(WARPS > PRODUCERS && WARPS <= SUM_WARPS, "");
+  static constexpr int VT = sum_parts<THREADS>();  // virtual threads
   static constexpr int NXX = NX * NX;
   static constexpr int RING = ring_stage<NX, NU>();
   static constexpr int NPAIR = NX * (NX + 1) / 2;  // P entries i <= j
@@ -892,12 +971,13 @@ struct Solver : SoftRows<SOFT> {
   int pi[PR], pj[PR];  // this thread's (i, j) pairs of the P phase
   float mu0, reg, n_ineq, mu_t;
 
+  // problem `prob` of the launch (the solve's block index)
   __device__ Solver(const Inputs& in, const Outputs& out, float* smem, int N_,
-                    float mu0_, float reg_)
+                    float mu0_, float reg_, int prob)
       : sh(*reinterpret_cast<Shared<NX, NU>*>(smem)), N(N_), t(threadIdx.x),
         lane(threadIdx.x & 31), warp(threadIdx.x >> 5), mu0(mu0_),
         reg(reg_), n_ineq(1.f), mu_t(0.f) {
-    const size_t b = blockIdx.x, n = N, n1 = N + 1;
+    const size_t b = prob, n = N, n1 = N + 1;
     Qs = in.Qs + b * NXX;
     Qt = in.Qt + b * NXX;
     R = in.R + b * NU * NU;
@@ -1073,11 +1153,22 @@ struct Solver : SoftRows<SOFT> {
   // (P'A, P'B; B'PB, B'PA, A'PA) is cut into 2x2 tiles of outputs, one
   // tile per thread, so that each operand loaded from shared memory feeds
   // two of the tile's four independent chains. Each output is still the
-  // one sum over l = 0..NX-1 in order.
+  // one sum over l = 0..NX-1 in order. Both plans take these tiles:
+  // smaller tiles for the single plan's extra threads (2x1, 1x1) were
+  // measured, and nvcc contracted their multiply-adds otherwise, so the
+  // two plans' results parted in the last bits (at N=50-60 on the card;
+  // equal with -fmad=false, and equal again with the 2x2 tiles). The
+  // single plan computes A'PA, which only P_k reads, in the next phase, on
+  // warps 1-3 and 5-7 while warp 0 runs the Cholesky inverse (warp 4 would
+  // share warp 0's SM sub-partition: beside it the inverse took ~15%
+  // longer at N=10).
   static constexpr int HX = (NX + 1) / 2, HU = (NU + 1) / 2;
   static constexpr int T1A = HX * HX, T1 = T1A + HX * HU;
-  static constexpr int T2U = HU * HU, T2X = HU * HX, T2 = T2U + T2X + HX * HX;
+  static constexpr int T2U = HU * HU, T2X = HU * HX,
+                       T2 = T2U + T2X + (SINGLE ? 0 : HX * HX);
   static_assert(T1 <= THREADS && T2 <= THREADS, "one tile per thread");
+  static_assert(!SINGLE || HX * HX <= 32 * (WARPS - WARPS / 4),
+                "A'PA beside warp 0, off its sub-partition");
   // out (h x w, row-major) [i][j] = sum_l lp[l ll + i] rp[l rl + j] on
   // tile number `tile` (rows 2a, 2a + 1; columns 2b, 2b + 1; an odd edge
   // repeats its last row or column and does not store it)
@@ -1141,9 +1232,10 @@ struct Solver : SoftRows<SOFT> {
     return nullptr;
   }
 
-  // A sweep on warp 0 reads each stage from the ring; warps 1..WARPS-1
-  // fill it. Step m of the sweep visits stage first + m dir. Producer warp
-  // w takes the steps m = w - 1 (mod WARPS - 1): it loads the stage into
+  // A sweep on warp 0 reads each stage from the ring; warps 1..PRODUCERS
+  // fill it (the single plan's other warps wait at the barrier that closes
+  // the sweep). Step m of the sweep visits stage first + m dir. Producer
+  // warp w takes the steps m = w - 1 (mod PRODUCERS): it loads the stage into
   // registers (coalesced plain loads, started before it waits), waits until
   // the slot's previous step m - RING_SLOTS has been served, stores it,
   // and publishes the step in full[slot]. Warp 0 polls full[slot] for the
@@ -1159,7 +1251,8 @@ struct Solver : SoftRows<SOFT> {
   template <int VEC>
   __device__ void produce(int first, int dir) {
     constexpr int W = (RING + 31) / 32;
-    for (int m = warp - 1; m < N; m += WARPS - 1) {
+    if (warp > PRODUCERS) return;
+    for (int m = warp - 1; m < N; m += PRODUCERS) {
       const int k = first + m * dir, s = m & (RING_SLOTS - 1);
       float r[W];
 #pragma unroll
@@ -1195,16 +1288,48 @@ struct Solver : SoftRows<SOFT> {
       st_volatile(&sh.empty[m & (RING_SLOTS - 1)], m);
     }
   }
+  // The ring as a sweep on warp 0 sees it: acquire and release on the
+  // Solver's fields copied out once. The ring's fences make every value
+  // in memory stale, and every FUSE_LIN Solver lives in local memory (its
+  // out-of-line prologue member takes its address), so a sweep that
+  // reads them from the Solver reloads them at every step.
+  struct Ring {
+    float* base;
+    int *full, *empty;
+    bool lead;
+    __device__ const float* acquire(int m) const {
+      while (ld_volatile(&full[m & (RING_SLOTS - 1)]) != m) {
+      }
+      __threadfence_block();
+      return base + (m & (RING_SLOTS - 1)) * RING;
+    }
+    __device__ void release(int m) const {
+      __syncwarp();
+      if (lead) {
+        __threadfence_block();
+        st_volatile(&empty[m & (RING_SLOTS - 1)], m);
+      }
+    }
+  };
+  __device__ Ring ring_view() const {
+    return Ring{ring, sh.full, sh.empty, lane == 0};
+  }
 
   // ---- fused assembly ----------------------------------------------------
-  // FUSE_LIN prologue: item e takes node k = e / CP and the LIN_COLS
-  // tangent columns j0 .. j0 + LIN_COLS - 1 of that node (C = NX + NU
-  // columns; j < NX seeds x_j, else u_{j-NX}), runs RK4 of the family's ODE
-  // on duals and writes those columns of A_k or B_k; column 0 also writes
-  // the shooting defect c_k = x_next - xbar_{k+1}.
-  __device__ __noinline__ void linearize(const Model& md) {
+  // FUSE_LIN prologue: items first, first + step, ... Item e takes node
+  // k = e / CP and the LIN_COLS tangent columns j0 .. j0 + LIN_COLS - 1 of
+  // that node (C = NX + NU columns; j < NX seeds x_j, else u_{j-NX}), runs
+  // RK4 of the family's ODE on duals and writes those columns of A_k or
+  // B_k; column 0 also writes the shooting defect c_k = x_next -
+  // xbar_{k+1}. Compiled out of line, so that the registers its dual
+  // numbers take do not crowd the solve's loops, and called on the batch
+  // plan's Solver by both plans: on the solve's block (step THREADS) and
+  // by the single plan's prologue grid (one item a thread), so that the
+  // two records are the same bits.
+  __device__ __noinline__ void linearize_items(const Model& md, int first,
+                                               int step) {
     constexpr int C = NX + NU, CP = (C + LIN_COLS - 1) / LIN_COLS;
-    for (int e = t; e < N * CP; e += THREADS) {
+    for (int e = first; e < N * CP; e += step) {
       const int k = e / CP, j0 = (e - k * CP) * LIN_COLS;
       DualN<LIN_COLS> X[NX], U[NU];
 #pragma unroll
@@ -1244,14 +1369,40 @@ struct Solver : SoftRows<SOFT> {
         }
       }
     }
-    __syncthreads();
+  }
+  // the prologue on the block. The single plan has run it as a grid of its
+  // own before this launch (`launch`): here it calls for no item, so that
+  // its Solver is laid out as the batch plan's (whose address the call
+  // takes; measured on the card, without the call nvcc contracted the
+  // FUSE_LIN solve's multiply-adds otherwise and the plans parted by
+  // 2e-4 in du after one iteration)
+  __device__ void linearize(const Model& md) {
+    if constexpr (SINGLE) {
+      linearize_items(md, N * ((NX + NU + LIN_COLS - 1) / LIN_COLS), 1);
+    } else {
+      linearize_items(md, t, THREADS);
+      __syncthreads();
+    }
   }
 
   // build_qp's cost and bound rows from the iterate (Qs and R arrive
   // dt-scaled, the terminal Qt unscaled; the gradient uses Rg):
   // q_k = Qs' (xbar_k - yref_k), q_N = Qt' (xbar_N - yref_e),
   // r_k = Rg' (ubar_k - yref_u,k), delta bound = absolute box - iterate.
+  // (the Solver's fields copied out first: every FUSE_LIN Solver lives in
+  // local memory, and a store through a float pointer could alias it, so
+  // each would be reloaded after every store)
   __device__ void cost_fill() {
+    const int N = this->N, t = this->t;
+    const float *const Qs = this->Qs, *const Qt = this->Qt,
+                *const Rg = this->Rg, *const xbar = this->xbar,
+                *const ubar = this->ubar, *const yrx = this->yrx,
+                *const yru = this->yru, *const yre = this->yre;
+    float *const qf = this->qf, *const rf = this->rf;
+    float* const bd[4] = {this->bd[0], this->bd[1], this->bd[2],
+                          this->bd[3]};
+    const float* const box[4] = {this->box[0], this->box[1], this->box[2],
+                                 this->box[3]};
     for (int e = t; e < (N + 1) * NX; e += THREADS) {
       const int k = e / NX, i = e - k * NX;
       const float* Qm = k == N ? Qt : Qs;
@@ -1305,9 +1456,9 @@ struct Solver : SoftRows<SOFT> {
       v = nmax(v, box[2][i] - un);
       v = nmax(v, un - box[3][i]);
     }
-    sx = block_reduce(ax, sh.red, OpMax());
-    su = block_reduce(au, sh.red, OpMax());
-    vio = block_reduce(v, sh.red, OpMax());
+    sx = block_reduce<WARPS>(ax, sh.red, OpMax());
+    su = block_reduce<WARPS>(au, sh.red, OpMax());
+    vio = block_reduce<WARPS>(v, sh.red, OpMax());
   }
 
   // ---- bound rows -------------------------------------------------------
@@ -1338,15 +1489,15 @@ struct Solver : SoftRows<SOFT> {
   // block: term(acc, gb, idx, vi) adds a row's terms to acc (block_sum).
   template <class F>
   __device__ float rows_sum(F term) const {
-    float a0 = 0.f, a1 = 0.f;
-    for_rows_from(t, SUM_THREADS, [&](int gb, int idx, int vi) {
-      term(a0, gb, idx, vi);
-    });
-    for_rows_from(t + THREADS, SUM_THREADS, [&](int gb, int idx, int vi) {
-      term(a1, gb, idx, vi);
-    });
-    const float v[2] = {a0, a1};
-    return block_sum(v, sh.red);
+    float a[VT];
+#pragma unroll
+    for (int h = 0; h < VT; ++h) {
+      float& acc = a[h];
+      acc = 0.f;
+      for_rows_from(t + h * THREADS, SUM_THREADS,
+                    [&](int gb, int idx, int vi) { term(acc, gb, idx, vi); });
+    }
+    return block_sum<THREADS>(a, sh.red);
   }
 
   __device__ static float sgn(int g) { return (g & 1) ? -1.f : 1.f; }
@@ -1460,7 +1611,7 @@ struct Solver : SoftRows<SOFT> {
         if (this->cls[e] == C_SOFT) acc = nmax(acc, fabsf(soft_rt(g, idx, e)));
       }
     });
-    return block_reduce(acc, sh.red, OpMax());
+    return block_reduce<WARPS>(acc, sh.red, OpMax());
   }
   // the best-iterate merit: stat + eq (+ soft stationarity) + mean comp
   __device__ float merit(float st, float eq) const {
@@ -1487,6 +1638,11 @@ struct Solver : SoftRows<SOFT> {
     classify();
     sweep_begin();
     if (warp == 0) {
+      const Ring rg = ring_view();
+      const auto acquire = [&rg](int m) { return rg.acquire(m); };
+      const auto release = [&rg](int m) { rg.release(m); };
+      const int N = this->N, lane = this->lane;
+      float* const dx = this->dx;
       const int xi = lane < NX ? lane : 0;
       float d;
       if constexpr (MODE == PLAIN) {
@@ -1546,7 +1702,7 @@ struct Solver : SoftRows<SOFT> {
         cnt += m;
       }
     });
-    n_ineq = nmax(block_reduce(cnt, sh.red, OpSum()), 1.f);
+    n_ineq = nmax(block_reduce<WARPS>(cnt, sh.red, OpSum()), 1.f);
     __syncthreads();
   }
 
@@ -1603,11 +1759,15 @@ struct Solver : SoftRows<SOFT> {
     } else {
       produce<V_KKT>(N - 1, -1);
     }
-    stat_out = block_reduce(stat, sh.red, OpMax());
-    eq_out = block_reduce(eq, sh.red, OpMax());
+    stat_out = block_reduce<WARPS>(stat, sh.red, OpMax());
+    eq_out = block_reduce<WARPS>(eq, sh.red, OpMax());
   }
 
   __device__ float kkt_sweep() {
+    const Ring rg = ring_view();
+    const auto acquire = [&rg](int m) { return rg.acquire(m); };
+    const auto release = [&rg](int m) { rg.release(m); };
+    const int N = this->N;
     const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
     const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
     float lm;
@@ -1672,8 +1832,9 @@ struct Solver : SoftRows<SOFT> {
   }
 
   // backward Riccati factorization: P (N+1 stack), Z = Hinv Hux, Hinv.
-  // Per stage four phases, each closed by a block barrier: PA|PB; Huu|Hux|
-  // A'PA; the Cholesky inverse and Z on warp 0; the symmetrized P_k.
+  // Per stage four phases, each closed by a block barrier: PA|PB; Huu|Hux
+  // (batch plan: |A'PA); the Cholesky inverse and Z on warp 0 (single
+  // plan: A'PA on the other warps meanwhile); the symmetrized P_k.
   __device__ void factorize() {
     // barrier weights of every row, one pass
     for (int e = t; e < N * NX; e += THREADS) sgx[e] = sig_pair(0, e);
@@ -1718,7 +1879,7 @@ struct Solver : SoftRows<SOFT> {
                 a ? t : t - T1A, a ? sh.PA : sh.PB);
       }
       __syncthreads();
-      if (t < T2) {  // B' P B, Hux = B' P A, A' P A
+      if (t < T2) {  // B' P B, Hux = B' P A (batch plan: A' P A)
         const bool u = t < T2U, x = !u && t < T2U + T2X;
         tile2x2(u || x ? Bk : Ak, u || x ? NU : NX, u ? sh.PB : sh.PA,
                 u ? NU : NX, u || x ? NU : NX, u ? NU : NX,
@@ -1771,6 +1932,13 @@ struct Solver : SoftRows<SOFT> {
           for (int e = lane; e < NU * NU; e += 32) {
             Hst[(size_t)k * NU * NU + e] = Hk[e];
           }
+        }
+      } else if constexpr (SINGLE) {  // A' P A beside the Cholesky inverse
+        // on the warps that share no SM sub-partition with warp 0 (warp w
+        // issues on sub-partition w % 4)
+        const int ta = (warp - 1 - warp / 4) * 32 + lane;
+        if ((warp & 3) != 0 && ta < HX * HX) {
+          tile2x2(Ak, NX, sh.PA, NX, NX, NX, ta, sh.APA);
         }
       }
       __syncthreads();
@@ -1905,13 +2073,20 @@ struct Solver : SoftRows<SOFT> {
   // Pcp = P_{k+1}' req_k + p_{k+1}: lane i < NX carries p_i, lane NX + t
   // forms Gu_t and kff_t. P_k' req_{k-1} is formed one stage ahead.
   __device__ void sweep_back() {
+    const Ring rg = ring_view();
+    const auto acquire = [&rg](int m) { return rg.acquire(m); };
+    const auto release = [&rg](int m) { rg.release(m); };
+    const int N = this->N;
+    float* const kff = this->kff;
+    const float *const Pst = this->Pst, *const Zst = this->Zst,
+                *const Hst = this->Hst;
     const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
     const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
     float pv = qr[N * NX + xi];
     float preq;  // P_{k+1}' req_k, formed a stage ahead
     {
       const float* v = acquire(0) + NXX + NX * NU;
-      const float* P1 = Ps(N) + xi;
+      const float* P1 = Pst + (size_t)N * NXX + xi;
       preq = P1[0] * v[0];
 #pragma unroll
       for (int j = 1; j < NX; ++j) preq += P1[j * NX] * v[j];
@@ -1925,7 +2100,7 @@ struct Solver : SoftRows<SOFT> {
 #pragma unroll
       for (int j = 0; j < NX; ++j) w[j] = __shfl_sync(FULL, pcp, j);
       if (k > 0) {  // the next stage's P_k' req_{k-1}, off the chain
-        const float* Pk = Ps(k) + xi;
+        const float* Pk = Pst + (size_t)k * NXX + xi;
         const float* vn = acquire(m + 1) + NXX + NX * NU;
         preq = Pk[0] * vn[0];
 #pragma unroll
@@ -1944,7 +2119,8 @@ struct Solver : SoftRows<SOFT> {
 #pragma unroll
       for (int j = 0; j < NU; ++j) u[j] = __shfl_sync(FULL, gu, NX + j);
       // Z_k' Gu (state lanes), Hinv_k' Gu (control lanes)
-      const float* c2 = xl ? Zs(k) + xi : Hs(k) + ui;
+      const float* c2 = xl ? Zst + (size_t)k * NU * NX + xi
+                           : Hst + (size_t)k * NU * NU + ui;
       const int l2 = xl ? NX : NU;
       float z = c2[0] * u[0];
 #pragma unroll
@@ -1957,6 +2133,11 @@ struct Solver : SoftRows<SOFT> {
   // du_k = -Z_k d + kff_k (control lanes), dx_{k+1} = A_k d + B_k du_k +
   // req_k (state lanes), d = dx_k carried by lanes i < NX
   __device__ void sweep_fwd(float* dX, float* dU) {
+    const Ring rg = ring_view();
+    const auto acquire = [&rg](int m) { return rg.acquire(m); };
+    const auto release = [&rg](int m) { rg.release(m); };
+    const int N = this->N, lane = this->lane;
+    const float* const Zst = this->Zst;
     const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
     const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
     float d = 0.f;
@@ -1967,7 +2148,8 @@ struct Solver : SoftRows<SOFT> {
       float dv[NX];
 #pragma unroll
       for (int j = 0; j < NX; ++j) dv[j] = __shfl_sync(FULL, d, j);
-      const float* row = xl ? Ak + xi * NX : Zs(k) + ui * NX;
+      const float* row = xl ? Ak + xi * NX : Zst + (size_t)k * NU * NX
+                                                 + ui * NX;
       float a = row[0] * dv[0];
 #pragma unroll
       for (int j = 1; j < NX; ++j) a += row[j] * dv[j];
@@ -2043,8 +2225,8 @@ struct Solver : SoftRows<SOFT> {
         ad = nmin(ad, ratio(lam[g][idx], dl, tau));
       }
     });
-    a_p = nmin(block_reduce(ap, sh.red, OpMin()), 1.f);
-    a_d = nmin(block_reduce(ad, sh.red, OpMin()), 1.f);
+    a_p = nmin(block_reduce<WARPS>(ap, sh.red, OpMin()), 1.f);
+    a_d = nmin(block_reduce<WARPS>(ad, sh.red, OpMin()), 1.f);
   }
 
   // complementarity after the affine step (sum over bounds)
@@ -2164,15 +2346,34 @@ struct Solver : SoftRows<SOFT> {
   }
 };
 
-template <int MODE, bool SOFT, int NX, int NU, int FAM>
-__global__ void __launch_bounds__(THREADS, 2)
+// The solve: one block of THREADS threads per problem (the batch plan:
+// two blocks per SM; the single plan: one problem, one block).
+template <int MODE, bool SOFT, int NX, int NU, int FAM, int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == BATCH_THREADS ? 2 : 1)
 box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
                   float mu0, float alpha_frac, float reg) {
   if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
   extern __shared__ float4 smem4[];
-  Solver<MODE, SOFT, NX, NU, FAM> solver(
-      in, out, reinterpret_cast<float*>(smem4), N, mu0, reg);
+  Solver<MODE, SOFT, NX, NU, FAM, THREADS> solver(
+      in, out, reinterpret_cast<float*>(smem4), N, mu0, reg, blockIdx.x);
   solver.run(iters, alpha_frac, md);
+}
+
+// The single plan's FUSE_LIN prologue (B=1): lin_items(N) items, one a
+// thread, into the problem's record (the caller's `lin`, else its place in
+// the workspace) by the batch plan's Solver of the instantiation, before
+// the solve on the same stream. The skip flag returns every block before
+// it writes anything.
+template <int NX, int NU, int FAM, bool SOFT>
+__global__ void __launch_bounds__(LIN_THREADS)
+box_qp_ipm_prologue(Inputs in, Outputs out, Model md, int N) {
+  if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
+  const int e = blockIdx.x * LIN_THREADS + threadIdx.x;
+  if (e >= lin_items<NX, NU>(N)) return;
+  float none[1];  // no shared memory: linearize_items reads none
+  Solver<FUSE_LIN, SOFT, NX, NU, FAM, BATCH_THREADS> solver(in, out, none, N,
+                                                           0.f, 0.f, 0);
+  solver.linearize_items(md, e, lin_items<NX, NU>(N));
 }
 
 // The warm-start arguments every entry takes (wvalid null = cold solve).
@@ -2211,7 +2412,11 @@ template <int MODE, bool SOFT, int NX, int NU, int FAM = BLASTER>
 int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
            int N, int iters, float mu0, float alpha_frac, float reg,
            void* stream) {
-  if (B <= 0 || N <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  const bool prologue_only = MODE == FUSE_LIN && iters == PROLOGUE_ONLY &&
+                             single_plan(MODE, B);
+  if (B <= 0 || N <= 0 || (iters < 0 && !prologue_only)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (SOFT && in.wvalid != nullptr) {
     return (int)cudaErrorInvalidValue;  // soft takes no warm start
   }
@@ -2231,9 +2436,25 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
   }
   const size_t smem = plan_bytes<NX, NU>(N, SOFT);
   if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
-  box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>
-      <<<B, THREADS, smem, (cudaStream_t)stream>>>(in, out, md, N, iters, mu0,
-                                                   alpha_frac, reg);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (MODE != FUSE_COST) {
+    if (single_plan(MODE, B)) {
+      if constexpr (MODE == FUSE_LIN) {
+        const int pb = lin_blocks<NX, NU>(N);
+        box_qp_ipm_prologue<NX, NU, FAM, SOFT>
+            <<<pb, LIN_THREADS, 0, st>>>(in, out, md, N);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess || prologue_only) return (int)e;
+      }
+      box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM, SINGLE_THREADS>
+          <<<B, SINGLE_THREADS, smem, st>>>(in, out, md, N, iters, mu0,
+                                            alpha_frac, reg);
+      return (int)cudaGetLastError();
+    }
+  }
+  box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM, BATCH_THREADS>
+      <<<B, BATCH_THREADS, smem, st>>>(in, out, md, N, iters, mu0,
+                                       alpha_frac, reg);
   return (int)cudaGetLastError();
 }
 
@@ -2251,15 +2472,13 @@ int with_instance(int mode, bool soft, int nx, int nu, int family,
       return soft ? f.template run<PLAIN, true, 17, 6, BLASTER>()
                   : f.template run<PLAIN, false, 17, 6, BLASTER>();
     }
-    if (mode == FUSE_LIN && family == BLASTER && soft) {
-      return f.template run<FUSE_LIN, true, 17, 6, BLASTER>();
+    if (mode == FUSE_LIN && family == BLASTER) {
+      return soft ? f.template run<FUSE_LIN, true, 17, 6, BLASTER>()
+                  : f.template run<FUSE_LIN, false, 17, 6, BLASTER>();
     }
 #ifndef BOX_QP_IPM_CPU_SUBSET
     if (mode == FUSE_COST && !soft) {
       return f.template run<FUSE_COST, false, 17, 6, BLASTER>();
-    }
-    if (mode == FUSE_LIN && family == BLASTER && !soft) {
-      return f.template run<FUSE_LIN, false, 17, 6, BLASTER>();
     }
     if (mode == FUSE_LIN && family == BLASTER_DIST && !soft) {
       return f.template run<FUSE_LIN, false, 17, 6, BLASTER_DIST>();
@@ -2277,41 +2496,63 @@ int with_instance(int mode, bool soft, int nx, int nu, int family,
   return (int)cudaErrorInvalidValue;
 }
 
-// Opts an instantiation in to SMEM_OPTIN bytes of dynamic shared memory and
-// prefers the largest shared-memory carveout (so that two resident blocks
-// share an SM). A refused attribute also sets the runtime's last error:
-// it is cleared, and the error returned.
+// The solve kernel of a plan: the batch plan's, or the single plan's
+// where the mode builds one (not FUSE_COST).
+template <int MODE, bool SOFT, int NX, int NU, int FAM>
+const void* plan_kernel(bool single) {
+  if constexpr (MODE != FUSE_COST) {
+    if (single) {
+      return (const void*)
+          box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM, SINGLE_THREADS>;
+    }
+  }
+  return (const void*)box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM,
+                                        BATCH_THREADS>;
+}
+
+// Opts an instantiation's solve kernels (both plans) in to SMEM_OPTIN bytes
+// of dynamic shared memory and prefers the largest shared-memory carveout
+// (so that two resident blocks share an SM). A refused attribute also sets
+// the runtime's last error: it is cleared, and the error returned.
 struct SetOptin {
   template <int MODE, bool SOFT, int NX, int NU, int FAM>
   int run() const {
-    const void* k = (const void*)box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>;
-    cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_OPTIN);
-    if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(k,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
+    cudaError_t e = cudaSuccess;
+    for (int single = 0; single < 2 && e == cudaSuccess; ++single) {
+      if (single && MODE == FUSE_COST) break;
+      const void* k = plan_kernel<MODE, SOFT, NX, NU, FAM>(single != 0);
+      e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_OPTIN);
+      if (e == cudaSuccess) {
+        e = cudaFuncSetAttribute(
+            k, cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      }
     }
     if (e != cudaSuccess) cudaGetLastError();
     return (int)e;
   }
 };
 
-// The compiled kernel's registers per thread and local (stack) bytes, and
-// the blocks of it one SM holds at `smem` bytes of dynamic shared memory.
+// The compiled solve kernel of the plan for a batch of B: its registers per
+// thread and local (stack) bytes, and the blocks of it one SM holds at
+// `smem` bytes of dynamic shared memory.
 struct Attrs {
   long long smem;
+  int B;
   int *regs, *local_bytes, *blocks_per_sm;
   template <int MODE, bool SOFT, int NX, int NU, int FAM>
   int run() const {
-    const void* k = (const void*)box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM>;
+    const bool single = single_plan(MODE, B);
+    const void* k = plan_kernel<MODE, SOFT, NX, NU, FAM>(single);
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, k);
     if (e == cudaSuccess) {
       *regs = a.numRegs;
       *local_bytes = (int)a.localSizeBytes;
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks_per_sm, k, THREADS, (size_t)smem);
+          blocks_per_sm, k, single ? SINGLE_THREADS : BATCH_THREADS,
+          (size_t)smem);
     }
     if (e != cudaSuccess) cudaGetLastError();
     return (int)e;
@@ -2333,24 +2574,28 @@ extern "C" long long box_qp_ipm_lin_floats(int N, int nx, int nu) {
   return -1;
 }
 
-// The launch's plan: threads per block, dynamic shared bytes and whether
-// the factor stacks are resident in shared memory. The mode does not
-// change it (it is taken so that the query names an instantiation); soft
-// bounds add the soft area where it fits.
+// The plan of a launch of B problems: threads per block (the single plan
+// for B=1 outside FUSE_COST, else the batch plan), dynamic shared bytes
+// and whether the factor stacks are resident in shared memory (the same in
+// both plans; soft bounds add the soft area where it fits), and the blocks
+// of the FUSE_LIN prologue's own grid (0: it runs on the solve's block).
 extern "C" int box_qp_ipm_plan(int N, int mode, int soft, int nx, int nu,
-                               int* threads, long long* smem, int* res) {
-  (void)mode;
-  if (N <= 0) return (int)cudaErrorInvalidValue;
+                               int B, int* threads, long long* smem,
+                               int* res, int* prologue_blocks) {
+  if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  const bool single = single_plan(mode, B);
   if (is_17x6(nx, nu)) {
     *smem = (long long)plan_bytes<17, 6>(N, soft != 0);
     *res = resident<17, 6>(N);
+    *prologue_blocks = single && mode == FUSE_LIN ? lin_blocks<17, 6>(N) : 0;
   } else if (is_13x4(nx, nu)) {
     *smem = (long long)plan_bytes<13, 4>(N, soft != 0);
     *res = resident<13, 4>(N);
+    *prologue_blocks = single && mode == FUSE_LIN ? lin_blocks<13, 4>(N) : 0;
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  *threads = THREADS;
+  *threads = single ? SINGLE_THREADS : BATCH_THREADS;
   return 0;
 }
 
@@ -2362,17 +2607,18 @@ extern "C" int box_qp_ipm_set_optin(int mode, int soft, int nx, int nu,
 }
 
 extern "C" int box_qp_ipm_kernel_attrs(int mode, int soft, int nx, int nu,
-                                       int family, long long smem, int* regs,
-                                       int* local_bytes, int* blocks_per_sm) {
+                                       int family, long long smem, int B,
+                                       int* regs, int* local_bytes,
+                                       int* blocks_per_sm) {
   return with_instance(mode, soft != 0, nx, nu, family,
-                       Attrs{smem, regs, local_bytes, blocks_per_sm});
+                       Attrs{smem, B, regs, local_bytes, blocks_per_sm});
 }
 
 extern "C" const char* box_qp_ipm_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// PLAIN: one launch solves the whole batch: grid = B blocks of THREADS
+// PLAIN: one launch solves the whole batch: grid = B blocks of the plan's
 // threads. Non-null penalty rows (Zlx ...) select the soft instantiation
 // (17x6 only).
 extern "C" int box_qp_ipm_solve(
@@ -2460,6 +2706,7 @@ extern "C" int box_qp_ipm_fused_cost(
 
 // FUSE_LIN (the one-launch RTI tick): dx/du receive deltas; `lin`, when not
 // null, receives the A, B and c the prologue built (B, lin_floats(N)).
+// iters = PROLOGUE_ONLY at B=1 launches the prologue grid alone.
 // `family` picks the ODE and with it the dimensions: BLASTER (17x6, np >=
 // 25, hard or soft), BLASTER_DIST (17x6, np >= 31, hard) or QUAD13 (13x4,
 // hard). Non-null penalty rows (Zlx ...) select the soft instantiation.
@@ -2510,11 +2757,11 @@ extern "C" int box_qp_ipm_fused_lin(
     return launch<FUSE_LIN, true, 17, 6>(in, out, md, B, N, iters, mu0,
                                          alpha_frac, reg, stream);
   }
-#ifndef BOX_QP_IPM_CPU_SUBSET
   if (family == BLASTER) {
     return launch<FUSE_LIN, false, 17, 6>(in, out, md, B, N, iters, mu0,
                                           alpha_frac, reg, stream);
   }
+#ifndef BOX_QP_IPM_CPU_SUBSET
   if (family == BLASTER_DIST && !soft) {
     return launch<FUSE_LIN, false, 17, 6, BLASTER_DIST>(
         in, out, md, B, N, iters, mu0, alpha_frac, reg, stream);

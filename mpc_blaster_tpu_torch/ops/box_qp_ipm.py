@@ -29,19 +29,27 @@ its dimensions from the arrays: `BUILT` lists the instantiations of
 `csrc/box_qp_ipm.cu`. The wrappers refuse any other combination with
 `NotImplementedError`, on every device (no path of the port uses one).
 
-Each launch follows a plan (`launch_plan`, a plain function of N and the
-instantiation; the library's `box_qp_ipm_plan` returns the same): 128
-threads per problem, and dynamic shared memory that holds the Riccati
-factor stacks (P, Z, Hinv of every stage) where they fit under the card's
-232448-byte opt-in (the "resident" layout: every 17x6 horizon up to
-N=128), else only a window of them, the stacks staying in the global
-workspace ("global": 17x6 at N=240). The wrapper opts each instantiation
-in to that much shared memory once (`box_qp_ipm_set_optin`) and raises
-if the runtime refuses or a plan exceeds it; no option chooses the
-layout. The launches per layout are counted in each wrapper's
-`by_layout`. The Pallas kernel's long-horizon variants (K7, its
-`stream_p` / `stream_big` switches) are these two layouts
-(`box_qp_solve` accepts the switches and selects nothing with them).
+Each launch follows a plan (`launch_plan`, a plain function of N, the
+batch size B and the instantiation; the library's `box_qp_ipm_plan`
+returns the same): one block per problem, of 128 threads (the batch
+plan) or, for a single problem (B=1) in the plain and fuse_lin modes,
+256 threads with the fuse_lin prologue run as a grid of its own before
+the solve (the single plan); and dynamic shared memory that holds the
+Riccati factor stacks (P, Z, Hinv of every stage) where they fit under
+the card's 232448-byte opt-in (the "resident" layout: every 17x6 horizon
+up to N=128), else only a window of them, the stacks staying in the
+global workspace ("global": 17x6 at N=240). The wrapper opts each
+instantiation in to that much shared memory once
+(`box_qp_ipm_set_optin`) and raises if the runtime refuses or a plan
+exceeds it; no option chooses the plan or the layout, and a plan that
+fails to launch raises. The launches per layout and plan are counted in
+each wrapper's `by_layout`, keyed (layout, plan): ("resident" or
+"global", "single" or "batch"). The Pallas kernel's long-horizon
+variants (K7, its `stream_p` / `stream_big` switches) are these two
+layouts (`box_qp_solve` accepts the switches and selects nothing with
+them). The single plan's fuse_lin prologue grid is a kernel launch of its
+own: each is counted in `fused_lin_prologue.launches`, which also
+launches it alone.
 
 One call runs a whole Mehrotra predictor-corrector IPM (Gondzio-clipped
 targets, Riccati factorization and sweeps, fraction-to-boundary steps,
@@ -143,25 +151,47 @@ _WARM_FIELDS = ("s_lx", "s_ux", "lam_lx", "lam_ux", "s_lu", "s_uu",
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "box_qp_ipm.cu"
 
-# The launch shape of csrc/box_qp_ipm.cu: threads per problem, and the most
-# dynamic shared memory a block may opt in to on the H100
-# (cudaDevAttrMaxSharedMemoryPerBlockOptin; probe P1 reads it back).
-THREADS = 128
+# The launch shapes of csrc/box_qp_ipm.cu: threads per problem in the batch
+# and single plans, the single plan's fuse_lin prologue grid (threads per
+# block, tangent columns per item), and the most dynamic shared memory a
+# block may opt in to on the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin;
+# probe P1 reads it back).
+BATCH_THREADS = 128
+SINGLE_THREADS = 256
+LIN_THREADS = 128
+LIN_COLS = 2
 SMEM_OPTIN = 232448
 RING_SLOTS = 4   # slots of the kernel's ring of stages
+PROLOGUE_ONLY = -1  # a fuse_lin launch's iters: the prologue grid alone
 SOFT_WORDS = 10  # float32 words per bound entry in the soft area
 
 
 class LaunchPlan(NamedTuple):
-    """How one launch runs: threads per block, dynamic shared bytes, and
-    whether the factor stacks are resident in shared memory."""
+    """How one launch runs: threads per block, dynamic shared bytes,
+    whether the factor stacks are resident in shared memory, and the
+    blocks of the fuse_lin prologue's own grid (0: the prologue, if any,
+    runs on the solve's block)."""
     threads: int
     smem_bytes: int
     resident: bool
+    prologue_blocks: int = 0
 
     @property
     def layout(self) -> str:
         return "resident" if self.resident else "global"
+
+    @property
+    def single(self) -> bool:
+        return self.threads == SINGLE_THREADS
+
+    @property
+    def kind(self) -> str:
+        return "single" if self.single else "batch"
+
+    @property
+    def key(self) -> tuple:
+        """The launch's key in a wrapper's `by_layout`: (layout, kind)."""
+        return self.layout, self.kind
 
 
 def soft_area_floats(N: int, nx: int, nu: int) -> int:
@@ -174,12 +204,23 @@ def soft_area_floats(N: int, nx: int, nu: int) -> int:
     return SOFT_WORDS * E + (E + 3) // 4
 
 
-def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int
+def single_plan(mode: int, B: int) -> bool:
+    """Whether a launch of B problems takes the single plan: B=1 in the
+    plain and fuse_lin modes (fuse_cost, the batched tick, builds only the
+    batch plan)."""
+    return B == 1 and mode != FUSE_COST
+
+
+def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int, B: int
                 ) -> LaunchPlan:
-    """The plan of csrc/box_qp_ipm.cu's launch at horizon N for an nx x nu
-    model (every mode shares it). Dynamic shared memory, in float32 words:
+    """The plan of csrc/box_qp_ipm.cu's launch of B problems at horizon N
+    for an nx x nu model. Threads per block: SINGLE_THREADS where
+    `single_plan`, else BATCH_THREADS; the single plan's fuse_lin launch
+    runs its prologue's N ceil((nx + nu) / LIN_COLS) items as a grid of
+    blocks of LIN_THREADS before the solve. Dynamic shared memory (the
+    same in both plans and every mode), in float32 words:
     the per-stage scratch (P'A, A'PA, P'B, Hux, Huu, the Cholesky
-    inverse's two factors, two words per warp for the block reductions,
+    inverse's two factors, eight words for the block reductions,
     the ring's two flags per slot), the ring of RING_SLOTS stages (A_k,
     B_k and up to 3 (nx + nu) words of the stage's vectors each), then the
     factor stacks P_0..P_N, Z_0..Z_{N-1}, Hinv_0..Hinv_{N-1} where the
@@ -188,12 +229,11 @@ def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int
     (`soft_area_floats`, sized for every row being soft) after them where
     it still fits, else keeps it in the global workspace; the layout
     names where the stacks are."""
-    if (nx, nu) not in {(b[0], b[1]) for b in BUILT} or N < 1 \
+    if (nx, nu) not in {(b[0], b[1]) for b in BUILT} or N < 1 or B < 1 \
             or mode not in _MODE_NAMES:
-        raise ValueError(f"no launch plan for N={N}, mode={mode}, "
+        raise ValueError(f"no launch plan for N={N}, mode={mode}, B={B}, "
                          f"{nx}x{nu}")
-    scratch = (2 * nx * nx + 2 * nx * nu + 3 * nu * nu + 2 * (THREADS // 32)
-               + 2 * RING_SLOTS)
+    scratch = 2 * nx * nx + 2 * nx * nu + 3 * nu * nu + 8 + 2 * RING_SLOTS
     ring = RING_SLOTS * (nx * nx + nx * nu + 3 * (nx + nu))
     stacks = (N + 1) * nx * nx + N * nu * nx + N * nu * nu
     window = 2 * nx * nx + nu * nx + nu * nu
@@ -201,7 +241,12 @@ def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int
     words = scratch + ring + (stacks if resident else window)
     if soft and 4 * (words + soft_area_floats(N, nx, nu)) <= SMEM_OPTIN:
         words += soft_area_floats(N, nx, nu)
-    return LaunchPlan(THREADS, 4 * words, resident)
+    single = single_plan(mode, B)
+    items = N * -(-(nx + nu) // LIN_COLS)
+    prologue = (-(-items // LIN_THREADS) if single and mode == FUSE_LIN
+                else 0)
+    return LaunchPlan(SINGLE_THREADS if single else BATCH_THREADS,
+                      4 * words, resident, prologue)
 
 
 def _require_plan(plan: LaunchPlan) -> LaunchPlan:
@@ -744,18 +789,17 @@ def fused_rti_solve_plain(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x,
                           mu0: float = 1e-1, alpha_frac: float = 0.995,
                           reg: float = 1e-6, warm=None, soft=None,
                           R_grad=None, return_lin: bool = False, skip=None):
-    """Eager PyTorch twin of the fuse_lin kernel: `fast_linearize`, the
-    kernel's assembly on the host and the plain solve. Same arguments and
+    """Eager PyTorch twin of the fuse_lin kernel: the prologue's twin
+    (`fused_lin_prologue_plain`), the kernel's assembly on the host and
+    the plain solve. Same arguments and
     result as `fused_rti_solve` (`skip` is ignored: the twin always
     computes)."""
     _check_soft_warm(soft, warm)
     _check_fused_rti(x0, model, stage_params)
     f = _fused_prep(xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u, yref_e, lbx,
                     ubx, lbu, ubu, R_grad)
-    x_next, A, Bm = fast_linearize(
-        f.xbar, f.ubar, _f32(stage_params), _model_params(model, x0.device),
-        dt, num_steps, family=model[0])
-    c = x_next - f.xbar[:, 1:]
+    A, Bm, c = fused_lin_prologue_plain(f.xbar, f.ubar, stage_params, model,
+                                        dt, num_steps)
     sol = _solve_plain(_prep(_fused_qp(f, A, Bm, c)), iters, mu0,
                        alpha_frac, reg, warm,
                        _fused_soft_rows(soft, lbx, ubx, lbu, ubu, f))
@@ -837,29 +881,30 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.box_qp_ipm_lin_floats.restype = ctypes.c_longlong
     lib.box_qp_ipm_error_string.argtypes = [i32]
     lib.box_qp_ipm_error_string.restype = ctypes.c_char_p
-    lib.box_qp_ipm_plan.argtypes = [i32] * 5 + [ptr] * 3
+    lib.box_qp_ipm_plan.argtypes = [i32] * 6 + [ptr] * 4
     lib.box_qp_ipm_plan.restype = i32
     lib.box_qp_ipm_smem_optin.argtypes = []
     lib.box_qp_ipm_smem_optin.restype = ctypes.c_longlong
     lib.box_qp_ipm_set_optin.argtypes = [i32] * 5
     lib.box_qp_ipm_set_optin.restype = i32
     lib.box_qp_ipm_kernel_attrs.argtypes = ([i32] * 5 + [ctypes.c_longlong]
-                                            + [ptr] * 3)
+                                            + [i32] + [ptr] * 3)
     lib.box_qp_ipm_kernel_attrs.restype = i32
     return lib
 
 
-def library_plan(N: int, mode: int, soft: bool, nx: int, nu: int
+def library_plan(N: int, mode: int, soft: bool, nx: int, nu: int, B: int
                  ) -> LaunchPlan:
     """The built library's own plan (`box_qp_ipm_plan`); equals
     `launch_plan`."""
     lib = _library()
-    th, res = ctypes.c_int(), ctypes.c_int()
+    th, res, pro = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = ctypes.c_longlong()
-    rc = lib.box_qp_ipm_plan(N, mode, int(soft), nx, nu, ctypes.byref(th),
-                             ctypes.byref(smem), ctypes.byref(res))
+    rc = lib.box_qp_ipm_plan(N, mode, int(soft), nx, nu, B,
+                             ctypes.byref(th), ctypes.byref(smem),
+                             ctypes.byref(res), ctypes.byref(pro))
     _launched(lib, rc, "box_qp_ipm_plan")
-    return LaunchPlan(th.value, smem.value, bool(res.value))
+    return LaunchPlan(th.value, smem.value, bool(res.value), pro.value)
 
 
 _OPTED_IN: set = set()   # (instantiation, device index) opted in
@@ -883,33 +928,37 @@ def _optin(lib, dev, mode, soft, nx, nu, family):
 
 
 def kernel_info(N: int, mode: int, nx: int, nu: int, family=None,
-                soft: bool = False, device=None) -> dict:
-    """The launch of an instantiation at horizon N on a CUDA device: its
-    plan (layout, threads, dynamic shared bytes; for a soft instantiation
-    where its soft area lives, "shared" or "global") and the compiled
-    kernel's registers per thread, local (stack) bytes and blocks per SM
-    at that shared memory (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+                soft: bool = False, device=None, *, B: int) -> dict:
+    """The launch of an instantiation for B problems at horizon N on a
+    CUDA device: its plan ("single" or "batch"; layout, threads, dynamic
+    shared bytes, the prologue grid's blocks; for a soft instantiation
+    where its soft area lives, "shared" or "global") and the plan's
+    compiled solve kernel's registers per thread, local (stack) bytes and
+    blocks per SM at that shared memory
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
     _check_built(nx, nu, mode, family, soft)
     dev = torch.device(device if device is not None else "cuda")
     if dev.type != "cuda":
         raise ValueError(f"kernel_info reads a CUDA device, not {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    plan = _require_plan(launch_plan(N, mode, soft, nx, nu))
+    plan = _require_plan(launch_plan(N, mode, soft, nx, nu, B))
     lib = _library()
     _optin(lib, dev, mode, soft, nx, nu, family)
     regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     fam = FAMILY_IDS[family] if family is not None else 0
     with torch.cuda.device(dev):
         rc = lib.box_qp_ipm_kernel_attrs(
-            mode, int(soft), nx, nu, fam, plan.smem_bytes,
+            mode, int(soft), nx, nu, fam, plan.smem_bytes, B,
             ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
     _launched(lib, rc, "box_qp_ipm_kernel_attrs")
-    hard = launch_plan(N, mode, False, nx, nu)
+    hard = launch_plan(N, mode, False, nx, nu, B)
     area = (None if not soft else
             "shared" if plan.smem_bytes > hard.smem_bytes else "global")
-    return {"layout": plan.layout, "threads": plan.threads,
-            "smem_bytes": plan.smem_bytes, "soft_area": area,
+    return {"plan": plan.kind,
+            "layout": plan.layout, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes,
+            "prologue_blocks": plan.prologue_blocks, "soft_area": area,
             "registers": regs.value, "local_bytes": local.value,
             "blocks_per_sm": blocks.value}
 
@@ -983,23 +1032,30 @@ def instance_name(nx: int, nu: int, family=None, soft=False) -> str:
             + (" soft" if soft else ""))
 
 
+def _count_prologue():
+    fused_lin_prologue.launches += 1
+
+
 def _count(wrapper, warm, inst, plan: LaunchPlan):
-    """Count one launch on the wrapper; under a CUDA graph capture the
-    count is recorded and added on each replay (`utils/capture.py`)."""
+    """Count one launch on the wrapper, and the prologue grid launched
+    before it where the plan has one (`fused_lin_prologue.launches`);
+    under a CUDA graph capture the counts are recorded and added on each
+    replay (`utils/capture.py`)."""
     def apply():
         wrapper.launches += 1
         wrapper.by_instance[inst] = wrapper.by_instance.get(inst, 0) + 1
-        wrapper.by_layout[plan.layout] = wrapper.by_layout.get(
-            plan.layout, 0) + 1
+        wrapper.by_layout[plan.key] = wrapper.by_layout.get(plan.key, 0) + 1
         if warm is not None:
             wrapper.warm_launches += 1
+        if plan.prologue_blocks:
+            _count_prologue()
     capture.launched(apply)
 
 
-def _prepare_launch(lib, dev, N, mode, soft, nx, nu, family=None
+def _prepare_launch(lib, dev, N, mode, soft, nx, nu, B, family=None
                     ) -> LaunchPlan:
     """The launch's plan, checked, with the instantiation opted in."""
-    plan = _require_plan(launch_plan(N, mode, soft, nx, nu))
+    plan = _require_plan(launch_plan(N, mode, soft, nx, nu, B))
     _optin(lib, dev, mode, soft, nx, nu, family)
     return plan
 
@@ -1048,7 +1104,8 @@ def _solve_kernel(data: QPData, iters: int, mu0: float, alpha_frac: float,
         lbu=(Bsz, N, nu), ubu=(Bsz, N, nu), dx0=(Bsz, nx)), dev)
     pens = _soft_rows(soft, _qp_bounds(data))
     lib = _library()
-    plan = _prepare_launch(lib, dev, N, PLAIN, soft is not None, nx, nu)
+    plan = _prepare_launch(lib, dev, N, PLAIN, soft is not None, nx, nu,
+                           Bsz)
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu, PLAIN,
                                                 dev, soft is not None)
     # held until the launch is enqueued
@@ -1099,7 +1156,7 @@ def box_qp_solve(data: QPData, iters: int = 12, mu0: float = 1e-1,
 
 box_qp_solve.launches = 0
 box_qp_solve.warm_launches = 0
-box_qp_solve.by_layout = {}      # launches per layout ("resident", "global")
+box_qp_solve.by_layout = {}   # launches per LaunchPlan.key
 box_qp_solve.by_instance = {}    # launches per instantiation (instance_name)
 
 
@@ -1117,7 +1174,7 @@ def _fused_cost_kernel(AB, c, f: _Fused, iters, mu0, alpha_frac, reg,
                          f"not match B={Bsz}, N={N} on {dev}")
     A, Bm = _f32(AB[..., :nx]), _f32(AB[..., nx:])
     lib = _library()
-    plan = _prepare_launch(lib, dev, N, FUSE_COST, False, nx, nu)
+    plan = _prepare_launch(lib, dev, N, FUSE_COST, False, nx, nu, Bsz)
     xn, un, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
                                                 FUSE_COST, dev)
     ins = [A, Bm, _f32(c), f.xbar, f.ubar, f.x0, f.Qs, f.Qt, f.R, f.Rg,
@@ -1175,7 +1232,7 @@ def batched_fused_tick(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x, yref_u,
 
 batched_fused_tick.launches = 0
 batched_fused_tick.warm_launches = 0
-batched_fused_tick.by_layout = {}      # launches per layout ("resident", "global")
+batched_fused_tick.by_layout = {}   # launches per LaunchPlan.key
 batched_fused_tick.by_instance = {}
 
 
@@ -1196,7 +1253,7 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
                          f"expected ({Bsz}, {N}, >={np_min}) on {dev}")
     lib = _library()
     plan = _prepare_launch(lib, dev, N, FUSE_LIN, pens is not None, nx, nu,
-                           model[0])
+                           Bsz, model[0])
     dx, du, diag, sx, su, work = _solve_outputs(lib, Bsz, N, nx, nu,
                                                 FUSE_LIN, dev,
                                                 pens is not None)
@@ -1217,8 +1274,11 @@ def _fused_lin_kernel(stage_params, f: _Fused, model, dt, num_steps, iters,
         Bsz, N, sp.shape[2], FAMILY_IDS[model[0]], iters, mu0, alpha_frac,
         reg, *consts, num_steps, _stream(dev))
     _launched(lib, rc, "box_qp_ipm fuse_lin")
-    _count(fused_rti_solve, warm,
-           instance_name(nx, nu, model[0], pens is not None), plan)
+    if iters == PROLOGUE_ONLY:
+        capture.launched(_count_prologue)
+    else:
+        _count(fused_rti_solve, warm,
+               instance_name(nx, nu, model[0], pens is not None), plan)
     sol = _solution(dx, du, diag, sx, su)
     if not return_lin:
         return sol
@@ -1279,5 +1339,52 @@ def fused_rti_solve(xbar, ubar, stage_params, x0, Q, Q_t, R, yref_x, yref_u,
 
 fused_rti_solve.launches = 0
 fused_rti_solve.warm_launches = 0
-fused_rti_solve.by_layout = {}      # launches per layout ("resident", "global")
+fused_rti_solve.by_layout = {}   # launches per LaunchPlan.key
 fused_rti_solve.by_instance = {}
+
+
+def fused_lin_prologue_plain(xbar, ubar, stage_params, model: tuple,
+                             dt: float, num_steps: int = 1):
+    """Eager PyTorch twin of the fuse_lin prologue (`fast_linearize`, as
+    `fused_rti_solve_plain` linearizes): (A, B, c) in float32. Same
+    arguments and result as `fused_lin_prologue`, at any batch size."""
+    xb = _f32(xbar)
+    x_next, A, Bm = fast_linearize(
+        xb, _f32(ubar), _f32(stage_params), _model_params(model, xb.device),
+        dt, num_steps, family=model[0])
+    return A, Bm, x_next - xb[:, 1:]
+
+
+def fused_lin_prologue(xbar, ubar, stage_params, model: tuple, dt: float,
+                       num_steps: int = 1):
+    """The fuse_lin mode's linearization alone, of one problem: (A, B, c)
+    of every node, c = RK4(xbar_k, ubar_k) - xbar_{k+1}; xbar (1, N+1,
+    nx), ubar (1, N, nu), stage_params (1, N, np), `model`, dt and
+    num_steps as in `fused_rti_solve`. CUDA tensors launch the single
+    plan's prologue grid alone (the kernel `fused_rti_solve` launches
+    ahead of its solve at B=1; each launch of it, there or here, counted
+    in `fused_lin_prologue.launches`); CPU tensors run its plain version,
+    `fused_lin_prologue_plain`."""
+    nx, nu = xbar.shape[-1], ubar.shape[-1]
+    if xbar.ndim != 3 or xbar.shape[0] != 1:
+        raise ValueError(f"fused_lin_prologue takes one problem, xbar "
+                         f"(1, N+1, nx), not {tuple(xbar.shape)}")
+    _check_fused_rti(xbar[:, 0], model, stage_params)
+    _check_built(nx, nu, FUSE_LIN, model[0])
+    dev, N = xbar.device, ubar.shape[1]
+    if dev.type == "cuda":
+        z = [torch.zeros(s, dtype=torch.float32, device=dev) for s in (
+            (1, nx), (1, nx, nx), (1, nx, nx), (1, nu, nu), (1, N, nx),
+            (1, N, nu), (1, nx), (1, nx), (1, nx), (1, nu), (1, nu))]
+        f = _fused_prep(xbar, ubar, *z, None)
+        return _fused_lin_kernel(stage_params, f, model, dt, num_steps,
+                                 PROLOGUE_ONLY, 0.1, 0.995, 1e-6, True,
+                                 None, None, None)[1]
+    if dev.type == "cpu":
+        return fused_lin_prologue_plain(xbar, ubar, stage_params, model, dt,
+                                        num_steps)
+    raise ValueError(f"fused_lin_prologue runs on cuda or cpu tensors, "
+                     f"not {dev.type}")
+
+
+fused_lin_prologue.launches = 0

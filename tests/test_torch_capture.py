@@ -373,11 +373,12 @@ class _Graph:
 
 def test_launch_counts_recorded_during_a_capture_add_up_on_replays():
     """What a kernel wrapper counts while a graph is captured (nothing is
-    launched) is recorded, and each replay adds it."""
+    launched) is recorded, and each replay adds it: the single plan's
+    prologue grid too."""
     w = K.fused_rti_solve
     before = (w.launches, w.warm_launches, dict(w.by_instance),
-              dict(w.by_layout))
-    plan = K.launch_plan(10, K.FUSE_LIN, False, 17, 6)
+              dict(w.by_layout), K.fused_lin_prologue.launches)
+    plan = K.launch_plan(10, K.FUSE_LIN, False, 17, 6, 1)
     rec = []
     try:
         with capture._recording(rec):
@@ -392,13 +393,16 @@ def test_launch_counts_recorded_during_a_capture_add_up_on_replays():
         assert w.warm_launches == before[1] + 3
         assert w.by_instance["17x6 blaster"] == \
             before[2].get("17x6 blaster", 0) + 6
-        assert w.by_layout[plan.layout] == \
-            before[3].get(plan.layout, 0) + 6
+        assert w.by_layout[plan.key] == \
+            before[3].get(plan.key, 0) + 6
+        assert K.fused_lin_prologue.launches == before[4] + 6
         K._count(w, None, "17x6 blaster", plan)     # no capture: counted
         assert w.launches == before[0] + 7
+        assert K.fused_lin_prologue.launches == before[4] + 7
     finally:
         w.launches, w.warm_launches = before[:2]
         w.by_instance, w.by_layout = before[2], before[3]
+        K.fused_lin_prologue.launches = before[4]
 
 
 # ---- the tick bodies make no tensor from host data ----

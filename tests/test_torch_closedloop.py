@@ -159,9 +159,83 @@ def _imports_clean(modules):
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr
 
 
+SCRIPTS = ["chip_smoke", "kernel_ab", "k3_chains"]   # the chip scripts
+
+
+def _bad(m: str) -> bool:
+    """A module of JAX or of the JAX package."""
+    return m in ("jax", "jaxlib", "mpc_blaster_tpu") or m.startswith(
+        ("jax.", "jaxlib.", "mpc_blaster_tpu."))
+
+
+# Run in one fresh interpreter: imports MODULES one after the other and
+# prints, as JSON, every module's imports: the modules each `import` or
+# `from ... import` statement it executed names (a wrapper of
+# builtins.__import__ records the importer, `__name__` of the calling
+# globals, also where the imported module was already loaded), and for
+# each of MODULES the modules its import loaded anew.
+_GRAPH_CODE = """
+import builtins, importlib, importlib.util, json, sys
+edges = {}
+real = builtins.__import__
+def hook(name, globals=None, locals=None, fromlist=(), level=0):
+    mod = real(name, globals, locals, fromlist, level)
+    g = globals or {}
+    who = g.get("__name__", "?")
+    if level:
+        name = importlib.util.resolve_name(
+            "." * level + name, g.get("__package__") or who)
+    got = edges.setdefault(who, set())
+    got.add(name)
+    for f in fromlist or ():
+        if name + "." + f in sys.modules:
+            got.add(name + "." + f)
+    return mod
+builtins.__import__ = hook
+for m in MODULES:
+    before = set(sys.modules)
+    importlib.import_module(m)
+    edges.setdefault(m, set()).update(set(sys.modules) - before - {m})
+print(json.dumps({k: sorted(v) for k, v in edges.items()}))
+"""
+
+
+@pytest.fixture(scope="module")
+def import_graph():
+    """Who imports what, over every port module, example and chip script
+    imported in one fresh interpreter (`_GRAPH_CODE`)."""
+    import json
+    modules = PORT_MODULES + EXAMPLE_MODULES + SCRIPTS
+    res = subprocess.run(
+        [sys.executable, "-c", f"MODULES = {modules!r}\n" + _GRAPH_CODE],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _bad_imports(graph: dict, module: str) -> list:
+    """The chains (importer, ..., module of JAX) by which `module`
+    reaches JAX or the JAX package in the import graph; empty if none."""
+    parent, todo, chains = {module: None}, [module], []
+    while todo:
+        m = todo.pop()
+        for n in graph.get(m, ()):
+            if n in parent:
+                continue
+            parent[n] = m
+            if _bad(n):
+                chain = [n]
+                while parent[chain[-1]] is not None:
+                    chain.append(parent[chain[-1]])
+                chains.append(" <- ".join(chain))
+            else:
+                todo.append(n)
+    return chains
+
+
 def test_port_imports_no_jax():
-    """Importing every port module, the port's examples, chip_smoke.py and
-    kernel_ab.py loads
+    """Importing every port module, the port's examples and the chip
+    scripts (chip_smoke.py, kernel_ab.py, k3_chains.py) loads
     nothing of JAX or of the JAX package, and the module list above covers
     every file of the package."""
     found = sorted(
@@ -171,8 +245,7 @@ def test_port_imports_no_jax():
     subpackages = {m for m in found if (REPO / m.replace(".", "/")).is_dir()}
     assert set(found) - subpackages <= set(PORT_MODULES), found
     assert len(EXAMPLE_MODULES) == 4, EXAMPLE_MODULES
-    _imports_clean(PORT_MODULES + EXAMPLE_MODULES + ["chip_smoke",
-                                                     "kernel_ab"])
+    _imports_clean(PORT_MODULES + EXAMPLE_MODULES + SCRIPTS)
 
 
 def test_default_device_is_the_card():
@@ -214,12 +287,15 @@ def test_default_device_is_the_card():
     assert res.xs.device.type == "cpu" and torch.isfinite(res.xs).all()
 
 
-@pytest.mark.parametrize("module", PORT_MODULES + EXAMPLE_MODULES
-                         + ["chip_smoke"])
-def test_port_module_imports_nothing_of_jax(module):
-    """The same check for each module alone, so that no module passes only
-    because another one was imported first."""
-    _imports_clean([module])
+@pytest.mark.parametrize("module", PORT_MODULES + EXAMPLE_MODULES + SCRIPTS)
+def test_port_module_imports_nothing_of_jax(import_graph, module):
+    """The same check for each module alone: nothing the module imports,
+    directly or through the modules it imports, is of JAX or of the JAX
+    package (the import graph names the importer of each module, also of
+    one an earlier module had loaded first, so that no module passes only
+    because another one was imported first)."""
+    assert module in import_graph, module
+    assert _bad_imports(import_graph, module) == []
 
 
 def _same_fields(a, b, where="config"):

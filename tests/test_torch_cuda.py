@@ -10,9 +10,11 @@ fuse_lin mode with the "quad13" and "blaster_dist" prologues; the
 fuse_lin mode with stage parameters that differ from stage to stage (the
 blast scan's online_stagewise ticks); the plain mode at long horizons (K7, N=120 and 240); the fuse_lin mode over a
 batch with one spec per problem (K6 at B > 1); the launch plan (the
-library's `box_qp_ipm_plan` against `launch_plan`, and a launch of each
+library's `box_qp_ipm_plan` against `launch_plan`, a launch of each
 layout, resident and global, against its twin and counted in
-`by_layout`); and the hardware probes P1 and P2 (`ops/probes.py`).
+`by_layout`, and the single plan of a B=1 launch against the batch plan
+on the same problem twice); and the hardware probes P1 and P2
+(`ops/probes.py`).
 
 Needs the card (marker `cuda`; skipped without one) and imports no JAX, so
 it also runs where only the port's dependencies are installed:
@@ -551,15 +553,20 @@ def test_library_plan_matches_launch_plan_on_gpu(cuda_device):
     for nx, nu, Ns in ((17, 6, (8, 20, 30, 60, 61, 62, 120, 128, 129, 240)),
                        (13, 4, (8, 20, 237, 238))):
         for N in Ns:
-            for mode in (K.PLAIN, K.FUSE_LIN):
+            for mode in (K.PLAIN, K.FUSE_COST, K.FUSE_LIN):
                 for soft in (False, True):
-                    assert K.library_plan(N, mode, soft, nx, nu) \
-                        == K.launch_plan(N, mode, soft, nx, nu), \
-                        (nx, N, mode, soft)
+                    for B in (1, 2, 1024):
+                        assert K.library_plan(N, mode, soft, nx, nu, B) \
+                            == K.launch_plan(N, mode, soft, nx, nu, B), \
+                            (nx, N, mode, soft, B)
     for nx, nu, mode, family, soft in K.BUILT:
-        info = K.kernel_info(60 if nx == 17 else 20, mode, nx, nu, family,
-                             soft, device=cuda_device)
-        assert info["threads"] == 128 and info["blocks_per_sm"] >= 1, info
+        for B in (1, 1024):
+            info = K.kernel_info(60 if nx == 17 else 20, mode, nx, nu,
+                                 family, soft, device=cuda_device, B=B)
+            single = K.single_plan(mode, B)
+            assert info["threads"] == (256 if single else 128), info
+            assert info["plan"] == ("single" if single else "batch"), info
+            assert info["blocks_per_sm"] >= 1, info
 
 
 @pytest.mark.cuda
@@ -569,14 +576,94 @@ def test_layouts_match_plain_on_gpu(cuda_device, N, layout):
     global one (N=240: the stacks in the workspace) each against the twin
     after one iteration, pointwise, and counted under their layout."""
     qp = _blaster_qps(cuda_device, B=2, N=N)
-    assert K.launch_plan(N, K.PLAIN, False, 17, 6).layout == layout
+    assert K.launch_plan(N, K.PLAIN, False, 17, 6, 2).layout == layout
     before = dict(K.box_qp_solve.by_layout)
     sk = K.box_qp_solve(qp, iters=1)
     torch.cuda.synchronize()
     after = K.box_qp_solve.by_layout
-    assert after.get(layout, 0) == before.get(layout, 0) + 1
+    assert after.get((layout, "batch"), 0) == \
+        before.get((layout, "batch"), 0) + 1
     assert sum(after.values()) == sum(before.values()) + 1
     sp = K.box_qp_solve_plain(qp, iters=1)
     assert (sk.du[:, 0] - sp.du[:, 0]).abs().max().item() <= 2e-3
     torch.testing.assert_close(sk.du, sp.du, rtol=0, atol=5e-3)
     torch.testing.assert_close(sk.dx, sp.dx, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "fuse_lin"])
+def test_single_plan_matches_batch_plan_on_gpu(cuda_device, mode):
+    """A B=1 launch (the single plan: 256 threads, fuse_lin's prologue as
+    a grid of its own) against the same problem twice (B=2, the batch
+    plan): the same bits, the warm-started blend, the prologue's record
+    and one cold iteration (both plans keep every output's operation
+    order, nvcc contracts their multiply-adds alike, and one compiled
+    prologue serves both), each launch counted under its plan."""
+    dev = cuda_device
+    if mode == "plain":
+        qp = _blaster_qps(dev, B=1)
+        qp2 = type(qp)(*(torch.cat([a, a]) for a in qp))
+
+        def run(it, w, B):
+            return K.box_qp_solve(qp if B == 1 else qp2, iters=it, warm=w), \
+                None
+        twin = K.box_qp_solve_plain(qp, iters=2)
+    else:
+        ocp, spec, xbar, ubar, x0, args = _fused_inputs(dev, B=1)
+        model, dt, nsteps = fused_dyn_statics(ocp)
+        fa = (xbar, ubar, spec.stage_params[None], x0, *args)
+        fa2 = tuple(torch.cat([a, a]) for a in fa)
+        kw = dict(model=model, dt=dt, num_steps=nsteps)
+
+        def run(it, w, B):
+            return K.fused_rti_solve(*(fa if B == 1 else fa2), iters=it,
+                                     warm=w, return_lin=True, **kw)
+        twin = K.fused_rti_solve_plain(*fa, iters=2, **kw)
+    from mpc_blaster_tpu_torch.qp.ipm import IpmWarmStart
+    w = IpmWarmStart(*(getattr(twin, f) for f in IpmWarmStart._fields[:-1]),
+                     valid=torch.ones(1, device=dev))
+    w2 = type(w)(*(torch.cat([a, a]) for a in w))
+    wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
+    before = dict(wrapper.by_layout)
+    for it in (0, 1):
+        (a, la), (b, lb) = (run(0, w, 1), run(0, w2, 2)) if it == 0 else \
+            (run(1, None, 1), run(1, None, 2))
+        torch.cuda.synchronize()
+        if la is not None:
+            assert all(torch.equal(x, y[:1]) for x, y in zip(la, lb))
+        for f in ("s_lx", "s_ux", "s_lu", "s_uu", "lam_lx", "lam_ux",
+                  "lam_lu", "lam_uu", "dx", "du", "kkt_eq", "mu"):
+            assert torch.equal(getattr(a, f), getattr(b, f)[:1]), (it, f)
+    after = wrapper.by_layout
+    for kind in ("single", "batch"):
+        key = ("resident", kind)
+        assert after.get(key, 0) == before.get(key, 0) + 2
+
+
+@pytest.mark.cuda
+def test_prologue_alone_matches_fast_linearize_on_gpu(cuda_device):
+    """The single plan's prologue grid launched alone
+    (`fused_lin_prologue`, B=1) against its plain version on the CPU (rtol
+    and atol 2e-4) and against the record the full B=1 launch's prologue
+    writes (the same kernel: the same bits); each prologue grid counted
+    once in `fused_lin_prologue.launches`, the solve only by
+    `fused_rti_solve`; a batch refused."""
+    dev = cuda_device
+    ocp, spec, xbar, ubar, x0, args = _fused_inputs(dev, B=1, N=20)
+    model, dt, nsteps = fused_dyn_statics(ocp)
+    sp = spec.stage_params[None]
+    n0, s0 = K.fused_lin_prologue.launches, K.fused_rti_solve.launches
+    got = K.fused_lin_prologue(xbar, ubar, sp, model, dt, nsteps)
+    _, lin = K.fused_rti_solve(xbar, ubar, sp, x0, *args, model=model, dt=dt,
+                               num_steps=nsteps, iters=1, return_lin=True)
+    torch.cuda.synchronize()
+    assert K.fused_lin_prologue.launches == n0 + 2
+    assert K.fused_rti_solve.launches == s0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, lin))
+    ref = K.fused_lin_prologue(xbar.cpu(), ubar.cpu(), sp.cpu(), model, dt,
+                               nsteps)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError):
+        K.fused_lin_prologue(torch.cat([xbar, xbar]), torch.cat([ubar, ubar]),
+                             torch.cat([sp, sp]), model, dt, nsteps)

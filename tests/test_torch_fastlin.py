@@ -164,3 +164,34 @@ def test_make_linearizer_fused_and_unknown():
         ocp.solver, lin_backend="nope"))
     with pytest.raises(ValueError, match="lin_backend"):
         make_linearizer(bad, tp)
+
+
+@pytest.mark.parametrize("family", ["blaster", "blaster_dist", "quad13"])
+def test_fused_lin_prologue_matches_jax(family):
+    """The fuse_lin prologue's wrapper (`ops/box_qp_ipm.py::
+    fused_lin_prologue`, one problem) on CPU tensors, its plain version,
+    against the JAX `fast_linearize` in float32: A and B within the f32
+    bounds above, c = x_next - xbar_{k+1} within the primal's; a batch
+    refused."""
+    from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+    if family == "quad13":
+        xbar, ubar, sp = _quad13_inputs(6)
+    else:
+        xbar, ubar, sp = _blaster_inputs(
+            8, seed=5, n_dist=6 if family == "blaster_dist" else 0)
+    xbar, ubar, sp = (a.astype(np.float32) for a in (xbar, ubar, sp))
+    jp, _, dt = _params(family, jnp.float32, torch.float32)
+    ref = jfast(jnp.asarray(xbar), jnp.asarray(ubar), jnp.asarray(sp), jp,
+                dt, num_steps=1, family=family)
+    model = (family, float(jp.mass), float(jp.gravity),
+             float(jp.arm_length_x), float(jp.arm_length_y),
+             float(jp.yaw_coefficient), *map(float, np.asarray(jp.inertia)))
+    t = [torch.as_tensor(a, device=DEV)[None] for a in (xbar, ubar, sp)]
+    A, B, c = K.fused_lin_prologue(*t, model, dt, 1)
+    assert A.shape == (1, *ref[1].shape) and c.dtype == torch.float32
+    _assert_lin_close([(c[0] + t[0][0, 1:]).numpy(), A[0].numpy(),
+                       B[0].numpy()], ref, "f32")
+    np.testing.assert_allclose(c[0].numpy(), np.asarray(ref[0]) - xbar[1:],
+                               rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError):
+        K.fused_lin_prologue(*(torch.cat([a, a]) for a in t), model, dt, 1)
