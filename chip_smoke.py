@@ -58,9 +58,9 @@ before each, and summed into its report entry):
      (one fuse_lin "quad13" launch per tick);
  15. long horizons: the simulation preset at N=120 and N=240 under
      "pallas", 12 iterations, 20 ticks from the ground (N chooses the
-     kernel's layout, so the solver's streaming flags select nothing: the
-     factor stacks are resident in shared memory at N=120 and stay in
-     the global workspace at N=240);
+     kernel's layout, so the solver's streaming flags select nothing: a
+     single hard plain problem at N >= 61 takes the cluster plan, the
+     horizon split over a thread-block cluster of 8 CTAs);
  16. the one-launch tick over a batch (kernel K6 at B > 1): the fuse_lin
      kernel against its twin at N=20, B=64 with one spec per problem,
      timed at N=20, B=1024 beside the fuse_cost kernel (K5) on the same
@@ -191,11 +191,14 @@ lines). Phase 1 also prints each IPM instantiation's launch plan at N=20,
 30, 60, 120 and 240 (13x4: N=20): the layout, threads, dynamic shared
 bytes (a soft instantiation's soft area in shared memory or the
 workspace), the compiled kernel's registers and local bytes, ptxas's
-registers, stack frame and spill bytes, blocks per SM and
+registers, stack frame and spill bytes, blocks per SM, the cluster
+plan's CTAs and the clusters the card holds at once, and
 the waves of a launch at B=1, 256 and 1024 on the card's SMs. Every IPM
-launch of phases 2-17 is held to its layout: resident (the Riccati
-factor stacks in shared memory) at every N <= 120, global at phase 2c's
-and phase 15's N=240 (the wrappers' `by_layout` counts).
+launch of phases 2-17 is held to the layout written out beside it: the
+cluster plan for a single hard plain problem at N=120 and 240 (phase 2c,
+phase 15 and 24b), else resident (the Riccati factor stacks in
+shared memory) at every N <= 120 and global at phase 2c's N=240, B=256
+(the wrappers' `by_layout` counts).
 
 Every phase prints one line; any failure raises and the exit code is
 non-zero. Without a CUDA device it fails before printing any result; it
@@ -886,15 +889,16 @@ def layout_counts(part: int = 0) -> dict:
     return out
 
 
-def layouts_only(what: str, layout: str, fn):
-    """Run fn with the layout counts at 0 and check that every IPM launch
-    in it took `layout` (the factor stacks resident in shared memory at
-    N <= 120, in the global workspace at N=240)."""
+def layouts_only(what: str, layout, fn):
+    """Run fn with the layout counts at 0 and check that the IPM launches
+    in it took `layout`, or each layout of a set, and no other."""
+    want = {layout} if isinstance(layout, str) else set(layout)
     for w in KERNEL_WRAPPERS.values():
         w.by_layout = {}
     out = fn()
     got = layout_counts()
-    check(set(got) == {layout}, f"{what} layout", got=got, want=layout)
+    check(set(got) == want, f"{what} layout", got=got,
+          want=sorted(want))
     return out
 
 
@@ -921,21 +925,24 @@ def ptxas_usage(build_log: str) -> dict:
 
 def ipm_ptxas_usage(build_log: str) -> dict:
     """ptxas_usage of the IPM library's kernels: each solve kernel by its
-    instantiation and plan, (mode, soft, nx, nu, family) as in `BUILT` and
-    its threads -> registers, stack and spills; the single plan's
-    prologue kernels by ("prologue", nx, nu, family, soft)."""
+    instantiation and plan, (mode, soft, nx, nu, family) as in `BUILT`,
+    its threads and whether it is the cluster plan's -> registers, stack
+    and spills; the single plan's prologue kernels by ("prologue", nx,
+    nu, family, soft)."""
     from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
     fams = {v: k for k, v in K.FAMILY_IDS.items()}
     out = {}
     for name, use in ptxas_usage(build_log).items():
         m = re.search(r"box_qp_ipm_kernelILi(\d)ELb(\d)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d)ELi(\d+)E", name)
+                      r"ELi(\d)ELi(\d+)ELb(\d)E", name)
         p = re.search(r"box_qp_ipm_prologueILi(\d+)ELi(\d+)ELi(\d)ELb(\d)E",
                       name)
         if m:
-            mode, soft, nx, nu, fam, threads = (int(g) for g in m.groups())
+            mode, soft, nx, nu, fam, threads, cl = (int(g)
+                                                    for g in m.groups())
             out[(mode, bool(soft), nx, nu,
-                 fams[fam] if mode == K.FUSE_LIN else None, threads)] = use
+                 fams[fam] if mode == K.FUSE_LIN else None, threads,
+                 bool(cl))] = use
         elif p:
             nx, nu, fam, soft = (int(g) for g in p.groups())
             out[("prologue", nx, nu, fams[fam], bool(soft))] = use
@@ -950,7 +957,7 @@ def launch_keys(K, N, mode, nx=17, nu=6, family=None, soft=False,
     info = K.kernel_info(N, mode, nx, nu, family, soft, B=B)
     return {k: info[k] for k in ("plan", "layout", "threads", "smem_bytes",
                                  "prologue_blocks", "blocks_per_sm",
-                                 "registers")}
+                                 "registers", "cluster", "max_clusters")}
 
 
 def instance_counts() -> dict:
@@ -1719,9 +1726,18 @@ def compare_soft(name, mode, N, B, dev, K, spread_rule=False,
     soft, hard = soft_specs(N, dev, idx=idx)
     row = {"case": name, "mode": mode, "B": B, "N": N}
     wrapper = K.box_qp_solve if mode == "plain" else K.fused_rti_solve
-    # the sentinel: all-hard through the soft instantiation = hard kernel
+    # the sentinel: all-hard through the soft instantiation = the hard
+    # kernel in the soft launch's plan (where the hard launch takes the
+    # cluster plan, a single problem at N >= 61, the hard kernel runs on
+    # the problem twice: the batch plan, whose bits are the single plan's)
     n0 = soft_launches(wrapper)
-    a, b = kern(1, None), kern(1, hard)
+    if mode == "plain" and K.cluster_plan(K.PLAIN, False, B, N):
+        a = K.box_qp_solve(type(qp)(*(torch.cat([t, t]) for t in qp)),
+                           iters=1)
+        a = type(a)(*(None if t is None else t[:B] for t in a))
+    else:
+        a = kern(1, None)
+    b = kern(1, hard)
     torch.cuda.synchronize()
     check(soft_launches(wrapper) == n0 + 1, "soft launch counted", case=name)
     fields = ("dx", "du", "s_lx", "s_ux", "s_lu", "s_uu", "lam_lx",
@@ -4464,7 +4480,8 @@ def hp_box(dev, K, mesh):
         {}, "phase 24b eager solves", eager)
     sh, ref = sols["hp"], sols["unsharded"]
     (k7, _), c = counted({"box_qp_solve": 1}, "phase 24b K7", lambda: timed(
-        lambda: K.box_qp_solve(qp, iters=FULL_ITERS), 1), layout="global")
+        lambda: K.box_qp_solve(qp, iters=FULL_ITERS), 1),
+        layout="cluster")
     o_sh, o_ref, o_k7 = obj(sh), obj(ref), obj(k7)
     row = {"N": HP_N, "shards": mesh.size, "iters": FULL_ITERS,
            "ms_unsharded": rounds["unsharded"][0], "ms_hp": rounds["hp"][0],
@@ -4921,16 +4938,20 @@ def run(dev: torch.device) -> int:
         for N in ((20, 30, 60, 120, 240) if nx == 17 else (20,)):
             for B in (1, BATCH):   # the single plan (B=1), the batch plan
                 info = K.kernel_info(N, mode, nx, nu, family, soft, B=B)
-                check(info["layout"] == ("global" if N > 120 else
-                                         "resident")
+                # the cluster plan: a single hard plain problem at N=120
+                # and 240; else the stacks resident up to N=120
+                cl = mode == K.PLAIN and not soft and B == 1 and N >= 120
+                check(info["layout"] == ("cluster" if cl else "global"
+                                         if N > 120 else "resident")
                       and info["plan"] == ("single" if K.single_plan(mode, B)
-                                           else "batch"),
+                                           else "batch")
+                      and (not cl or info["max_clusters"] >= 1),
                       "launch plan layout", N=N, B=B, **info)
                 log("launch_plan",
                     instance=K.instance_name(nx, nu, family, soft),
                     mode=K._MODE_NAMES[mode], N=N, B=B, **info,
                     ptxas=usage.get((mode, soft, nx, nu, family,
-                                     info["threads"])),
+                                     info["threads"], bool(info["cluster"]))),
                     prologue_ptxas=usage.get(("prologue", nx, nu, family,
                                               soft)),
                     waves={str(b): -(-b // (info["blocks_per_sm"] * sms))
@@ -5035,21 +5056,26 @@ def run(dev: torch.device) -> int:
         for fam, Ns in (("quad13", (8, 20)), ("blaster_dist", (8, 30)))})
     for r in fam_rows["quad13"] + fam_rows["blaster_dist"]:
         log("fuse_lin_family_vs_plain", **r)
-    # K7: the plain kernel at long horizons (N=120 resident, N=240 in the
+    # K7: the plain kernel at long horizons (a single problem on the
+    # cluster plan, against the twin in its order; N=240 B=256 in the
     # global layout)
-    long_rows = [layouts_only(f"long horizon {n}",
-                              "resident" if N <= 120 else "global",
+    long_rows = [layouts_only(f"long horizon {n}", layout,
                               lambda N=N, B=B, n=n: compare_kernel(
                                   n, blaster_qps(N, B, dev), K))
-                 for n, N, B in (("n120_b1", 120, 1), ("n240_b1", 240, 1),
-                                 ("n240_b256", 240, 256))]
+                 for n, N, B, layout in (
+                     ("n120_b1", 120, 1, "cluster"),
+                     ("n240_b1", 240, 1, "cluster"),
+                     ("n240_b256", 240, 256, "global"))]
     for r in long_rows:
         log("long_horizon_vs_plain", **r)
     # 24 iterations do not converge the out-of-box soft QP at N=120 (the
     # twin's mu 363, measured on an H100), so the spread rule's converged
     # check does not apply; 12 iterations meet the plain tolerance (0.35
     # of it, same run)
-    long_soft = layouts_only("long horizon soft n120", "resident",
+    # the soft launches in the single plan, the hard ones timed beside them
+    # on the cluster plan
+    long_soft = layouts_only("long horizon soft n120",
+                             {"resident", "cluster"},
                              lambda: compare_soft("plain_n120_b1", "plain",
                                                   120, 1, dev, K))
     log("long_horizon_soft_vs_plain", **long_soft)
@@ -5420,7 +5446,7 @@ def run(dev: torch.device) -> int:
             {"box_qp_solve": LONG_TICKS}, f"long horizon N={N}",
             lambda: timed_closed_loop(pre_l, LONG_TICKS, dev),
             instances={"box_qp_solve[17x6]": LONG_TICKS},
-            layout="resident" if N <= 120 else "global")
+            layout="cluster")
         xs_l = res_l.xs.cpu().numpy()
         err = float(np.abs(xs_l[::5, 0:3] - np.asarray(LONG_JAX[N])).max())
         check(bool(np.isfinite(xs_l).all()) and err < 5e-2,

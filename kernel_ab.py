@@ -4,6 +4,8 @@ on one NVIDIA GPU, in turns.
     python3 kernel_ab.py --other DIR [DIR ...] [--stamps] [--shapes K1,K6]
                          [--out FILE]
 
+    python3 kernel_ab.py --other DIR --cluster-ctas 16 --shapes K7
+
 Each DIR holds another checkout of the repository (for example the
 parent commit, unpacked with `git archive`), or at least its
 `mpc_blaster_tpu_torch/` package. Its `ops/box_qp_ipm.py` is loaded under
@@ -17,10 +19,18 @@ their `ratio` and `spread`: the difference between the two turns of each
 over their sum), and on replays of a CUDA graph that captured REPS
 launches (the host's work off the clock, as on the port's captured
 ticks: `replay_this_ms`, `replay_other_ms`, `replay_ratio`,
-`replay_spread`). Each build's ptxas lines (registers,
+`replay_spread`). `same_bits` says whether the two launches' outputs
+(every tensor of the result) are equal bit for bit on those inputs: a
+launch whose plan did not change keeps its bits. Each build's ptxas lines (registers,
 stack, spills per instantiation) are printed; for this checkout's kernel
 each instantiation's launch plans (B=1 and a batch), registers and blocks
 per SM (`ops/box_qp_ipm.py::kernel_info`) at the shapes it is timed at.
+
+With --cluster-ctas C ... this checkout's kernel is also built with the
+cluster plan's CTAs set to each C (CLUSTER_CTAS in the source and the
+wrapper, a copy written under the first DIR; C > 8 is a non-portable
+cluster size), and each K7 shape is timed on it against each other
+checkout as well (rows with `variant`).
 
 The soft-bound shapes (K4) start outside the box (the initial state 2.2
 past the x box) with soft position bounds, or every state soft ("dense",
@@ -44,8 +54,16 @@ plain N=10, 6 (the mission). Thread 0 of block 0 runs the solve's
 critical path in either plan; the single plan's prologue grid is a launch
 of its own, outside the stamps (the "K6 prologue ... 0it" rows time it).
 The stamp sites fit the kernel before the shared-memory redesign (one
-thread per output), after it, and the single-problem plan; a source they
-do not fit is refused.
+thread per output), after it, the single-problem plan and the cluster
+plan (K7 at N=240, 12 iterations: thread 0 of rank 0, whose chunk is
+the head of the forward scans and which runs the scans' boundary passes
+and the factorization's boundaries): its chunk sweeps (the solve's and
+the KKT pass's phases), the boundary passes, the cluster barriers around
+them and the halo's, the factorization's boundaries (`fact_boundaries`)
+and its waits for the other chunks' totals and recursions
+(`fact_chain_wait`); a row pass includes its cluster reduction but the
+reduction's barrier (charged to `cluster_barriers`). A source they do
+not fit is refused.
 
 Prints one JSON object per line and the card's name and power limit;
 with --out also writes them to FILE.
@@ -262,6 +280,67 @@ def timed_turns(old, new) -> dict:
     return {**turns(o1, n1, n2, o2), **turns(ro1, rn1, rn2, ro2, "replay_")}
 
 
+def tensors(x) -> list:
+    """Every tensor of a launch's result (a NamedTuple, tuple or dict),
+    in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tensors(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in tensors(v)]
+    return []
+
+
+def same_bits(old, new) -> bool:
+    """Whether one launch of each gives equal outputs, bit for bit (NaN
+    where NaN)."""
+    a, b = tensors(old()), tensors(new())
+    torch.cuda.synchronize()
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(torch.nan_to_num(x, 7.0),
+                                           torch.nan_to_num(y, 7.0))
+        and bool((x.isnan() == y.isnan()).all()) for x, y in zip(a, b))
+
+
+# SetOptin's carveout attribute, after which a variant of more than 8 CTAs
+# also sets the non-portable cluster size on the cluster plan's kernel
+NONPORTABLE_AT = """            (int)cudaSharedmemCarveoutMaxShared);
+      }
+"""
+NONPORTABLE = """      if (e == cudaSuccess && plan == 2) {
+        e = cudaFuncSetAttribute(
+            k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      }
+"""
+
+
+def variant_wrapper(root: Path, name: str, ctas: int):
+    """This checkout's wrapper and kernel with the cluster plan's CTAs set
+    to `ctas` (CLUSTER_CTAS in both), written under `root`."""
+    from mpc_blaster_tpu_torch.ops import box_qp_ipm as K
+    (root / "mpc_blaster_tpu_torch" / "ops").mkdir(parents=True,
+                                                   exist_ok=True)
+    (root / "mpc_blaster_tpu_torch" / "csrc").mkdir(exist_ok=True)
+    base = Path(S.REPO) / "mpc_blaster_tpu_torch"
+    c0 = K.CLUSTER_CTAS
+    edits = [(("ops", "box_qp_ipm.py"), f"CLUSTER_CTAS = {c0}\n",
+              f"CLUSTER_CTAS = {ctas}\n"),
+             (("csrc", "box_qp_ipm.cu"), f"constexpr int CLUSTER_CTAS = {c0};",
+              f"constexpr int CLUSTER_CTAS = {ctas};")]
+    if ctas > 8:
+        # past the portable size the cluster kernel must opt in to it
+        edits.append((("csrc", "box_qp_ipm.cu"), NONPORTABLE_AT,
+                      NONPORTABLE_AT + NONPORTABLE))
+    text = {}
+    for sub, old, new in edits:
+        src = text.get(sub) or base.joinpath(*sub).read_text()
+        text[sub] = _once(src, old, new)
+    for sub, src in text.items():
+        (root / "mpc_blaster_tpu_torch").joinpath(*sub).write_text(src)
+    return load_wrapper(root, name)
+
+
 def plan_rows(K, dev) -> list:
     """This checkout's launch per instantiation at the timed horizons, for
     a single problem and for a batch (its two plans)."""
@@ -298,17 +377,30 @@ STAMP_PHASES = ("other", "factorize_matrix", "factorize_barriers",
                 "rows_mu_aff", "rows_update", "rows_merit",
                 # the FUSE_LIN prologue on the solve's block (the single
                 # plan runs it as a grid of its own before the solve: 0)
-                "prologue")
+                "prologue",
+                # the cluster plan: its cluster barriers, the scans'
+                # boundary passes on rank 0, the factorization's waits for
+                # the other chunks' totals and recursions and its
+                # boundaries on rank 0
+                "cluster_barriers", "boundary_pass", "fact_chain_wait",
+                "fact_boundaries")
 NSTAMP = len(STAMP_PHASES)
 ROWS = {p: STAMP_PHASES.index(p) for p in STAMP_PHASES if p.startswith("rows")}
-# a launch's first stamp opens the clock: the gap since the previous
-# launch is charged to no phase
+# a launch's first stamp (-1) opens the clock: the gap since the previous
+# launch is charged to no phase; stamp(-2) sets the cycles since the last
+# stamp aside for the phase the next stamp closes (a cluster reduction's
+# own work, before its barrier, goes to the row pass around it)
 STAMP_STATE = (f"__device__ unsigned long long g_stamp[{NSTAMP}], "
-               "g_stamp_last;\n"
+               "g_stamp_last, g_stamp_pend;\n"
                "__device__ __forceinline__ void stamp(int i) {\n"
                "  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
                "    const unsigned long long now = clock64();\n"
-               "    if (i >= 0) g_stamp[i] += now - g_stamp_last;\n"
+               "    if (i >= 0) {\n"
+               "      g_stamp[i] += now - g_stamp_last + g_stamp_pend;\n"
+               "      g_stamp_pend = 0;\n"
+               "    } else if (i == -2) {\n"
+               "      g_stamp_pend += now - g_stamp_last;\n"
+               "    } else {\n      g_stamp_pend = 0;\n    }\n"
                "    g_stamp_last = now;\n  }\n}\n")
 # (call in run(), the phase it is charged to)
 ROW_CALLS = (
@@ -326,6 +418,15 @@ def _once(s, old, new):
     if s.count(old) != 1:
         raise ValueError(f"stamp site not found once: {old[:60]!r}")
     return s.replace(old, new)
+
+
+def _once_of(s, *pairs):
+    """`_once` with the first (old, new) pair whose old is in s (a site
+    written one way in one checkout and another way in another)."""
+    for old, new in pairs:
+        if old in s:
+            return _once(s, old, new)
+    raise ValueError(f"stamp site not found: {pairs[0][0][:60]!r}")
 
 
 def _body(s, start, end, fn):
@@ -351,8 +452,10 @@ def stamped_source(src: str) -> str:
     src = _once(src, "e += THREADS) sgu[e] = sig_pair(2, e);\n",
                 "e += THREADS) sgu[e] = sig_pair(2, e);\n"
                 f"    stamp({ROWS['rows_weights']});\n")
-    src = _once(src, "    if (t == 0) {\n      diag[0] = st;\n",
-                "    stamp(0);\n    if (t == 0) {\n      diag[0] = st;\n")
+    src = _once_of(src, *((f"    if ({c}) {{\n      diag[0] = st;\n",
+                           f"    stamp(0);\n    if ({c}) {{\n      diag[0] "
+                           "= st;\n") for c in ("t == 0",
+                                                 "t == 0 && first_chunk()")))
     start = ("  __device__ void factorize() {",
              "  __device__ void factorize() {\n    stamp(0);")
     if "chol_inverse_warp" not in src:
@@ -386,9 +489,11 @@ def stamped_source(src: str) -> str:
         src = _once(src, "  __device__ void solve_rhs(float* dX, float* dU) "
                     "{\n", "  __device__ void solve_rhs(float* dX, float* dU) "
                     "{\n    stamp(0);\n")
-        src = _once(src, "      produce<V_FWD>(0, 1);\n    }\n    "
-                    "__syncthreads();", "      produce<V_FWD>(0, 1);\n    }\n"
-                    "    stamp(4); __syncthreads(); stamp(5);")
+        src = _once_of(src, *((f"      produce<V_FWD>(0, 1{n});\n    }}\n    "
+                               "__syncthreads();", f"      produce<V_FWD>(0, "
+                               f"1{n});\n    }}\n    stamp(4); "
+                               "__syncthreads(); stamp(5);")
+                              for n in ("", ", N")))
         sites = (("      const float* Ak = acquire(m);\n      const float* v = "
                   "Ak + NXX + NX * NU;  // req_k, qr_k, rr_k\n",
                   "      stamp(4);\n      const float* Ak = acquire(m);\n"
@@ -418,11 +523,78 @@ def stamped_source(src: str) -> str:
                     "  const bool ok = diag_ok && (min_piv > 1e-10f);\n")
         src = _once(src, "    sweep_begin();\n    float stat = 0.f;\n",
                     "    stamp(0);\n    sweep_begin();\n    float stat = 0.f;\n")
-        src = _once(src, "      produce<V_KKT>(N - 1, -1);\n    }\n",
-                    "      produce<V_KKT>(N - 1, -1);\n    }\n    stamp(6);\n")
+        src = _once_of(src, *((f"      produce<V_KKT>(N - 1, -1{n});\n    }}\n",
+                               f"      produce<V_KKT>(N - 1, -1{n});\n    }}"
+                               "\n    stamp(6);\n") for n in ("", ", N")))
+    if "scan_boundaries" in src:
+        src = cluster_stamps(src)
     return src + ('\nextern "C" int box_qp_ipm_stamps(unsigned long long* '
                   'out) {\n  return (int)cudaMemcpyFromSymbol(out, g_stamp, '
                   'sizeof(g_stamp));\n}\n')
+
+
+def cluster_stamps(src: str) -> str:
+    """The cluster plan's stamp sites (thread 0 of rank 0)."""
+    cb, bp, fw, fb = (STAMP_PHASES.index(p) for p in (
+        "cluster_barriers", "boundary_pass", "fact_chain_wait",
+        "fact_boundaries"))
+    sites = (
+        # a scan's step (2): its barriers and rank 0's boundary pass
+        ("    cluster_sync();  // every chunk's carry is in its vout\n",
+         f"    cluster_sync();  // every chunk's carry is in its vout\n"
+         f"    stamp({cb});\n"),
+        ("    cluster_sync();  // every chunk's true boundary is in its vin\n",
+         f"    stamp({bp});\n"
+         "    cluster_sync();  // every chunk's true boundary is in its vin\n"
+         f"    stamp({cb});\n"),
+        # the solve's and the KKT pass's chunk sweeps
+        ("    scan_boundaries(true, this->Mf);  // (2)\n",
+         "    stamp(4);\n    scan_boundaries(true, this->Mf);  // (2)\n"),
+        ("    sweep_begin();  // kff is read by the forward sweep's producers\n"
+         "    if (warp == 0) {\n      const float d = sweep_fwd(",
+         "    stamp(4);\n"
+         "    sweep_begin();  // kff is read by the forward sweep's producers\n"
+         "    if (warp == 0) {\n      const float d = sweep_fwd("),
+        ("    scan_boundaries(false, this->Mf);\n",
+         "    stamp(4);\n    scan_boundaries(false, this->Mf);\n"),
+        ("        produce<V_FWD>(ks, 1, n);\n      }\n    }\n"
+         "    __syncthreads();\n",
+         "        produce<V_FWD>(ks, 1, n);\n      }\n    }\n"
+         "    stamp(4); __syncthreads(); stamp(5);\n"),
+        ("      remote(this->halo, this->rank - 1)[t] = dx[ks * NX + t];\n"
+         "    }\n    cluster_sync();\n",
+         "      remote(this->halo, this->rank - 1)[t] = dx[ks * NX + t];\n"
+         f"    }}\n    stamp(0);\n    cluster_sync();\n    stamp({cb});\n"),
+        ("    // (1) from the true boundary (the last chunk) or from 0\n",
+         "    stamp(0);\n"
+         "    // (1) from the true boundary (the last chunk) or from 0\n"),
+        ("    scan_boundaries(true, this->Ma);  // (2)\n",
+         "    stamp(6);\n    scan_boundaries(true, this->Ma);  // (2)\n"),
+        ("    float v[2] = {block_reduce<WARPS>(stat, sh.red, OpMax()),\n",
+         "    stamp(6);\n"
+         "    float v[2] = {block_reduce<WARPS>(stat, sh.red, OpMax()),\n"),
+        # a cluster reduction: its work to the pass around it, its barrier
+        ("    cluster_sync();\n    const float* s0 = remote(slot, 0);\n",
+         "    stamp(-2);\n    cluster_sync();\n    stamp("
+         f"{cb});\n    const float* s0 = remote(slot, 0);\n"),
+        # the factorization: the chunk's weights, the chain's rounds
+        ("        sgu[e] = sig_pair(2, e);\n      }\n",
+         "        sgu[e] = sig_pair(2, e);\n      }\n"
+         f"      stamp({ROWS['rows_weights']});\n"),
+        # the factorization's scan: the wait for the totals, rank 0's
+        # boundaries, the wait for every chunk's recursion
+        ("      cluster_sync();\n      if (r == 0) chain_boundaries();"
+         "  // (2)\n      cluster_sync();\n",
+         f"      cluster_sync();\n      stamp({fw});\n"
+         "      if (r == 0) chain_boundaries();  // (2)\n"
+         f"      stamp({fb});\n      cluster_sync();\n      stamp({cb});\n"),
+        ("        if (r > 0) chunk_product(true, this->Mf);\n      }\n"
+         "      cluster_sync();\n",
+         "        if (r > 0) chunk_product(true, this->Mf);\n      }\n"
+         f"      cluster_sync();\n      stamp({fw});\n"))
+    for old, new in sites:
+        src = _once(src, old, new)
+    return src
 
 
 def stamped_wrapper(root_in: Path, root: Path, name: str):
@@ -440,6 +612,7 @@ def stamped_wrapper(root_in: Path, root: Path, name: str):
 
 
 STAMP_CASES = (("plain 17x6 N=60 B=1 12it", 60, 12, plain(60, 1, 12)),
+               ("K7 plain 17x6 N=240 B=1 12it", 240, 12, plain(240, 1, 12)),
                ("plain 17x6 soft N=60 B=1 6it", 60, 6,
                 plain(60, 1, 6, soft="position")),
                ("K3 fuse_lin warm N=60 B=1 3it", 60, 3,
@@ -491,6 +664,9 @@ def main() -> int:
     ap.add_argument("--shapes", default="",
                     help="comma-separated substrings; time only the shapes "
                          "whose label holds one (default: every shape)")
+    ap.add_argument("--cluster-ctas", type=int, nargs="*", default=[],
+                    help="also time the K7 shapes on this checkout's kernel "
+                         "with the cluster plan's CTAs set to each")
     ap.add_argument("--out", type=Path)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -514,7 +690,12 @@ def main() -> int:
                                              "stamped_other"),
             "this": stamped_wrapper(Path(S.REPO), first / "stamped_this",
                                     "stamped_this")}
-    builds = {**mods, **{"stamped " + k: m for k, m in stamped.items()}}
+    first = a.other[0].resolve()
+    variants = {f"C={c}": variant_wrapper(first / f"cluster{c}",
+                                          f"cluster{c}_box_qp_ipm", c)
+                for c in a.cluster_ctas}
+    builds = {**mods, **variants,
+              **{"stamped " + k: m for k, m in stamped.items()}}
     with ThreadPoolExecutor(len(builds)) as pool:
         built = [f.result() for f in [pool.submit(m.build_library)
                                       for m in builds.values()]]
@@ -536,7 +717,13 @@ def main() -> int:
         for who, O in others.items():
             emit("ab", shape=label, kernel=kernel, other=who,
                  **timed_turns(launch(O), launch(K)),
+                 same_bits=same_bits(launch(O), launch(K)),
                  build_s=time.perf_counter() - t0)
+            if label.startswith("K7"):
+                for v, V in variants.items():
+                    emit("ab", shape=label, kernel=kernel, other=who,
+                         variant=v, **timed_turns(launch(O), launch(V)),
+                         same_bits=same_bits(launch(O), launch(V)))
     for who, M in stamped.items():
         for row in stamps(M, dev, who):
             emit("stamps", **row)

@@ -192,9 +192,58 @@
 // The long-horizon variants of the Pallas kernel (stream_p / stream_big,
 // pallas_ipm.py:293-393, kernel K7) stream P, the A/B record and the Z
 // gains between HBM and VMEM once an instance outgrows the TPU's resident
-// budget. Here the same two layouts serve: resident while the stacks fit
-// in shared memory (N=120), global past it (N=240); the wrappers accept the
-// streaming flags and select nothing with them.
+// budget. Here a B=1 hard PLAIN launch at N >= CLUSTER_MIN_N takes the
+// cluster plan below instead; every other launch keeps the two layouts
+// above (resident while the stacks fit, global past it: N=240 at B=256).
+// The wrappers accept the streaming flags and select nothing with them.
+//
+// The cluster plan (kernel K7 on Hopper). One problem's horizon is split
+// over a thread-block cluster of cluster_ctas(N) CTAs of SINGLE_THREADS
+// threads each (8 at N=120 and 240; launched with cudaLaunchKernelEx and a
+// cluster-dimension attribute, which a CUDA graph captures), one
+// contiguous chunk of stages per CTA in stage order: CTA j takes stages
+// chunk_start(j) .. chunk_start(j + 1) - 1. Each CTA keeps its chunk's P,
+// Z and Hinv resident in its own shared memory (30 stages, ~52 KB at
+// N=240). It owns its chunk's stage vectors, the states dx_k of its stages
+// (the last CTA also dx_N) and their bound rows, so no CTA reads global
+// memory that another wrote: what crosses a chunk boundary goes through
+// distributed shared memory (cluster.map_shared_rank) between
+// cluster.sync()s.
+//   - The row passes and the stage terms run on every CTA at once, each on
+//     its chunk. A block sum is reduced per chunk in the 256-thread order
+//     (block_sum), then the chunks' sums are added in rank (stage) order
+//     (cluster_combine); maxima, minima and counts do not depend on an
+//     order.
+//   - The factorization is a chunked scan of the value-function elements
+//     (A_k, B_k R_k^-1 B_k', Q_k) of qp/pscan.py::riccati_factorize_pscan
+//     (`factorize`): every CTA but the first reduces its
+//     chunk to its total by the single plan's Riccati stage body from
+//     P = 0 (the last CTA from P_N: its recursion is already the true
+//     one); rank 0 walks the C-2 boundaries between, one NX x NX solve
+//     each (P <- J_T + A_T' P (I + C_T P)^-1 A_T); every other CTA then
+//     runs its chunk's recursion from its true P_{ke+1} and forms its
+//     chunk's closed-loop transition F_ke ... F_ks (F_k = A_k - B_k Z_k)
+//     for the solves. The path is ~2N/C stage bodies and C-2 solves
+//     instead of N stage bodies. (The sequential chain handed from CTA to
+//     CTA, as the JAX package's riccati="hybrid", was measured beside it:
+//     PERF.md, PR 18.)
+//   - The five vector sweeps (each solve's backward p_k = F_k' p_{k+1} +
+//     h_k and forward dx_{k+1} = F_k dx_k + g_k, the KKT pass's adjoint
+//     sweep on A_k') are chunked affine scans, the maps of
+//     qp/pscan.py::riccati_solve_rhs_pscan: (1) every CTA sweeps its chunk
+//     from a zero boundary, the chunk that holds the true boundary from
+//     it; (2) rank 0 runs the C-2 boundary steps b <- M_j b + out_j (M_j'
+//     in a backward scan) on the other CTAs' shared memory, M_j the
+//     chunk's product of F (formed once per factorization) or of A (once
+//     per launch, for the KKT pass); (3) every other CTA sweeps its chunk
+//     again from its true boundary. The critical path is ~2N/C + C steps
+//     instead of N.
+//   - The init rollout (a clamped recursion, not an affine one; once per
+//     launch) runs CTA by CTA, each handing its last state on.
+// The scans' boundaries round otherwise than the sequential sweeps, so
+// the plan has bits of its own: the twin follows its order where
+// launch_plan gives a cluster (ops/box_qp_ipm.py::box_qp_solve_plain,
+// `chunks`), and every other plan keeps its bits.
 //
 // Interface: plain C (loaded with ctypes), float32, contiguous problem-major
 // tensors; launches on the caller's stream and returns cudaGetLastError().
@@ -206,9 +255,12 @@
 // Build without --use_fast_math: the guards rely on IEEE division, square
 // root, sin/cos/tan and NaN behaviour.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -229,6 +281,16 @@ constexpr long long SMEM_OPTIN = 232448;
 // Tangent columns the FUSE_LIN prologue carries per thread (two
 // independent chains on one value part).
 constexpr int LIN_COLS = 2;
+// The cluster plan: a B=1 hard PLAIN launch at N >= CLUSTER_MIN_N splits
+// its horizon over min(CLUSTER_CTAS, N / CLUSTER_CHUNK_MIN) CTAs (a
+// function of N alone, so the bits do not depend on the card).
+constexpr int CLUSTER_MIN_N = 61;
+constexpr int CLUSTER_CTAS = 8;
+constexpr int CLUSTER_CHUNK_MIN = 4;
+// words of a boundary-vector slot of the cluster area (one lane each) and
+// of a cluster reduction slot
+constexpr int CL_VEC = 32;
+constexpr int CL_RED = 4;
 
 constexpr float BIG = 1e20f;        // slack of a masked (infinite) bound
 constexpr float MTHR = 5e17f;       // |bound| above this is infinite
@@ -476,6 +538,42 @@ __host__ __device__ constexpr int lin_blocks(int N) {
 // plan's prologue grid alone, its record in `lin` (the prologue's own
 // wrapper, ops/box_qp_ipm.py::fused_lin_prologue).
 constexpr int PROLOGUE_ONLY = -1;
+
+// The cluster plan's launch shapes: which launches take it, its CTAs, the
+// first stage of chunk j (chunk_start(N, C, C) = N) and the most stages a
+// chunk holds.
+__host__ __device__ constexpr bool cluster_plan(int mode, bool soft, int B,
+                                                int N) {
+  return B == 1 && mode == PLAIN && !soft && N >= CLUSTER_MIN_N;
+}
+__host__ __device__ constexpr int cluster_ctas(int N) {
+  return N / CLUSTER_CHUNK_MIN < CLUSTER_CTAS ? N / CLUSTER_CHUNK_MIN
+                                              : CLUSTER_CTAS;
+}
+__host__ __device__ constexpr int chunk_start(int N, int C, int j) {
+  return (int)(((long long)j * N) / C);
+}
+__host__ __device__ constexpr int chunk_max(int N, int C) {
+  return (N + C - 1) / C;
+}
+// A CTA's cluster area after its chunk's stacks: the chunk's products M_f
+// (of F) and M_a (of A), two product buffers, the factorization scan's
+// chunk total (A_T, C_T; J_T is the chunk's first P) and work space (a
+// NX x 2NX system, two NX x NU blocks), the boundary slots (the chunk's
+// own carry out, its true carry in, the next chunk's first state) and two
+// reduction slots.
+template <int NX, int NU>
+__host__ __device__ constexpr int cluster_area_floats() {
+  return 8 * NX * NX + 2 * NX * NU + 3 * CL_VEC + 2 * CL_RED;
+}
+// the cluster plan's dynamic shared bytes per CTA: the scratch, the ring,
+// the largest chunk's stacks and the cluster area
+template <int NX, int NU>
+__host__ __device__ size_t cluster_bytes(int N) {
+  return 4 * (shared_floats<NX, NU>() + RING_SLOTS * ring_stage<NX, NU>()
+              + stack_floats<NX, NU>(chunk_max(N, cluster_ctas(N)))
+              + (size_t)cluster_area_floats<NX, NU>());
+}
 
 struct Inputs {  // problem-major float32, NX x NU the instantiation's model
   const float* A;    // (B, N, NX, NX)
@@ -931,14 +1029,40 @@ struct SoftRows<true> {
   int E;
 };
 
+// A CTA's part of the cluster plan: its rank, the cluster's CTAs, its
+// chunk of stages and bound rows, its cluster area. Empty unless CLUSTER,
+// so the other plans' Solvers are laid out as before.
+template <bool CLUSTER>
+struct ClusterPart {};
+template <>
+struct ClusterPart<true> {
+  int rank, ncta;
+  int ks, ke;          // the chunk: stages ks .. ke
+  int xr0, xr1;        // its state bound rows [xr0, xr1) (those of dx_k,
+                       // k in its chunk; the last chunk's also of dx_N)
+  int ur0, ur1;        // its control bound rows
+  float *Mf, *Ma;      // the chunk's products of F and of A
+  float *Mt, *Xk;      // a product buffer and the factor X_k
+  float *At, *Ct, *Gs;  // the chunk's total A_T, C_T; an NX x 2NX system
+  float *Wb, *WHb;     // NX x NU work space
+  float* atc;          // the buffer that holds A_T so far
+  float *vout, *vin, *halo;  // boundary slots (CL_VEC words each)
+  float* cred;         // two reduction slots (CL_RED words each)
+  mutable int par;     // the reduction slot in turn
+};
+
 // One problem's solve, run by one thread block of THREADS threads (the
 // plan's): an NX-state, NU-control model; FAM is the FUSE_LIN prologue's
-// ODE.
-template <int MODE, bool SOFT, int NX, int NU, int FAM, int THREADS>
-struct Solver : SoftRows<SOFT> {
+// ODE. With CLUSTER, one CTA's part of the cluster plan's solve: its
+// chunk of the problem's stages.
+template <int MODE, bool SOFT, int NX, int NU, int FAM, int THREADS,
+          bool CLUSTER = false>
+struct Solver : SoftRows<SOFT>, ClusterPart<CLUSTER> {
   static constexpr int WARPS = THREADS / 32;
   static constexpr bool SINGLE = THREADS != BATCH_THREADS;
   static_assert(THREADS == BATCH_THREADS || THREADS == SINGLE_THREADS, "");
+  static_assert(!CLUSTER || (MODE == PLAIN && !SOFT && SINGLE),
+                "the cluster plan: hard PLAIN, the single plan's threads");
   static_assert(WARPS > PRODUCERS && WARPS <= SUM_WARPS, "");
   static constexpr int VT = sum_parts<THREADS>();  // virtual threads
   static constexpr int NXX = NX * NX;
@@ -1081,6 +1205,40 @@ struct Solver : SoftRows<SOFT> {
       this->cls = reinterpret_cast<unsigned char*>(this->sa
                                                    + SOFT_WORDS * this->E);
     }
+    if constexpr (CLUSTER) {
+      // this CTA's chunk, its stacks and its cluster area
+      const int C = cluster_ctas(N), r = (int)cg::this_cluster().block_rank();
+      this->rank = r;
+      this->ncta = C;
+      this->ks = chunk_start(N, C, r);
+      this->ke = chunk_start(N, C, r + 1) - 1;
+      this->xr0 = r == 0 ? 0 : (this->ks - 1) * NX;
+      this->xr1 = (r == C - 1 ? N : this->ke) * NX;
+      this->ur0 = this->ks * NU;
+      this->ur1 = (this->ke + 1) * NU;
+      const int nm = chunk_max(N, C);
+      res = true;
+      win = nullptr;
+      Pst = ring + RING_SLOTS * RING;
+      Zst = Pst + (size_t)(nm + 1) * NXX;
+      Hst = Zst + (size_t)nm * NU * NX;
+      float* a = Hst + (size_t)nm * NU * NU;
+      this->Mf = a;
+      this->Ma = a + NXX;
+      this->Mt = a + 2 * NXX;
+      this->Xk = a + 3 * NXX;
+      this->At = a + 4 * NXX;
+      this->Ct = a + 5 * NXX;
+      this->Gs = a + 6 * NXX;
+      this->Wb = a + 8 * NXX;
+      this->WHb = this->Wb + NX * NU;
+      this->atc = this->At;
+      this->vout = this->WHb + NX * NU;
+      this->vin = this->vout + CL_VEC;
+      this->halo = this->vin + CL_VEC;
+      this->cred = this->halo + CL_VEC;
+      this->par = 0;
+    }
     // pairs of the P phase: the diagonal first (thread t < NX owns (t, t)),
     // then the strict upper triangle row by row
 #pragma unroll
@@ -1103,25 +1261,311 @@ struct Solver : SoftRows<SOFT> {
     }
   }
 
+  // ---- the chunk (the cluster plan; else the whole horizon) ----------------
+  // the first and last stage this block sweeps and factors
+  __device__ int kbase() const {
+    if constexpr (CLUSTER) return this->ks;
+    return 0;
+  }
+  __device__ int ktop() const {
+    if constexpr (CLUSTER) return this->ke;
+    return N - 1;
+  }
+  // whether the chunk holds stage 0 (dx_0, qr_0) and stage N - 1 (dx_N)
+  __device__ bool first_chunk() const {
+    if constexpr (CLUSTER) return this->rank == 0;
+    return true;
+  }
+  __device__ bool last_chunk() const {
+    if constexpr (CLUSTER) return this->rank == this->ncta - 1;
+    return true;
+  }
+
   // ---- the factor stacks and the A/B ring ----------------------------------
-  // Where the sweeps read stage k's P, Z and Hinv (shared or global) ...
-  __device__ const float* Ps(int k) const { return Pst + (size_t)k * NXX; }
+  // Where the sweeps read stage k's P, Z and Hinv (shared or global; the
+  // cluster plan's stacks start at its chunk's first stage) ...
+  __device__ const float* Ps(int k) const {
+    return Pst + (size_t)(k - kbase()) * NXX;
+  }
   __device__ const float* Zs(int k) const {
-    return Zst + (size_t)k * NU * NX;
+    return Zst + (size_t)(k - kbase()) * NU * NX;
   }
   __device__ const float* Hs(int k) const {
-    return Hst + (size_t)k * NU * NU;
+    return Hst + (size_t)(k - kbase()) * NU * NU;
   }
   // ... and where the factorization keeps them: the stacks themselves, or
   // the shared window whose entries it also copies out (global layout)
   __device__ float* Pw(int k) const {
-    return res ? Pst + (size_t)k * NXX : win + (k & 1) * NXX;
+    return res ? Pst + (size_t)(k - kbase()) * NXX : win + (k & 1) * NXX;
   }
   __device__ float* Zw(int k) const {
-    return res ? Zst + (size_t)k * NU * NX : win + 2 * NXX;
+    return res ? Zst + (size_t)(k - kbase()) * NU * NX : win + 2 * NXX;
   }
   __device__ float* Hw(int k) const {
-    return res ? Hst + (size_t)k * NU * NU : win + 2 * NXX + NU * NX;
+    return res ? Hst + (size_t)(k - kbase()) * NU * NU
+               : win + 2 * NXX + NU * NX;
+  }
+
+  // ---- the cluster (the cluster plan only) ---------------------------------
+  __device__ static void cluster_sync() { cg::this_cluster().sync(); }
+  // p, an address in this CTA's shared memory, in CTA r's
+  template <class T>
+  __device__ static T* remote(T* p, int r) {
+    return cg::this_cluster().map_shared_rank(p, (unsigned)r);
+  }
+  // The values v (uniform across the CTA) combined over the cluster's CTAs
+  // with op, in rank order: every thread of every CTA gets the same
+  // result. The two reduction slots alternate, so a slot is written again
+  // only after the next combine's cluster barrier, which every reader of
+  // it has passed.
+  template <int NV, class Op>
+  __device__ void cluster_combine(float (&v)[NV], Op op) const {
+    static_assert(NV <= CL_RED, "");
+    float* slot = this->cred + this->par * CL_RED;
+    this->par ^= 1;
+    if (t == 0) {
+#pragma unroll
+      for (int h = 0; h < NV; ++h) slot[h] = v[h];
+    }
+    cluster_sync();
+    const float* s0 = remote(slot, 0);
+#pragma unroll
+    for (int h = 0; h < NV; ++h) v[h] = s0[h];
+    for (int r = 1; r < this->ncta; ++r) {
+      const float* sr = remote(slot, r);
+#pragma unroll
+      for (int h = 0; h < NV; ++h) v[h] = op(v[h], sr[h]);
+    }
+  }
+  // M = X_ke ... X_ks of this CTA's chunk into `out` (256 threads): X_k =
+  // A_k - B_k Z_k, the closed loop (`closed`), or A_k; each entry of a
+  // product one sum over l in order
+  __device__ void chunk_product(bool closed, float* out) {
+    const int ks = this->ks, ke = this->ke;
+    float* cur = ((ke - ks) & 1) ? this->Mt : out;  // ends in `out`
+    float* const X = this->Xk;
+    for (int k = ks; k <= ke; ++k) {
+      float* dst = k == ks ? cur : X;
+      const float* Zk = Zs(k);
+      for (int e = t; e < NXX; e += THREADS) {
+        float x = A[(size_t)k * NXX + e];
+        if (closed) {
+          const int i = e / NX, j = e - i * NX;
+          const float* Bi = Bm + ((size_t)k * NX + i) * NU;
+          float z = Bi[0] * Zk[j];
+          for (int l = 1; l < NU; ++l) z += Bi[l] * Zk[l * NX + j];
+          x = x - z;
+        }
+        dst[e] = x;
+      }
+      __syncthreads();
+      if (k > ks) {
+        float* nxt = cur == out ? this->Mt : out;
+        for (int e = t; e < NXX; e += THREADS) {
+          const int i = e / NX, j = e - i * NX;
+          float a = X[i * NX] * cur[j];
+          for (int l = 1; l < NX; ++l) a += X[i * NX + l] * cur[l * NX + j];
+          nxt[e] = a;
+        }
+        __syncthreads();
+        cur = nxt;
+      }
+    }
+  }
+  // A scan's step (2), between two cluster barriers: rank 0's warp 0 walks
+  // the chunks from the head (the chunk whose step-1 sweep started from
+  // the true boundary: the last in a backward scan, the first in a forward
+  // one), handing each next chunk its true boundary b in its `vin` and
+  // taking b <- M_j' b + out_j (backward) or M_j b + out_j (forward) over
+  // the chunks between head and tail, M_j in each CTA's `M`.
+  __device__ void scan_boundaries(bool back, float* M) {
+    cluster_sync();  // every chunk's carry is in its vout
+    const int C = this->ncta;
+    if (this->rank == 0 && warp == 0 && C > 1) {
+      const int head = back ? C - 1 : 0, step = back ? -1 : 1;
+      const int xi = lane < NX ? lane : 0;
+      float b = remote(this->vout, head)[xi];
+      for (int h = 1; h < C; ++h) {
+        const int j = head + h * step;
+        if (lane < NX) remote(this->vin, j)[lane] = b;
+        if (h == C - 1) break;  // the tail hands nothing on
+        const float* Mj = remote(M, j);
+        const float* oj = remote(this->vout, j);
+        float bl[NX];
+#pragma unroll
+        for (int l = 0; l < NX; ++l) bl[l] = __shfl_sync(FULL, b, l);
+        float a;
+        if (back) {
+          a = Mj[xi] * bl[0];
+#pragma unroll
+          for (int l = 1; l < NX; ++l) a += Mj[l * NX + xi] * bl[l];
+        } else {
+          a = Mj[xi * NX] * bl[0];
+#pragma unroll
+          for (int l = 1; l < NX; ++l) a += Mj[xi * NX + l] * bl[l];
+        }
+        b = a + oj[xi];
+      }
+    }
+    cluster_sync();  // every chunk's true boundary is in its vin
+  }
+
+  // After stage k of a chunk's recursion from P = 0 (the scan's step 1):
+  // F_k = A_k - B_k Z_k, W = A_T B_k, A_T <- A_T F_k and C_T <- C_T +
+  // W Hinv_k W' (before the chunk's last stage A_T = I, C_T = 0); A_k and
+  // B_k are still in their ring slot.
+  __device__ void total_step(int k) {
+    const float* Ak = ring_slot(k);
+    const float* Bk = Ak + NXX;
+    const float *Zk = Zw(k), *Hk = Hw(k);
+    const bool first = k == this->ke;
+    float* const cur = this->atc;
+    float* const nxt = cur == this->At ? this->Mt : this->At;
+    float* const F = first ? cur : this->Xk;
+    for (int e = t; e < NXX; e += THREADS) {
+      const int i = e / NX, j = e - i * NX;
+      float z = Bk[i * NU] * Zk[j];
+      for (int l = 1; l < NU; ++l) z += Bk[i * NU + l] * Zk[l * NX + j];
+      F[e] = Ak[e] - z;
+    }
+    for (int e = t; e < NX * NU; e += THREADS) {
+      const int i = e / NU, l = e - i * NU;
+      float w = Bk[e];
+      if (!first) {
+        w = cur[i * NX] * Bk[l];
+        for (int m = 1; m < NX; ++m) w += cur[i * NX + m] * Bk[m * NU + l];
+      }
+      this->Wb[e] = w;
+    }
+    __syncthreads();
+    for (int e = t; e < NX * NU; e += THREADS) {
+      const int i = e / NU, l = e - i * NU;
+      float w = this->Wb[i * NU] * Hk[l];
+      for (int q = 1; q < NU; ++q) w += this->Wb[i * NU + q] * Hk[q * NU + l];
+      this->WHb[e] = w;
+    }
+    if (!first) {
+      for (int e = t; e < NXX; e += THREADS) {
+        const int i = e / NX, j = e - i * NX;
+        float a = cur[i * NX] * F[j];
+        for (int m = 1; m < NX; ++m) a += cur[i * NX + m] * F[m * NX + j];
+        nxt[e] = a;
+      }
+    }
+    __syncthreads();
+    for (int e = t; e < NXX; e += THREADS) {
+      const int i = e / NX, j = e - i * NX;
+      float c = this->WHb[i * NU] * this->Wb[j * NU];
+      for (int l = 1; l < NU; ++l) {
+        c += this->WHb[i * NU + l] * this->Wb[j * NU + l];
+      }
+      this->Ct[e] = first ? c : this->Ct[e] + c;
+    }
+    if (!first) this->atc = nxt;
+    __syncthreads();
+  }
+
+  // Gauss-Jordan elimination with partial pivoting on warp 0: G = [M | X]
+  // (NX x 2NX, row-major) becomes [I | M^-1 X]. Every lane picks the same
+  // pivot row (the largest |entry| of the column, the first on a tie);
+  // lane c keeps columns c and c + 32.
+  __device__ void gauss_jordan_warp(float* G) const {
+    constexpr int W2 = 2 * NX;
+    for (int p = 0; p < NX; ++p) {
+      int best = p;
+      float bv = fabsf(G[p * W2 + p]);
+      for (int r = p + 1; r < NX; ++r) {
+        const float v = fabsf(G[r * W2 + p]);
+        if (v > bv) {
+          bv = v;
+          best = r;
+        }
+      }
+      __syncwarp();
+      for (int c = lane; c < W2; c += 32) {
+        const float a = G[p * W2 + c], b = G[best * W2 + c];
+        G[p * W2 + c] = b;
+        G[best * W2 + c] = a;
+      }
+      __syncwarp();
+      const float inv = 1.f / G[p * W2 + p];
+      float f[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) f[i] = G[i * W2 + p];
+      __syncwarp();
+      for (int c = lane; c < W2; c += 32) {
+        const float rp = G[p * W2 + c] * inv;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          if (i != p) G[i * W2 + c] = G[i * W2 + c] - f[i] * rp;
+        }
+        G[p * W2 + c] = rp;
+      }
+      __syncwarp();
+    }
+  }
+
+  // The scan's step 2 on rank 0 (every thread): from P = P_{ks} of the
+  // last chunk, for j = C-2 down to 1, P_{ke_j+1} = P into CTA j's stack,
+  // then P <- sym(J_T + A_T' P (I + C_T P)^-1 A_T) of CTA j's total; CTA
+  // 0's P_{ke+1} last. The totals are copied in first; Ma, Mt, Xk, At, Ct
+  // and Gs of rank 0 (which forms no product and no total) are its work
+  // space.
+  __device__ void chain_boundaries() {
+    const int C = this->ncta;
+    float *const Pn = this->Ma, *const Aj = this->At, *const Cj = this->Ct,
+                 *const G = this->Gs, *const Y = this->Mt,
+                 *const V = this->Xk;
+    constexpr int W2 = 2 * NX;
+    {
+      const float* P0 = remote(Pst, C - 1);
+      for (int e = t; e < NXX; e += THREADS) Pn[e] = P0[e];
+    }
+    __syncthreads();
+    for (int j = C - 2; j >= 0; --j) {
+      const int nj = chunk_start(N, C, j + 1) - chunk_start(N, C, j);
+      float* dst = remote(Pst, j) + (size_t)nj * NXX;  // its P_{ke+1}
+      for (int e = t; e < NXX; e += THREADS) dst[e] = Pn[e];
+      if (j == 0) break;
+      const float* Ar = remote(this->At, j);
+      const float* Cr = remote(this->Ct, j);
+      const float* Jr = remote(Pst, j);
+      for (int e = t; e < NXX; e += THREADS) {
+        Aj[e] = Ar[e];
+        Cj[e] = Cr[e];
+        V[e] = Jr[e];
+      }
+      __syncthreads();
+      for (int e = t; e < NXX; e += THREADS) {  // [I + C_T P | A_T]
+        const int i = e / NX, c = e - i * NX;
+        float a = Cj[i * NX] * Pn[c];
+        for (int l = 1; l < NX; ++l) a += Cj[i * NX + l] * Pn[l * NX + c];
+        G[i * W2 + c] = i == c ? a + 1.f : a;
+        G[i * W2 + NX + c] = Aj[e];
+      }
+      __syncthreads();
+      if (warp == 0) gauss_jordan_warp(G);
+      __syncthreads();
+      for (int e = t; e < NXX; e += THREADS) {  // Y = P X
+        const int i = e / NX, c = e - i * NX;
+        float a = Pn[i * NX] * G[NX + c];
+        for (int l = 1; l < NX; ++l) a += Pn[i * NX + l] * G[l * W2 + NX + c];
+        Y[e] = a;
+      }
+      __syncthreads();
+      for (int e = t; e < NXX; e += THREADS) {  // J_T + A_T' Y
+        const int i = e / NX, c = e - i * NX;
+        float a = Aj[i] * Y[c];
+        for (int l = 1; l < NX; ++l) a += Aj[l * NX + i] * Y[l * NX + c];
+        V[e] = V[e] + a;
+      }
+      __syncthreads();
+      for (int e = t; e < NXX; e += THREADS) {
+        const int i = e / NX, c = e - i * NX;
+        Pn[e] = 0.5f * (V[e] + V[c * NX + i]);
+      }
+      __syncthreads();
+    }
   }
 
   // Slot of sweep step m (or of stage k in the factorization): A_k, B_k,
@@ -1234,7 +1678,7 @@ struct Solver : SoftRows<SOFT> {
 
   // A sweep on warp 0 reads each stage from the ring; warps 1..PRODUCERS
   // fill it (the single plan's other warps wait at the barrier that closes
-  // the sweep). Step m of the sweep visits stage first + m dir. Producer
+  // the sweep). Step m < n of the sweep visits stage first + m dir. Producer
   // warp w takes the steps m = w - 1 (mod PRODUCERS): it loads the stage into
   // registers (coalesced plain loads, started before it waits), waits until
   // the slot's previous step m - RING_SLOTS has been served, stores it,
@@ -1249,10 +1693,10 @@ struct Solver : SoftRows<SOFT> {
     __syncthreads();
   }
   template <int VEC>
-  __device__ void produce(int first, int dir) {
+  __device__ void produce(int first, int dir, int n) {
     constexpr int W = (RING + 31) / 32;
     if (warp > PRODUCERS) return;
-    for (int m = warp - 1; m < N; m += PRODUCERS) {
+    for (int m = warp - 1; m < n; m += PRODUCERS) {
       const int k = first + m * dir, s = m & (RING_SLOTS - 1);
       float r[W];
 #pragma unroll
@@ -1475,6 +1919,19 @@ struct Solver : SoftRows<SOFT> {
   // passes would spill at two)
   template <class F>
   __device__ void for_rows_from(int first, int step, F f) const {
+    if constexpr (CLUSTER) {  // the chunk's state rows, then its control rows
+      const int x0 = this->xr0, u0 = this->ur0, nxr = this->xr1 - x0;
+      const int tot = nxr + this->ur1 - u0;
+#pragma unroll 2
+      for (int e = first; e < tot; e += step) {
+        if (e < nxr) {
+          f(0, x0 + e, x0 + e + NX);
+        } else {
+          f(2, u0 + e - nxr, u0 + e - nxr);
+        }
+      }
+      return;
+    }
     const int nxr = N * NX, tot = N * (NX + NU);
 #pragma unroll(SOFT ? 1 : 2)
     for (int e = first; e < tot; e += step) {
@@ -1496,6 +1953,11 @@ struct Solver : SoftRows<SOFT> {
       acc = 0.f;
       for_rows_from(t + h * THREADS, SUM_THREADS,
                     [&](int gb, int idx, int vi) { term(acc, gb, idx, vi); });
+    }
+    if constexpr (CLUSTER) {  // per chunk, then the chunks in stage order
+      float v[1] = {block_sum<THREADS>(a, sh.red)};
+      cluster_combine(v, OpSum());
+      return v[0];
     }
     return block_sum<THREADS>(a, sh.red);
   }
@@ -1631,42 +2093,71 @@ struct Solver : SoftRows<SOFT> {
     return clamp_into(v, lb, ub);
   }
 
-  // rollout (du = 0) with the 10%-inset clamp, on warp 0 (lane i < NX
-  // carries state i), then centred slacks and duals and the warm blend over
-  // them, on the block
+  // The rollout (du = 0) with the 10%-inset clamp over this block's
+  // stages, on warp 0 (lane i < NX carries state i), from the state d at
+  // its first stage; returns the state after its last stage (which the
+  // cluster plan's chunk hands on, where it is not dx_N).
+  __device__ float rollout(float d) {
+    const Ring rg = ring_view();
+    const auto acquire = [&rg](int m) { return rg.acquire(m); };
+    const auto release = [&rg](int m) { rg.release(m); };
+    const int kb = kbase(), kh = ktop(), lane = this->lane;
+    const bool store_last = last_chunk();
+    float* const dx = this->dx;
+    const int xi = lane < NX ? lane : 0;
+    if (lane < NX) dx[kb * NX + lane] = d;
+    for (int k = kb; k <= kh; ++k) {
+      const float* slot = acquire(k - kb);
+      const float* Ar = slot + xi * NX;
+      float dv[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) dv[j] = __shfl_sync(FULL, d, j);
+      float a = Ar[0] * dv[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) a += Ar[j] * dv[j];
+      a += slot[NXX + NX * NU + xi];  // c_k
+      release(k - kb);
+      d = clamp_init(a, 0, k * NX + xi);
+      if (lane < NX && (k < kh || store_last)) dx[(k + 1) * NX + lane] = d;
+    }
+    return d;
+  }
+
+  // the rollout, then centred slacks and duals and the warm blend over
+  // them, on the block (the cluster plan: the rollout chunk by chunk, each
+  // CTA from the state its predecessor handed it; then each CTA's rows and
+  // its chunk's product of A for the KKT pass's scans)
   __device__ void init() {
     classify();
-    sweep_begin();
-    if (warp == 0) {
-      const Ring rg = ring_view();
-      const auto acquire = [&rg](int m) { return rg.acquire(m); };
-      const auto release = [&rg](int m) { rg.release(m); };
-      const int N = this->N, lane = this->lane;
-      float* const dx = this->dx;
-      const int xi = lane < NX ? lane : 0;
-      float d;
-      if constexpr (MODE == PLAIN) {
-        d = dx0[xi];
-      } else {
-        d = x0[xi] - xbar[xi];
-      }
-      if (lane < NX) dx[lane] = d;
-      for (int k = 0; k < N; ++k) {
-        const float* slot = acquire(k);
-        const float* Ar = slot + xi * NX;
-        float dv[NX];
-#pragma unroll
-        for (int j = 0; j < NX; ++j) dv[j] = __shfl_sync(FULL, d, j);
-        float a = Ar[0] * dv[0];
-#pragma unroll
-        for (int j = 1; j < NX; ++j) a += Ar[j] * dv[j];
-        a += slot[NXX + NX * NU + xi];  // c_k
-        release(k);
-        d = clamp_init(a, 0, k * NX + xi);
-        if (lane < NX) dx[(k + 1) * NX + lane] = d;
+    if constexpr (CLUSTER) {
+      for (int r = 0; r < this->ncta; ++r) {
+        if (this->rank == r) {
+          sweep_begin();
+          if (warp == 0) {
+            const int xi = lane < NX ? lane : 0;
+            const float d = rollout(r == 0 ? dx0[xi] : this->vin[xi]);
+            if (!last_chunk() && lane < NX) remote(this->vin, r + 1)[lane] = d;
+          } else {
+            produce<V_INIT>(this->ks, 1, this->ke - this->ks + 1);
+          }
+          __syncthreads();
+        }
+        cluster_sync();
       }
     } else {
-      produce<V_INIT>(0, 1);
+      sweep_begin();
+      if (warp == 0) {
+        const int xi = lane < NX ? lane : 0;
+        float d;
+        if constexpr (MODE == PLAIN) {
+          d = dx0[xi];
+        } else {
+          d = x0[xi] - xbar[xi];
+        }
+        rollout(d);
+      } else {
+        produce<V_INIT>(0, 1, N);
+      }
     }
     __syncthreads();
     float cnt = 0.f;
@@ -1702,7 +2193,16 @@ struct Solver : SoftRows<SOFT> {
         cnt += m;
       }
     });
-    n_ineq = nmax(block_reduce<WARPS>(cnt, sh.red, OpSum()), 1.f);
+    if constexpr (CLUSTER) {
+      float v[1] = {block_reduce<WARPS>(cnt, sh.red, OpSum())};
+      cluster_combine(v, OpSum());
+      n_ineq = nmax(v[0], 1.f);
+      if (this->rank >= 1 && this->rank <= this->ncta - 2) {
+        chunk_product(false, this->Ma);
+      }
+    } else {
+      n_ineq = nmax(block_reduce<WARPS>(cnt, sh.red, OpSum()), 1.f);
+    }
     __syncthreads();
   }
 
@@ -1727,6 +2227,10 @@ struct Solver : SoftRows<SOFT> {
   // R' du_k + r_k; warp 0 runs the adjoint sweep (lane i < NX carries the
   // multiplier i; lane NX + t forms the control stationarity row t).
   __device__ void kkt(float& stat_out, float& eq_out) {
+    if constexpr (CLUSTER) {
+      kkt_cluster(stat_out, eq_out);
+      return;
+    }
     float eq = 0.f;
     for (int e = t; e < N * NX; e += THREADS) {
       const int k = e / NX, i = e - k * NX;
@@ -1755,31 +2259,104 @@ struct Solver : SoftRows<SOFT> {
     sweep_begin();
     float stat = 0.f;
     if (warp == 0) {
-      stat = kkt_sweep();
+      float lm = kkt_terminal();
+      stat = kkt_sweep(lm);
     } else {
-      produce<V_KKT>(N - 1, -1);
+      produce<V_KKT>(N - 1, -1, N);
     }
     stat_out = block_reduce<WARPS>(stat, sh.red, OpMax());
     eq_out = block_reduce<WARPS>(eq, sh.red, OpMax());
   }
 
-  __device__ float kkt_sweep() {
+  // The cluster plan's KKT pass: the next chunk's first state into this
+  // CTA's halo (req_ke reads dx_{ke+1}), the chunk's stage terms, the
+  // adjoint sweep as a chunked scan on the chunks' products of A, and the
+  // maxima over the cluster.
+  __device__ void kkt_cluster(float& stat_out, float& eq_out) {
+    const int ks = this->ks, ke = this->ke, n = ke - ks + 1;
+    const bool last = last_chunk();
+    __syncthreads();  // this CTA's states are written
+    if (this->rank > 0 && t < NX) {
+      remote(this->halo, this->rank - 1)[t] = dx[ks * NX + t];
+    }
+    cluster_sync();
+    float eq = 0.f;
+    for (int e = ks * NX + t; e < (ke + 1) * NX; e += THREADS) {
+      const int k = e / NX, i = e - k * NX;
+      const float* Ar = A + (size_t)k * NXX + i * NX;
+      const float* Br = Bm + ((size_t)k * NX + i) * NU;
+      const float* x = dx + k * NX;
+      const float* u = du + k * NU;
+      float a = Ar[0] * x[0];
+      for (int j = 1; j < NX; ++j) a += Ar[j] * x[j];
+      float bu = Br[0] * u[0];
+      for (int j = 1; j < NU; ++j) bu += Br[j] * u[j];
+      const float xn = (k == ke && !last) ? this->halo[i] : dx[e + NX];
+      const float pred = ((a + bu) + c[e]) - xn;
+      req[e] = pred;
+      eq = nmax(eq, fabsf(pred));
+      float g = Qs[i] * x[0];
+      for (int j = 1; j < NX; ++j) g += Qs[j * NX + i] * x[j];
+      kx[e] = g + q[e];
+    }
+    for (int e = ks * NU + t; e < (ke + 1) * NU; e += THREADS) {
+      const int k = e / NU, i = e - k * NU;
+      const float* u = du + k * NU;
+      float a = R[i] * u[0];
+      for (int j = 1; j < NU; ++j) a += R[j * NU + i] * u[j];
+      ku[e] = a + r[e];
+    }
+    // (1) from the true boundary (the last chunk) or from 0
+    float stat = 0.f;
+    sweep_begin();
+    if (warp == 0) {
+      float lm = last ? kkt_terminal() : 0.f;
+      stat = kkt_sweep(lm);
+      if (lane < NX) this->vout[lane] = lm;
+    } else {
+      produce<V_KKT>(ke, -1, n);
+    }
+    scan_boundaries(true, this->Ma);  // (2)
+    if (!last) {  // (3) from the true boundary
+      sweep_begin();
+      if (warp == 0) {
+        float lm = this->vin[lane < NX ? lane : 0];
+        stat = kkt_sweep(lm);
+      } else {
+        produce<V_KKT>(ke, -1, n);
+      }
+    }
+    float v[2] = {block_reduce<WARPS>(stat, sh.red, OpMax()),
+                  block_reduce<WARPS>(eq, sh.red, OpMax())};
+    cluster_combine(v, OpMax());
+    stat_out = v[0];
+    eq_out = v[1];
+  }
+
+  // the adjoint sweep's multiplier into stage N - 1 (lane i < NX: entry i):
+  // Qt' dx_N + q_N - (lam0 - lam1) of dx_N's rows
+  __device__ float kkt_terminal() const {
+    const int xi = lane < NX ? lane : 0;
+    float a = Qt[xi] * dx[N * NX];
+    for (int j = 1; j < NX; ++j) a += Qt[j * NX + xi] * dx[N * NX + j];
+    const int l = (N - 1) * NX + xi;
+    return (a + q[N * NX + xi]) - (lam[0][l] - lam[1][l]);
+  }
+
+  // The adjoint sweep over this block's stages from the multiplier lm into
+  // its last one, on warp 0 (lane i < NX carries multiplier i; lane NX + t
+  // forms the control stationarity row t); leaves the multiplier out of
+  // its first stage in lm and returns the stationarity's maximum.
+  __device__ float kkt_sweep(float& lm) {
     const Ring rg = ring_view();
     const auto acquire = [&rg](int m) { return rg.acquire(m); };
     const auto release = [&rg](int m) { rg.release(m); };
-    const int N = this->N;
+    const int k0 = kbase(), kh = ktop();
     const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
     const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
-    float lm;
-    {
-      float a = Qt[xi] * dx[N * NX];
-      for (int j = 1; j < NX; ++j) a += Qt[j * NX + xi] * dx[N * NX + j];
-      const int l = (N - 1) * NX + xi;
-      lm = (a + q[N * NX + xi]) - (lam[0][l] - lam[1][l]);
-    }
     float stat = 0.f;
-    for (int m = 0; m < N; ++m) {
-      const int k = N - 1 - m;
+    for (int m = 0; m <= kh - k0; ++m) {
+      const int k = kh - m;
       const float* Ak = acquire(m);
       const float* v = Ak + NXX + NX * NU;
       // Qs' dx_k + q_k or R' du_k + r_k; the multiplier term of the row:
@@ -1835,17 +2412,74 @@ struct Solver : SoftRows<SOFT> {
   // Per stage four phases, each closed by a block barrier: PA|PB; Huu|Hux
   // (batch plan: |A'PA); the Cholesky inverse and Z on warp 0 (single
   // plan: A'PA on the other warps meanwhile); the symmetrized P_k.
+  //
+  // The cluster plan, after its chunk's barrier weights: the chunked scan
+  // of the value-function elements (A_k, B_k R_k^-1 B_k', Q_k) of
+  // qp/pscan.py::riccati_factorize_pscan. (1) The last CTA runs its
+  // chunk's recursion from P_N; CTAs 1..C-2 reduce their chunks to their
+  // totals (A_T, C_T, J_T) by the recursion from P = 0 (J_T its first P,
+  // A_T the product of its closed-loop F_k, C_T the sum of A_T B_k Hinv_k
+  // B_k' A_T': `total_step`). (2) Rank 0 walks the chunk boundaries from
+  // the last chunk's first P, P <- J_T + A_T' P (I + C_T P)^-1 A_T
+  // (`chain_boundaries`), and leaves each chunk's P_{ke+1} in its stack.
+  // (3) Every other CTA runs its chunk's recursion from it, then forms its
+  // chunk's product of F_k = A_k - B_k Z_k for the solves' scans (the first
+  // and the last chunk need none: each holds a scan's true boundary).
   __device__ void factorize() {
+    if constexpr (CLUSTER) {  // the barrier weights of the chunk's rows
+      for (int e = this->xr0 + t; e < this->xr1; e += THREADS) {
+        sgx[e] = sig_pair(0, e);
+      }
+      for (int e = this->ur0 + t; e < this->ur1; e += THREADS) {
+        sgu[e] = sig_pair(2, e);
+      }
+      const auto none = [](int) {};
+      const int r = this->rank, C = this->ncta;
+      if (r == C - 1) {  // (1)
+        factor_chunk(P_TERMINAL, none);
+      } else if (r > 0) {
+        this->atc = ((this->ke - this->ks) & 1) ? this->Mt : this->At;
+        factor_chunk(P_ZERO, [this](int k) { total_step(k); });
+      }
+      cluster_sync();
+      if (r == 0) chain_boundaries();  // (2)
+      cluster_sync();
+      if (r < C - 1) {  // (3)
+        factor_chunk(P_IN_PLACE, none);
+        if (r > 0) chunk_product(true, this->Mf);
+      }
+      cluster_sync();
+      return;
+    }
     // barrier weights of every row, one pass
     for (int e = t; e < N * NX; e += THREADS) sgx[e] = sig_pair(0, e);
     for (int e = t; e < N * NU; e += THREADS) sgu[e] = sig_pair(2, e);
+    factor_chunk(P_TERMINAL, [](int) {});
+  }
+
+  // Where a chunk's recursion takes its P_{ktop()+1} from: P_N (the last
+  // chunk; every block outside the cluster plan); zero (the scan's
+  // totals); already in the stack (the scan's boundaries).
+  enum PSource : int { P_TERMINAL, P_ZERO, P_IN_PLACE };
+
+  // The factorization's stages ktop() down to kbase(), from P_{ktop()+1}
+  // (`psrc`), with after(k) called by every thread after stage k.
+  template <class After>
+  __device__ void factor_chunk(int psrc, After after) {
+    const int kb = kbase(), kh = ktop();
     {
       float r[RF];
-      ab_load(N - 1, r);
-      ab_store(N - 1, r);
+      ab_load(kh, r);
+      ab_store(kh, r);
     }
     __syncthreads();
-    {
+    if constexpr (CLUSTER) {
+      if (psrc == P_ZERO) {
+        float* P1 = Pw(kh + 1);
+        for (int e = t; e < NXX; e += THREADS) P1[e] = 0.f;
+      }
+    }
+    if (psrc == P_TERMINAL) {
       float* PN = Pw(N);
       for (int e = t; e < NXX; e += THREADS) {
         const int i = e / NX, j = e - i * NX;
@@ -1859,13 +2493,13 @@ struct Solver : SoftRows<SOFT> {
     // (t, t): their weights, loaded one stage ahead
     const bool hdiag = t < NU;
     const int hi = t;
-    float wx_next = (t < NX && N >= 2) ? sgx[(N - 2) * NX + t] : 0.f;
-    float wu_next = hdiag ? sgu[(N - 1) * NU + hi] : 0.f;
+    float wx_next = (t < NX && kh >= 1) ? sgx[(kh - 1) * NX + t] : 0.f;
+    float wu_next = hdiag ? sgu[kh * NU + hi] : 0.f;
     __syncthreads();
-    for (int k = N - 1; k >= 0; --k) {
+    for (int k = kh; k >= kb; --k) {
       const float wx_k = wx_next, wu_k = wu_next;
       float pre[RF];  // A_{k-1}, B_{k-1}, stored into the ring at the end
-      if (k >= 1) {
+      if (k > kb) {
         ab_load(k - 1, pre);
         if (t < NX && k >= 2) wx_next = sgx[(k - 2) * NX + t];
         if (hdiag) wu_next = sgu[(k - 1) * NU + hi];
@@ -1982,14 +2616,15 @@ struct Solver : SoftRows<SOFT> {
           }
         }
       }
-      if (k >= 1) ab_store(k - 1, pre);
+      if (k > kb) ab_store(k - 1, pre);
       __syncthreads();
+      after(k);
     }
   }
 
   // RHS gradients qr/rr with the barrier terms of the given targets
   __device__ void rhs_grads(bool cor) {
-    if (t < NX) {
+    if (t < NX && first_chunk()) {
       float a = Qs[t] * dx[0];
       for (int j = 1; j < NX; ++j) a += Qs[j * NX + t] * dx[j];
       qr[t] = a + q[t];
@@ -2054,53 +2689,99 @@ struct Solver : SoftRows<SOFT> {
   // backward + forward sweeps with the current factor -> (dX, dU), on
   // warp 0; the block meets it at one barrier
   __device__ void solve_rhs(float* dX, float* dU) {
+    if constexpr (CLUSTER) {
+      solve_rhs_cluster(dX, dU);
+      return;
+    }
     sweep_begin();
     if (warp == 0) {
-      sweep_back();
+      sweep_back(qr[N * NX + (lane < NX ? lane : 0)]);
     } else {
-      produce<V_BACK>(N - 1, -1);
+      produce<V_BACK>(N - 1, -1, N);
     }
     sweep_begin();  // kff is read by the forward sweep's producers
     if (warp == 0) {
-      sweep_fwd(dX, dU);
+      sweep_fwd(dX, dU, 0.f);
     } else {
-      produce<V_FWD>(0, 1);
+      produce<V_FWD>(0, 1, N);
+    }
+    __syncthreads();
+  }
+
+  // The cluster plan's solve: each sweep a chunked scan on the chunks'
+  // products of F, the backward one from p_N = qr_N (the last chunk's),
+  // the forward one from dx_0 = 0 (the first chunk's).
+  __device__ void solve_rhs_cluster(float* dX, float* dU) {
+    const int ks = this->ks, ke = this->ke, n = ke - ks + 1;
+    const int xi = lane < NX ? lane : 0;
+    const bool first = first_chunk(), last = last_chunk();
+    sweep_begin();  // (1) from the true boundary or from 0
+    if (warp == 0) {
+      const float p = sweep_back(last ? qr[N * NX + xi] : 0.f);
+      if (lane < NX) this->vout[lane] = p;
+    } else {
+      produce<V_BACK>(ke, -1, n);
+    }
+    scan_boundaries(true, this->Mf);  // (2)
+    if (!last) {  // (3) from the true boundary
+      sweep_begin();
+      if (warp == 0) {
+        sweep_back(this->vin[xi]);
+      } else {
+        produce<V_BACK>(ke, -1, n);
+      }
+    }
+    sweep_begin();  // kff is read by the forward sweep's producers
+    if (warp == 0) {
+      const float d = sweep_fwd(dX, dU, 0.f);
+      if (lane < NX) this->vout[lane] = d;
+    } else {
+      produce<V_FWD>(ks, 1, n);
+    }
+    scan_boundaries(false, this->Mf);
+    if (!first) {
+      sweep_begin();
+      if (warp == 0) {
+        sweep_fwd(dX, dU, this->vin[xi]);
+      } else {
+        produce<V_FWD>(ks, 1, n);
+      }
     }
     __syncthreads();
   }
 
   // kff_k = -Hinv_k' (rr_k + B_k' Pcp), p_k = qr_k + A_k' Pcp - Z_k' Gu,
   // Pcp = P_{k+1}' req_k + p_{k+1}: lane i < NX carries p_i, lane NX + t
-  // forms Gu_t and kff_t. P_k' req_{k-1} is formed one stage ahead.
-  __device__ void sweep_back() {
+  // forms Gu_t and kff_t. P_k' req_{k-1} is formed one stage ahead. Over
+  // this block's stages from pv = p_{ktop()+1}; returns p_{kbase()}.
+  __device__ float sweep_back(float pv) {
     const Ring rg = ring_view();
     const auto acquire = [&rg](int m) { return rg.acquire(m); };
     const auto release = [&rg](int m) { rg.release(m); };
-    const int N = this->N;
+    const int kb = kbase(), kh = ktop();
     float* const kff = this->kff;
     const float *const Pst = this->Pst, *const Zst = this->Zst,
                 *const Hst = this->Hst;
     const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
     const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
-    float pv = qr[N * NX + xi];
     float preq;  // P_{k+1}' req_k, formed a stage ahead
     {
       const float* v = acquire(0) + NXX + NX * NU;
-      const float* P1 = Pst + (size_t)N * NXX + xi;
+      const float* P1 = Pst + (size_t)(kh + 1 - kb) * NXX + xi;
       preq = P1[0] * v[0];
 #pragma unroll
       for (int j = 1; j < NX; ++j) preq += P1[j * NX] * v[j];
     }
-    for (int m = 0; m < N; ++m) {
-      const int k = N - 1 - m;
+    for (int m = 0; m <= kh - kb; ++m) {
+      const int k = kh - m;
       const float* Ak = acquire(m);
       const float* v = Ak + NXX + NX * NU;  // req_k, qr_k, rr_k
       const float pcp = preq + pv;
       float w[NX];
 #pragma unroll
       for (int j = 0; j < NX; ++j) w[j] = __shfl_sync(FULL, pcp, j);
-      if (k > 0) {  // the next stage's P_k' req_{k-1}, off the chain
-        const float* Pk = Pst + (size_t)k * NXX + xi;
+      if (k > kb) {  // the next stage's P_k' req_{k-1}, off the chain
+        const float* Pk = Pst + (size_t)(k - kb) * NXX + xi;
         const float* vn = acquire(m + 1) + NXX + NX * NU;
         preq = Pk[0] * vn[0];
 #pragma unroll
@@ -2119,8 +2800,8 @@ struct Solver : SoftRows<SOFT> {
 #pragma unroll
       for (int j = 0; j < NU; ++j) u[j] = __shfl_sync(FULL, gu, NX + j);
       // Z_k' Gu (state lanes), Hinv_k' Gu (control lanes)
-      const float* c2 = xl ? Zst + (size_t)k * NU * NX + xi
-                           : Hst + (size_t)k * NU * NU + ui;
+      const float* c2 = xl ? Zst + (size_t)(k - kb) * NU * NX + xi
+                           : Hst + (size_t)(k - kb) * NU * NU + ui;
       const int l2 = xl ? NX : NU;
       float z = c2[0] * u[0];
 #pragma unroll
@@ -2128,28 +2809,31 @@ struct Solver : SoftRows<SOFT> {
       if (ul) kff[k * NU + ui] = -z;
       pv = (qrk + g) - z;
     }
+    return pv;
   }
 
   // du_k = -Z_k d + kff_k (control lanes), dx_{k+1} = A_k d + B_k du_k +
-  // req_k (state lanes), d = dx_k carried by lanes i < NX
-  __device__ void sweep_fwd(float* dX, float* dU) {
+  // req_k (state lanes), d = dx_k carried by lanes i < NX. Over this
+  // block's stages from d = dx_{kbase()}; returns dx_{ktop()+1}, which a
+  // chunk that is not the last leaves to the next.
+  __device__ float sweep_fwd(float* dX, float* dU, float d) {
     const Ring rg = ring_view();
     const auto acquire = [&rg](int m) { return rg.acquire(m); };
     const auto release = [&rg](int m) { rg.release(m); };
-    const int N = this->N, lane = this->lane;
+    const int kb = kbase(), kh = ktop(), lane = this->lane;
+    const bool store_last = last_chunk();
     const float* const Zst = this->Zst;
     const bool xl = lane < NX, ul = lane >= NX && lane < NX + NU;
     const int xi = xl ? lane : 0, ui = ul ? lane - NX : 0;
-    float d = 0.f;
-    if (xl) dX[lane] = 0.f;
-    for (int k = 0; k < N; ++k) {
-      const float* Ak = acquire(k);
+    if (xl) dX[kb * NX + lane] = d;
+    for (int k = kb; k <= kh; ++k) {
+      const float* Ak = acquire(k - kb);
       const float* v = Ak + NXX + NX * NU;  // req_k, kff_k
       float dv[NX];
 #pragma unroll
       for (int j = 0; j < NX; ++j) dv[j] = __shfl_sync(FULL, d, j);
-      const float* row = xl ? Ak + xi * NX : Zst + (size_t)k * NU * NX
-                                                 + ui * NX;
+      const float* row = xl ? Ak + xi * NX
+                            : Zst + (size_t)(k - kb) * NU * NX + ui * NX;
       float a = row[0] * dv[0];
 #pragma unroll
       for (int j = 1; j < NX; ++j) a += row[j] * dv[j];
@@ -2163,10 +2847,11 @@ struct Solver : SoftRows<SOFT> {
 #pragma unroll
       for (int j = 1; j < NU; ++j) bb += brow[j] * uv[j];
       const float reqk = v[xi];
-      release(k);
+      release(k - kb);
       d = (a + bb) + reqk;
-      if (xl) dX[(k + 1) * NX + lane] = d;
+      if (xl && (k < kh || store_last)) dX[(k + 1) * NX + lane] = d;
     }
+    return d;
   }
 
   // Newton directions (ds, dl, dt, dg) of entry e for primal direction dd
@@ -2225,6 +2910,14 @@ struct Solver : SoftRows<SOFT> {
         ad = nmin(ad, ratio(lam[g][idx], dl, tau));
       }
     });
+    if constexpr (CLUSTER) {
+      float v[2] = {block_reduce<WARPS>(ap, sh.red, OpMin()),
+                    block_reduce<WARPS>(ad, sh.red, OpMin())};
+      cluster_combine(v, OpMin());
+      a_p = nmin(v[0], 1.f);
+      a_d = nmin(v[1], 1.f);
+      return;
+    }
     a_p = nmin(block_reduce<WARPS>(ap, sh.red, OpMin()), 1.f);
     a_d = nmin(block_reduce<WARPS>(ad, sh.red, OpMin()), 1.f);
   }
@@ -2290,8 +2983,20 @@ struct Solver : SoftRows<SOFT> {
     __syncthreads();
   }
 
+  // (the cluster plan: this CTA's states and controls)
   __device__ void copy(float* dst_x, const float* src_x, float* dst_u,
                        const float* src_u) {
+    if constexpr (CLUSTER) {
+      const int x1 = (last_chunk() ? N + 1 : this->ke + 1) * NX;
+      for (int e = this->ks * NX + t; e < x1; e += THREADS) {
+        dst_x[e] = src_x[e];
+      }
+      for (int e = this->ur0 + t; e < this->ur1; e += THREADS) {
+        dst_u[e] = src_u[e];
+      }
+      __syncthreads();
+      return;
+    }
     for (int e = t; e < (N + 1) * NX; e += THREADS) dst_x[e] = src_x[e];
     for (int e = t; e < N * NU; e += THREADS) dst_u[e] = src_u[e];
     __syncthreads();
@@ -2335,7 +3040,7 @@ struct Solver : SoftRows<SOFT> {
     st = isfinite(st) ? nmin(st, best) : best;
     float sx = 0.f, su = 0.f, vio = 0.f;
     if constexpr (MODE == FUSE_COST) finish(sx, su, vio);
-    if (t == 0) {
+    if (t == 0 && first_chunk()) {
       diag[0] = st;
       diag[1] = eq;
       diag[2] = best;
@@ -2343,19 +3048,24 @@ struct Solver : SoftRows<SOFT> {
       diag[4] = su;
       diag[5] = vio;
     }
+    // no CTA leaves while another may still read its shared memory
+    if constexpr (CLUSTER) cluster_sync();
   }
 };
 
 // The solve: one block of THREADS threads per problem (the batch plan:
-// two blocks per SM; the single plan: one problem, one block).
-template <int MODE, bool SOFT, int NX, int NU, int FAM, int THREADS>
+// two blocks per SM; the single plan: one problem, one block), or with
+// CLUSTER one problem per cluster, a chunk of its stages per block.
+template <int MODE, bool SOFT, int NX, int NU, int FAM, int THREADS,
+          bool CLUSTER = false>
 __global__ void __launch_bounds__(THREADS, THREADS == BATCH_THREADS ? 2 : 1)
 box_qp_ipm_kernel(Inputs in, Outputs out, Model md, int N, int iters,
                   float mu0, float alpha_frac, float reg) {
   if (in.skip != nullptr && *in.skip) return;  // uniform across the grid
   extern __shared__ float4 smem4[];
-  Solver<MODE, SOFT, NX, NU, FAM, THREADS> solver(
-      in, out, reinterpret_cast<float*>(smem4), N, mu0, reg, blockIdx.x);
+  Solver<MODE, SOFT, NX, NU, FAM, THREADS, CLUSTER> solver(
+      in, out, reinterpret_cast<float*>(smem4), N, mu0, reg,
+      CLUSTER ? 0 : (int)blockIdx.x);
   solver.run(iters, alpha_frac, md);
 }
 
@@ -2437,6 +3147,36 @@ int launch(const Inputs& in, const Outputs& out, const Model& md, int B,
   const size_t smem = plan_bytes<NX, NU>(N, SOFT);
   if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (MODE == PLAIN && !SOFT) {
+    if (cluster_plan(MODE, SOFT, B, N)) {  // one cluster, a chunk per CTA
+      const size_t cb = cluster_bytes<NX, NU>(N);
+      if (cb > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)cluster_ctas(N);
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim.x = (unsigned)cluster_ctas(N);
+      cfg.gridDim.y = 1;
+      cfg.gridDim.z = 1;
+      cfg.blockDim.x = SINGLE_THREADS;
+      cfg.blockDim.y = 1;
+      cfg.blockDim.z = 1;
+      cfg.dynamicSmemBytes = cb;
+      cfg.stream = st;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      const cudaError_t e = cudaLaunchKernelEx(
+          &cfg, box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM, SINGLE_THREADS, true>,
+          in, out, md, N, iters, mu0, alpha_frac, reg);
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // refused: clear it for the next launch
+        return (int)e;
+      }
+      return (int)cudaGetLastError();
+    }
+  }
   if constexpr (MODE != FUSE_COST) {
     if (single_plan(MODE, B)) {
       if constexpr (MODE == FUSE_LIN) {
@@ -2496,10 +3236,16 @@ int with_instance(int mode, bool soft, int nx, int nu, int family,
   return (int)cudaErrorInvalidValue;
 }
 
-// The solve kernel of a plan: the batch plan's, or the single plan's
-// where the mode builds one (not FUSE_COST).
+// The solve kernel of a plan: the batch plan's, the single plan's where
+// the mode builds one (not FUSE_COST), or the cluster plan's (hard PLAIN).
 template <int MODE, bool SOFT, int NX, int NU, int FAM>
-const void* plan_kernel(bool single) {
+const void* plan_kernel(bool single, bool cluster = false) {
+  if constexpr (MODE == PLAIN && !SOFT) {
+    if (cluster) {
+      return (const void*)
+          box_qp_ipm_kernel<MODE, SOFT, NX, NU, FAM, SINGLE_THREADS, true>;
+    }
+  }
   if constexpr (MODE != FUSE_COST) {
     if (single) {
       return (const void*)
@@ -2510,17 +3256,20 @@ const void* plan_kernel(bool single) {
                                         BATCH_THREADS>;
 }
 
-// Opts an instantiation's solve kernels (both plans) in to SMEM_OPTIN bytes
-// of dynamic shared memory and prefers the largest shared-memory carveout
-// (so that two resident blocks share an SM). A refused attribute also sets
-// the runtime's last error: it is cleared, and the error returned.
+// Opts an instantiation's solve kernels (every plan) in to SMEM_OPTIN
+// bytes of dynamic shared memory and prefers the largest shared-memory
+// carveout (so that two resident blocks share an SM). The cluster plan
+// launches at most the portable 8 CTAs. A refused attribute also sets the
+// runtime's last error: it is cleared, and the error returned.
 struct SetOptin {
   template <int MODE, bool SOFT, int NX, int NU, int FAM>
   int run() const {
     cudaError_t e = cudaSuccess;
-    for (int single = 0; single < 2 && e == cudaSuccess; ++single) {
-      if (single && MODE == FUSE_COST) break;
-      const void* k = plan_kernel<MODE, SOFT, NX, NU, FAM>(single != 0);
+    for (int plan = 0; plan < 3 && e == cudaSuccess; ++plan) {
+      if (plan == 1 && MODE == FUSE_COST) break;
+      if (plan == 2 && (MODE != PLAIN || SOFT)) break;
+      const void* k = plan_kernel<MODE, SOFT, NX, NU, FAM>(plan == 1,
+                                                          plan == 2);
       e = cudaFuncSetAttribute(
           k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_OPTIN);
       if (e == cudaSuccess) {
@@ -2539,12 +3288,13 @@ struct SetOptin {
 // `smem` bytes of dynamic shared memory.
 struct Attrs {
   long long smem;
-  int B;
+  int B, N;
   int *regs, *local_bytes, *blocks_per_sm;
   template <int MODE, bool SOFT, int NX, int NU, int FAM>
   int run() const {
     const bool single = single_plan(MODE, B);
-    const void* k = plan_kernel<MODE, SOFT, NX, NU, FAM>(single);
+    const void* k = plan_kernel<MODE, SOFT, NX, NU, FAM>(
+        single, cluster_plan(MODE, SOFT, B, N));
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, k);
     if (e == cudaSuccess) {
@@ -2554,6 +3304,38 @@ struct Attrs {
           blocks_per_sm, k, single ? SINGLE_THREADS : BATCH_THREADS,
           (size_t)smem);
     }
+    if (e != cudaSuccess) cudaGetLastError();
+    return (int)e;
+  }
+};
+
+// The clusters of the cluster plan's kernel at horizon N the card can hold
+// at once (cudaOccupancyMaxActiveClusters at the plan's CTAs, threads and
+// shared bytes); 0 where the plan is not a cluster.
+struct MaxClusters {
+  int N;
+  int* n;
+  template <int MODE, bool SOFT, int NX, int NU, int FAM>
+  int run() const {
+    *n = 0;
+    if (!cluster_plan(MODE, SOFT, 1, N)) return 0;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster_ctas(N);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim.x = (unsigned)cluster_ctas(N);
+    cfg.gridDim.y = 1;
+    cfg.gridDim.z = 1;
+    cfg.blockDim.x = SINGLE_THREADS;
+    cfg.blockDim.y = 1;
+    cfg.blockDim.z = 1;
+    cfg.dynamicSmemBytes = cluster_bytes<NX, NU>(N);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(
+        n, plan_kernel<MODE, SOFT, NX, NU, FAM>(true, true), &cfg);
     if (e != cudaSuccess) cudaGetLastError();
     return (int)e;
   }
@@ -2577,13 +3359,17 @@ extern "C" long long box_qp_ipm_lin_floats(int N, int nx, int nu) {
 // The plan of a launch of B problems: threads per block (the single plan
 // for B=1 outside FUSE_COST, else the batch plan), dynamic shared bytes
 // and whether the factor stacks are resident in shared memory (the same in
-// both plans; soft bounds add the soft area where it fits), and the blocks
-// of the FUSE_LIN prologue's own grid (0: it runs on the solve's block).
+// both plans; soft bounds add the soft area where it fits), the blocks
+// of the FUSE_LIN prologue's own grid (0: it runs on the solve's block),
+// and the cluster plan's CTAs (0: not a cluster), whose shared bytes are
+// per CTA and whose stacks are resident, a chunk per CTA.
 extern "C" int box_qp_ipm_plan(int N, int mode, int soft, int nx, int nu,
                                int B, int* threads, long long* smem,
-                               int* res, int* prologue_blocks) {
+                               int* res, int* prologue_blocks, int* cluster) {
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   const bool single = single_plan(mode, B);
+  const bool cl = cluster_plan(mode, soft != 0, B, N);
+  *cluster = cl ? cluster_ctas(N) : 0;
   if (is_17x6(nx, nu)) {
     *smem = (long long)plan_bytes<17, 6>(N, soft != 0);
     *res = resident<17, 6>(N);
@@ -2594,6 +3380,11 @@ extern "C" int box_qp_ipm_plan(int N, int mode, int soft, int nx, int nu,
     *prologue_blocks = single && mode == FUSE_LIN ? lin_blocks<13, 4>(N) : 0;
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  if (cl) {
+    *smem = (long long)(is_17x6(nx, nu) ? cluster_bytes<17, 6>(N)
+                                         : cluster_bytes<13, 4>(N));
+    *res = 1;
   }
   *threads = single ? SINGLE_THREADS : BATCH_THREADS;
   return 0;
@@ -2608,10 +3399,17 @@ extern "C" int box_qp_ipm_set_optin(int mode, int soft, int nx, int nu,
 
 extern "C" int box_qp_ipm_kernel_attrs(int mode, int soft, int nx, int nu,
                                        int family, long long smem, int B,
-                                       int* regs, int* local_bytes,
+                                       int N, int* regs, int* local_bytes,
                                        int* blocks_per_sm) {
   return with_instance(mode, soft != 0, nx, nu, family,
-                       Attrs{smem, B, regs, local_bytes, blocks_per_sm});
+                       Attrs{smem, B, N, regs, local_bytes, blocks_per_sm});
+}
+
+// The cluster plan's clusters the card holds at once at horizon N (0 where
+// the launch is not a cluster, B=1): a wrapper refuses the plan below 1.
+extern "C" int box_qp_ipm_max_clusters(int mode, int soft, int nx, int nu,
+                                       int family, int N, int* n) {
+  return with_instance(mode, soft != 0, nx, nu, family, MaxClusters{N, n});
 }
 
 extern "C" const char* box_qp_ipm_error_string(int err) {

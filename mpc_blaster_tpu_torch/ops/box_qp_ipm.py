@@ -38,18 +38,23 @@ the solve (the single plan); and dynamic shared memory that holds the
 Riccati factor stacks (P, Z, Hinv of every stage) where they fit under
 the card's 232448-byte opt-in (the "resident" layout: every 17x6 horizon
 up to N=128), else only a window of them, the stacks staying in the
-global workspace ("global": 17x6 at N=240). The wrapper opts each
-instantiation in to that much shared memory once
-(`box_qp_ipm_set_optin`) and raises if the runtime refuses or a plan
-exceeds it; no option chooses the plan or the layout, and a plan that
-fails to launch raises. The launches per layout and plan are counted in
-each wrapper's `by_layout`, keyed (layout, plan): ("resident" or
-"global", "single" or "batch"). The Pallas kernel's long-horizon
-variants (K7, its `stream_p` / `stream_big` switches) are these two
-layouts (`box_qp_solve` accepts the switches and selects nothing with
-them). The single plan's fuse_lin prologue grid is a kernel launch of its
-own: each is counted in `fused_lin_prologue.launches`, which also
-launches it alone.
+global workspace ("global": 17x6 at N=240). A single hard plain problem
+at N >= CLUSTER_MIN_N takes the cluster plan instead (the "cluster"
+layout: `cluster_ctas(N)` CTAs of 256 threads in one thread-block
+cluster, each with its chunk of the stages' stacks in its shared
+memory; kernel K7 on Hopper, `csrc/box_qp_ipm.cu`). The wrapper opts
+each instantiation in to that much shared memory once
+(`box_qp_ipm_set_optin`) and raises if the runtime refuses, a plan
+exceeds it, or the card cannot hold the plan's cluster
+(`cudaOccupancyMaxActiveClusters` below 1); no option chooses the plan
+or the layout, and a plan that fails to launch raises. The launches per
+layout and plan are counted in each wrapper's `by_layout`, keyed
+(layout, plan): ("resident", "global" or "cluster", "single" or
+"batch"). The Pallas kernel's long-horizon variants (K7, its
+`stream_p` / `stream_big` switches) are these layouts (`box_qp_solve`
+accepts the switches and selects nothing with them). The single plan's
+fuse_lin prologue grid is a kernel launch of its own: each is counted in
+`fused_lin_prologue.launches`, which also launches it alone.
 
 One call runs a whole Mehrotra predictor-corrector IPM (Gondzio-clipped
 targets, Riccati factorization and sweeps, fraction-to-boundary steps,
@@ -164,20 +169,33 @@ SMEM_OPTIN = 232448
 RING_SLOTS = 4   # slots of the kernel's ring of stages
 PROLOGUE_ONLY = -1  # a fuse_lin launch's iters: the prologue grid alone
 SOFT_WORDS = 10  # float32 words per bound entry in the soft area
+# The cluster plan: a B=1 hard plain launch at N >= CLUSTER_MIN_N splits
+# its horizon over min(CLUSTER_CTAS, N // CLUSTER_CHUNK_MIN) CTAs; a CTA's
+# cluster area holds eight nx x nx matrices and two nx x nu blocks (its
+# products, its chunk's total, work space), three CL_VEC-word boundary
+# slots and two CL_RED-word reduction slots.
+CLUSTER_MIN_N = 61
+CLUSTER_CTAS = 8
+CLUSTER_CHUNK_MIN = 4
+CL_VEC, CL_RED = 32, 4
 
 
 class LaunchPlan(NamedTuple):
-    """How one launch runs: threads per block, dynamic shared bytes,
-    whether the factor stacks are resident in shared memory, and the
+    """How one launch runs: threads per block, dynamic shared bytes (per
+    CTA), whether the factor stacks are resident in shared memory, the
     blocks of the fuse_lin prologue's own grid (0: the prologue, if any,
-    runs on the solve's block)."""
+    runs on the solve's block), and the CTAs of the cluster plan's
+    thread-block cluster (0: not a cluster)."""
     threads: int
     smem_bytes: int
     resident: bool
     prologue_blocks: int = 0
+    cluster: int = 0
 
     @property
     def layout(self) -> str:
+        if self.cluster:
+            return "cluster"
         return "resident" if self.resident else "global"
 
     @property
@@ -211,6 +229,24 @@ def single_plan(mode: int, B: int) -> bool:
     return B == 1 and mode != FUSE_COST
 
 
+def cluster_plan(mode: int, soft: bool, B: int, N: int) -> bool:
+    """Whether a launch takes the cluster plan: a single hard plain
+    problem at N >= CLUSTER_MIN_N."""
+    return B == 1 and mode == PLAIN and not soft and N >= CLUSTER_MIN_N
+
+
+def cluster_ctas(N: int) -> int:
+    """The cluster plan's CTAs at horizon N (a function of N alone)."""
+    return min(CLUSTER_CTAS, N // CLUSTER_CHUNK_MIN)
+
+
+def chunk_starts(N: int, C: int) -> list:
+    """The first stage of each of C chunks of N stages, and N: chunk j
+    holds stages starts[j] .. starts[j + 1] - 1 (the kernel's
+    `chunk_start`)."""
+    return [(j * N) // C for j in range(C + 1)]
+
+
 def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int, B: int
                 ) -> LaunchPlan:
     """The plan of csrc/box_qp_ipm.cu's launch of B problems at horizon N
@@ -228,7 +264,12 @@ def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int, B: int
     slots, one Z, one Hinv). A soft launch adds its soft area
     (`soft_area_floats`, sized for every row being soft) after them where
     it still fits, else keeps it in the global workspace; the layout
-    names where the stacks are."""
+    names where the stacks are. A `cluster_plan` launch runs
+    `cluster_ctas(N)` CTAs of SINGLE_THREADS in one cluster, each with the
+    scratch, the ring, the stacks of the largest chunk (ceil(N / C)
+    stages) and its cluster area (eight nx x nx matrices, two nx x nu
+    blocks, three boundary slots, two reduction slots): the "cluster"
+    layout."""
     if (nx, nu) not in {(b[0], b[1]) for b in BUILT} or N < 1 or B < 1 \
             or mode not in _MODE_NAMES:
         raise ValueError(f"no launch plan for N={N}, mode={mode}, B={B}, "
@@ -242,6 +283,13 @@ def launch_plan(N: int, mode: int, soft: bool, nx: int, nu: int, B: int
     if soft and 4 * (words + soft_area_floats(N, nx, nu)) <= SMEM_OPTIN:
         words += soft_area_floats(N, nx, nu)
     single = single_plan(mode, B)
+    if cluster_plan(mode, soft, B, N):
+        C = cluster_ctas(N)
+        n = -(-N // C)
+        chunk = (n + 1) * nx * nx + n * nu * nx + n * nu * nu
+        area = 8 * nx * nx + 2 * nx * nu + 3 * CL_VEC + 2 * CL_RED
+        return LaunchPlan(SINGLE_THREADS, 4 * (scratch + ring + chunk + area),
+                          True, 0, C)
     items = N * -(-(nx + nu) // LIN_COLS)
     prologue = (-(-items // LIN_THREADS) if single and mode == FUSE_LIN
                 else 0)
@@ -365,26 +413,84 @@ def box_qp_solve_plain(data: QPData, iters: int = 12, mu0: float = 1e-1,
                        alpha_frac: float = 0.995, reg: float = 1e-6,
                        warm=None, skip=None, soft=None,
                        stream_p: bool | None = None,
-                       stream_big: bool | None = None) -> QPSolution:
+                       stream_big: bool | None = None,
+                       chunks: int | None = None) -> QPSolution:
     """Eager PyTorch twin of the CUDA kernel. `data` fields carry a
     leading batch axis (B, ...); any device; any dimensions. Same
     arguments and result as `box_qp_solve` (`skip` is ignored: the twin
-    always computes)."""
+    always computes). `chunks` is the count of chunks whose operation
+    order the twin follows: the cluster plan's (`_solve_plain`) where
+    above 1, the sequential one at 1; None takes the kernel's plan for
+    this launch (`cluster_ctas(N)` where `cluster_plan`, else 1)."""
     _check_soft_warm(soft, warm)
     _check_stream(stream_p, stream_big)
+    if chunks is None:
+        B, N = data.A.shape[0], data.A.shape[1]
+        chunks = (cluster_ctas(N) if cluster_plan(PLAIN, soft is not None,
+                                                  B, N) else 1)
     return _solve_plain(_prep(data), iters, mu0, alpha_frac, reg, warm,
-                        _soft_rows(soft, _qp_bounds(data)))
+                        _soft_rows(soft, _qp_bounds(data)), chunks)
 
 
-def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
-                 ) -> QPSolution:
+def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens,
+                 chunks: int = 1) -> QPSolution:
     """The twin's solve on prepared inputs; `pens` are the soft penalty
-    rows of `_soft_rows` (None: a hard solve)."""
+    rows of `_soft_rows` (None: a hard solve).
+
+    With `chunks` C > 1 it follows the cluster plan's order (a hard
+    solve): the stages in C chunks (`chunk_starts`); the state rows of
+    dx_k with the chunk of stage k (dx_N's with the last), the control
+    rows with theirs; each sum over the rows per chunk, then the chunks
+    in order; and every linear sweep (the KKT pass's adjoint sweep, each
+    solve's backward and forward sweep) a chunked scan: (1) each chunk
+    from a zero boundary, the one holding the true boundary from it; (2)
+    the boundaries in turn, b <- M_j' b + out_j backward, M_j b + out_j
+    forward, over the chunks between head and tail (M_j the chunk's
+    product A_e ... A_s, or F_e ... F_s with F_k = A_k - B_k Z_k); (3)
+    each other chunk again from its true boundary. The factorization is
+    the kernel's chunked scan (`factorize`); the init rollout stays
+    sequential, as in the kernel."""
     A, Bm, c, Qs, Qt, q, R, r = (p.A, p.Bm, p.c, p.Qs, p.Qt, p.q, p.R,
                                  p.r)
     Bsz, N, nx, nu = A.shape[0], A.shape[1], A.shape[-1], Bm.shape[-1]
     dev = A.device
     big = torch.full((), _BIG, dtype=torch.float32, device=dev)
+    C = int(chunks)
+    if C < 1 or C > N or (C > 1 and pens is not None):
+        raise ValueError(f"chunks={chunks}: 1, or up to N={N} chunks of a "
+                         "hard solve")
+    ks = chunk_starts(N, C)
+    xb = [0] + [k - 1 for k in ks[1:-1]] + [N]
+
+    def chunk_sum(fx, fu):
+        """The sum over the state rows fx (B, N, nx) and the control rows
+        fu (B, N, nu): per chunk, then the chunks in order."""
+        tot = None
+        for j in range(C):
+            part = (fx[:, xb[j]:xb[j + 1]].sum((1, 2))
+                    + fu[:, ks[j]:ks[j + 1]].sum((1, 2)))
+            tot = part if tot is None else tot + part
+        return tot
+
+    def chain(X, j):
+        """X(e) ... X(s) over chunk j's stages s..e."""
+        M = X(ks[j])
+        for k in range(ks[j] + 1, ks[j + 1]):
+            M = X(k) @ M
+        return M
+
+    def boundaries(outs, M, back):
+        """A scan's step (2): each chunk's true boundary (but the head's)
+        from the chunks' step-(1) carries `outs` and products M."""
+        order = list(range(C - 1, -1, -1) if back else range(C))
+        ins, b = {}, outs[order[0]]
+        for h, j in enumerate(order[1:], 1):
+            ins[j] = b
+            if h < C - 1:
+                b = (_mtv(M[j], b) if back else _mv(M[j], b)) + outs[j]
+        return ins
+
+    MA = {j: chain(lambda k: A[:, k], j) for j in range(1, C - 1)}
 
     # Bound groups: (bound, sign, mask, is_state). Masks are derived from
     # the sanitized bound magnitude; they never change during a solve.
@@ -438,12 +544,18 @@ def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
     if warm is not None:
         _warm_blend(S, LAM, [g[2] for g in groups], warm)
 
-    n_ineq = sum(m.sum((1, 2)) for _, _, m, _ in groups)
+    if C > 1:
+        n_ineq = chunk_sum(mlx + mux, mlu + muu)
+    else:
+        n_ineq = sum(m.sum((1, 2)) for _, _, m, _ in groups)
     if soft:
         n_ineq = n_ineq + sum(sm.float().sum((1, 2)) for sm in SM)
     n_ineq = torch.clamp(n_ineq, min=1.0)
 
     def comp_sum():
+        if C > 1:
+            t = [groups[i][2] * S[i] * LAM[i] for i in range(4)]
+            return chunk_sum(t[0] + t[1], t[2] + t[3])
         acc = sum((m * S[i] * LAM[i]).sum((1, 2))
                   for i, (_, _, m, _) in enumerate(groups))
         if soft:
@@ -471,11 +583,18 @@ def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
         base = _mtv(Qs.unsqueeze(1), dx[:, :N]) + q[:, :N]
         bnd = LAM[0] - LAM[1]
         lam_in = [None] * N
-        for k in range(N - 1, -1, -1):
-            lam_in[k] = lam
-            lam = base[:, k] + _mtv(A[:, k], lam)
-            if k >= 1:
-                lam = lam - bnd[:, k - 1]
+
+        def sweep(j, lam):
+            for k in range(ks[j + 1] - 1, ks[j] - 1, -1):
+                lam_in[k] = lam
+                lam = base[:, k] + _mtv(A[:, k], lam)
+                if k >= 1:
+                    lam = lam - bnd[:, k - 1]
+            return lam
+        zero = torch.zeros_like(lam)
+        outs = {j: sweep(j, lam if j == C - 1 else zero) for j in range(C)}
+        for j, b in boundaries(outs, MA, True).items():
+            sweep(j, b)
         su = (_mtv(R.unsqueeze(1), du) + r
               + _mtv(Bm, torch.stack(lam_in, 1)) - (LAM[2] - LAM[3]))
         stat = torch.clamp(su.abs().amax((1, 2)), min=0.0)
@@ -567,42 +686,93 @@ def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
     eye_u = torch.eye(nu, dtype=torch.float32, device=dev)
 
     def factorize():
+        """(Pn, Z, Hinv): per stage k the P_{k+1} its factorization took
+        (P_N at the last; a chunk's last stage, its boundary), Z_k and
+        Hinv_k, by the kernel's chunked scan: the last chunk from P_N;
+        chunks 1..C-2 reduced to their totals by the recursion from P = 0;
+        the boundaries P <- sym(J_T + A_T' P (I + C_T P)^-1 A_T) from the
+        last chunk's first P; each other chunk from its boundary. At C = 1
+        that is the sequential recursion."""
         sig_x = torch.clamp(g_fac(0) + g_fac(1), max=_SIGMA_MAX)
         sig_u = torch.clamp(g_fac(2) + g_fac(3), max=_SIGMA_MAX)
-        P = [None] * (N + 1)
+        Pn = [None] * N
         Z = [None] * N
         Hinv = [None] * N
-        P[N] = Qt + torch.diag_embed(sig_x[:, N - 1])
-        for k in range(N - 1, -1, -1):
-            Pn = P[k + 1]
-            PA = _mtm(Pn, A[:, k])
-            PB = _mtm(Pn, Bm[:, k])
+
+        def stage(k, P1):
+            PA = _mtm(P1, A[:, k])
+            PB = _mtm(P1, Bm[:, k])
             Huu = (_mtm(Bm[:, k], PB) + R + reg * eye_u
                    + torch.diag_embed(sig_u[:, k]))
             Hux = _mtm(Bm[:, k], PA)
-            Hinv[k] = chol_inverse_plain(Huu)
-            Z[k] = _mtm(Hinv[k], Hux)                  # Hinv Hux = -K
-            Pk = Qs + _mtm(A[:, k], PA) - _mtm(Hux, Z[k])
+            Hi = chol_inverse_plain(Huu)
+            Zk = _mtm(Hi, Hux)                         # Hinv Hux = -K
+            Pk = Qs + _mtm(A[:, k], PA) - _mtm(Hux, Zk)
             if k >= 1:
                 Pk = Pk + torch.diag_embed(sig_x[:, k - 1])
-            P[k] = 0.5 * (Pk + Pk.transpose(-1, -2))
-        return P, Z, Hinv
+            return 0.5 * (Pk + Pk.transpose(-1, -2)), Zk, Hi
 
-    def solve_rhs(P, Z, Hinv, req, qr, rr):
+        def rec(j, P1):
+            """Chunk j's stages from its P_{ke+1}; returns its first P."""
+            for k in range(ks[j + 1] - 1, ks[j] - 1, -1):
+                Pn[k] = P1
+                P1, Z[k], Hinv[k] = stage(k, P1)
+            return P1
+        PN = Qt + torch.diag_embed(sig_x[:, N - 1])
+        P1 = rec(C - 1, PN)
+        totals = {}
+        for j in range(1, C - 1):
+            Pj, At, Ct = torch.zeros_like(PN), None, None
+            for k in range(ks[j + 1] - 1, ks[j] - 1, -1):
+                Pk, Zk, Hk = stage(k, Pj)
+                F = A[:, k] - Bm[:, k] @ Zk
+                W = Bm[:, k] if At is None else At @ Bm[:, k]
+                Ck = (W @ Hk) @ W.transpose(-1, -2)
+                Ct = Ck if Ct is None else Ct + Ck
+                At = F if At is None else At @ F
+                Pj = Pk
+            totals[j] = At, Ct, Pj
+        bounds = {}
+        eye_x = torch.eye(nx, dtype=torch.float32, device=dev)
+        for j in range(C - 2, -1, -1):
+            bounds[j] = P1
+            if j == 0:
+                break
+            At, Ct, Jt = totals[j]
+            X = torch.linalg.solve(eye_x + Ct @ P1, At)
+            V = Jt + _mtm(At, P1 @ X)
+            P1 = 0.5 * (V + V.transpose(-1, -2))
+        for j in range(C - 1):
+            rec(j, bounds[j])
+        return Pn, Z, Hinv
+
+    def solve_rhs(Pn, Z, Hinv, req, qr, rr, MF):
         kff = [None] * N
-        pv = qr[:, N]
-        for k in range(N - 1, -1, -1):
-            Pcp = _mtv(P[k + 1], req[:, k]) + pv
-            Gu = rr[:, k] + _mtv(Bm[:, k], Pcp)
-            kff[k] = -_mtv(Hinv[k], Gu)
-            pv = qr[:, k] + _mtv(A[:, k], Pcp) - _mtv(Z[k], Gu)
-        ddx = [torch.zeros_like(p.dx0)]
-        ddu = []
-        for k in range(N):
-            d = ddx[-1]
-            ddu.append(-_mv(Z[k], d) + kff[k])
-            ddx.append(_mv(A[:, k], d) + _mv(Bm[:, k], ddu[-1])
-                       + req[:, k])
+        ddx, ddu = [None] * (N + 1), [None] * N
+
+        def back(j, pv):
+            for k in range(ks[j + 1] - 1, ks[j] - 1, -1):
+                Pcp = _mtv(Pn[k], req[:, k]) + pv
+                Gu = rr[:, k] + _mtv(Bm[:, k], Pcp)
+                kff[k] = -_mtv(Hinv[k], Gu)
+                pv = qr[:, k] + _mtv(A[:, k], Pcp) - _mtv(Z[k], Gu)
+            return pv
+
+        def fwd(j, d):
+            for k in range(ks[j], ks[j + 1]):
+                ddx[k] = d
+                ddu[k] = -_mv(Z[k], d) + kff[k]
+                d = _mv(A[:, k], d) + _mv(Bm[:, k], ddu[k]) + req[:, k]
+            return d
+        zero = torch.zeros_like(p.dx0)
+        outs = {j: back(j, qr[:, N] if j == C - 1 else zero)
+                for j in range(C)}
+        for j, b in boundaries(outs, MF, True).items():
+            back(j, b)
+        outs = {j: fwd(j, zero) for j in range(C)}
+        for j, b in boundaries(outs, MF, False).items():
+            outs[j] = fwd(j, b)
+        ddx[N] = outs[C - 1]    # the last chunk's, from its true boundary
         return torch.stack(ddx, 1), torch.stack(ddu, 1)
 
     def min_ratio(v, dv, tau):
@@ -629,16 +799,23 @@ def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
 
     for _ in range(iters):
         mu_cur = comp_sum() / n_ineq
-        P, Z, Hinv = factorize()
+        Pn, Z, Hinv = factorize()
+        MF = {j: chain(lambda k: A[:, k] - Bm[:, k] @ Z[k], j)
+              for j in range(1, C - 1)}
         # predictor (affine scaling, target 0)
         qr, rr = rhs_grads(zero_T, dx, du)
-        ddxa, ddua = solve_rhs(P, Z, Hinv, req, qr, rr)
+        ddxa, ddua = solve_rhs(Pn, Z, Hinv, req, qr, rr, MF)
         ap_aff, ad_aff = alphas(zero_T, 1.0, ddxa, ddua, dx, du)
         aff = [dirs(i, zero_T[i], ddxa, ddua, dx, du) for i in range(4)]
         apb, adb = ap_aff[:, None, None], ad_aff[:, None, None]
-        mu_aff = sum((groups[i][2] * (S[i] + apb * ds)
-                      * (LAM[i] + adb * dlam)).sum((1, 2))
-                     for i, (ds, dlam, _, _) in enumerate(aff))
+        if C > 1:
+            t = [groups[i][2] * (S[i] + apb * ds) * (LAM[i] + adb * dlam)
+                 for i, (ds, dlam, _, _) in enumerate(aff)]
+            mu_aff = chunk_sum(t[0] + t[1], t[2] + t[3])
+        else:
+            mu_aff = sum((groups[i][2] * (S[i] + apb * ds)
+                          * (LAM[i] + adb * dlam)).sum((1, 2))
+                         for i, (ds, dlam, _, _) in enumerate(aff))
         if soft:
             mu_aff = mu_aff + sum(
                 torch.where(SM[i], (TV[i] + apb * dt) * (GV[i] + adb * dg),
@@ -655,7 +832,7 @@ def _solve_plain(p: _Prepped, iters, mu0, alpha_frac, reg, warm, pens
         T = [(clip_t(ds, dlam), clip_t(dt, dg) if soft else None)
              for ds, dlam, dt, dg in aff]
         qr, rr = rhs_grads(T, dx, du)
-        ddx, ddu = solve_rhs(P, Z, Hinv, req, qr, rr)
+        ddx, ddu = solve_rhs(Pn, Z, Hinv, req, qr, rr, MF)
         a_p, a_d = alphas(T, alpha_frac, ddx, ddu, dx, du)
         apb, adb = a_p[:, None, None], a_d[:, None, None]
         # update (stage-0 state pinned)
@@ -768,7 +945,8 @@ def batched_fused_tick_plain(AB, c, xbar, ubar, x0, Q, Q_t, R, yref_x,
     AB = _f32(AB)
     qp = _fused_qp(f, AB[..., :nx], AB[..., nx:], _f32(c))
     sol = box_qp_solve_plain(qp, iters=iters, mu0=mu0,
-                             alpha_frac=alpha_frac, reg=reg, warm=warm)
+                             alpha_frac=alpha_frac, reg=reg, warm=warm,
+                             chunks=1)
     xn, un, diag = _tick_diag(f, sol)
     return xn, un, diag, sol._replace(dx=xn, du=un)
 
@@ -881,15 +1059,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.box_qp_ipm_lin_floats.restype = ctypes.c_longlong
     lib.box_qp_ipm_error_string.argtypes = [i32]
     lib.box_qp_ipm_error_string.restype = ctypes.c_char_p
-    lib.box_qp_ipm_plan.argtypes = [i32] * 6 + [ptr] * 4
+    lib.box_qp_ipm_plan.argtypes = [i32] * 6 + [ptr] * 5
     lib.box_qp_ipm_plan.restype = i32
     lib.box_qp_ipm_smem_optin.argtypes = []
     lib.box_qp_ipm_smem_optin.restype = ctypes.c_longlong
     lib.box_qp_ipm_set_optin.argtypes = [i32] * 5
     lib.box_qp_ipm_set_optin.restype = i32
     lib.box_qp_ipm_kernel_attrs.argtypes = ([i32] * 5 + [ctypes.c_longlong]
-                                            + [i32] + [ptr] * 3)
+                                            + [i32] * 2 + [ptr] * 3)
     lib.box_qp_ipm_kernel_attrs.restype = i32
+    lib.box_qp_ipm_max_clusters.argtypes = [i32] * 6 + [ptr]
+    lib.box_qp_ipm_max_clusters.restype = i32
     return lib
 
 
@@ -898,16 +1078,36 @@ def library_plan(N: int, mode: int, soft: bool, nx: int, nu: int, B: int
     """The built library's own plan (`box_qp_ipm_plan`); equals
     `launch_plan`."""
     lib = _library()
-    th, res, pro = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    th, res, pro, cl = (ctypes.c_int() for _ in range(4))
     smem = ctypes.c_longlong()
     rc = lib.box_qp_ipm_plan(N, mode, int(soft), nx, nu, B,
                              ctypes.byref(th), ctypes.byref(smem),
-                             ctypes.byref(res), ctypes.byref(pro))
+                             ctypes.byref(res), ctypes.byref(pro),
+                             ctypes.byref(cl))
     _launched(lib, rc, "box_qp_ipm_plan")
-    return LaunchPlan(th.value, smem.value, bool(res.value), pro.value)
+    return LaunchPlan(th.value, smem.value, bool(res.value), pro.value,
+                      cl.value)
 
 
 _OPTED_IN: set = set()   # (instantiation, device index) opted in
+_CLUSTERS: dict = {}     # (instantiation, N, device index) -> clusters
+
+
+def _max_clusters(lib, dev, mode, soft, nx, nu, family, N) -> int:
+    """The cluster plan's clusters the card holds at once at horizon N
+    (`cudaOccupancyMaxActiveClusters` at its CTAs, threads and shared
+    bytes; read once per instantiation, N and device); 0 where the
+    launch is not a cluster."""
+    key = (mode, bool(soft), nx, nu, family, N, dev.index)
+    if key not in _CLUSTERS:
+        n = ctypes.c_int()
+        fam = FAMILY_IDS[family] if family is not None else 0
+        with torch.cuda.device(dev):
+            rc = lib.box_qp_ipm_max_clusters(mode, int(soft), nx, nu, fam, N,
+                                             ctypes.byref(n))
+        _launched(lib, rc, "box_qp_ipm_max_clusters")
+        _CLUSTERS[key] = n.value
+    return _CLUSTERS[key]
 
 
 def _optin(lib, dev, mode, soft, nx, nu, family):
@@ -949,10 +1149,10 @@ def kernel_info(N: int, mode: int, nx: int, nu: int, family=None,
     fam = FAMILY_IDS[family] if family is not None else 0
     with torch.cuda.device(dev):
         rc = lib.box_qp_ipm_kernel_attrs(
-            mode, int(soft), nx, nu, fam, plan.smem_bytes, B,
+            mode, int(soft), nx, nu, fam, plan.smem_bytes, B, N,
             ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
     _launched(lib, rc, "box_qp_ipm_kernel_attrs")
-    hard = launch_plan(N, mode, False, nx, nu, B)
+    hard = launch_plan(N, mode, False, nx, nu, max(B, 2))
     area = (None if not soft else
             "shared" if plan.smem_bytes > hard.smem_bytes else "global")
     return {"plan": plan.kind,
@@ -960,7 +1160,10 @@ def kernel_info(N: int, mode: int, nx: int, nu: int, family=None,
             "smem_bytes": plan.smem_bytes,
             "prologue_blocks": plan.prologue_blocks, "soft_area": area,
             "registers": regs.value, "local_bytes": local.value,
-            "blocks_per_sm": blocks.value}
+            "blocks_per_sm": blocks.value, "cluster": plan.cluster,
+            "max_clusters": _max_clusters(lib, dev, mode, soft, nx, nu,
+                                          family, N) if plan.cluster
+            else None}
 
 
 def _stream(dev: torch.device) -> int:
@@ -1054,9 +1257,16 @@ def _count(wrapper, warm, inst, plan: LaunchPlan):
 
 def _prepare_launch(lib, dev, N, mode, soft, nx, nu, B, family=None
                     ) -> LaunchPlan:
-    """The launch's plan, checked, with the instantiation opted in."""
+    """The launch's plan, checked, with the instantiation opted in; a
+    cluster plan the card cannot hold raises (no other plan is taken)."""
     plan = _require_plan(launch_plan(N, mode, soft, nx, nu, B))
     _optin(lib, dev, mode, soft, nx, nu, family)
+    if plan.cluster and _max_clusters(lib, dev, mode, soft, nx, nu, family,
+                                      N) < 1:
+        raise RuntimeError(
+            f"box_qp_ipm: the card holds no cluster of {plan.cluster} CTAs "
+            f"at {plan.smem_bytes} B of shared memory each (N={N}); the "
+            "cluster plan has no fallback")
     return plan
 
 

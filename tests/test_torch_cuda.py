@@ -8,7 +8,9 @@ modes, with the all-hard case against the hard kernel; the instantiations
 for other models: the plain mode at 13x4 (the quad13 model) and the
 fuse_lin mode with the "quad13" and "blaster_dist" prologues; the
 fuse_lin mode with stage parameters that differ from stage to stage (the
-blast scan's online_stagewise ticks); the plain mode at long horizons (K7, N=120 and 240); the fuse_lin mode over a
+blast scan's online_stagewise ticks); the plain mode at long horizons (K7, N=120 and 240: a batch, and a
+single problem on the cluster plan against the twin in its order, also
+captured in a CUDA graph); the fuse_lin mode over a
 batch with one spec per problem (K6 at B > 1); the launch plan (the
 library's `box_qp_ipm_plan` against `launch_plan`, a launch of each
 layout, resident and global, against its twin and counted in
@@ -483,6 +485,43 @@ def test_long_horizon_kernel_matches_plain_on_gpu(cuda_device, N):
         if iters > 1:
             torch.testing.assert_close(sk.kkt_eq, sp.kkt_eq, rtol=0.2,
                                        atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [120, 240])
+def test_cluster_plan_matches_plain_on_gpu(cuda_device, N):
+    """K7's cluster plan (B=1, N >= 61): 8 CTAs of one thread-block
+    cluster, against the twin in the plan's order, after one iteration
+    and after 12; counted under ("cluster", "single"); a CUDA graph of
+    the launch replays it bit for bit."""
+    qp = _blaster_qps(cuda_device, B=1, N=N)
+    plan = K.launch_plan(N, K.PLAIN, False, 17, 6, 1)
+    assert plan.layout == "cluster" and plan.cluster == 8
+    info = K.kernel_info(N, K.PLAIN, 17, 6, B=1, device=cuda_device)
+    assert info["cluster"] == 8 and info["max_clusters"] >= 1, info
+    for iters in (1, 12):
+        before = K.box_qp_solve.by_layout.get(("cluster", "single"), 0)
+        sk = K.box_qp_solve(qp, iters=iters)
+        torch.cuda.synchronize()
+        assert K.box_qp_solve.by_layout[("cluster", "single")] == before + 1
+        sp = K.box_qp_solve_plain(qp, iters=iters)
+        _solve_check(sk, sp, (), (), qp, iters)
+        if iters > 1:
+            torch.testing.assert_close(sk.kkt_eq, sp.kkt_eq, rtol=0.2,
+                                       atol=1e-3)
+    ref = K.box_qp_solve(qp, iters=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.box_qp_solve(qp, iters=3)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = K.box_qp_solve(qp, iters=3)
+    g.replay()
+    torch.cuda.synchronize()
+    for f in ("dx", "du", "kkt_eq", "mu", "s_lx", "lam_uu"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
 
 
 @pytest.mark.cuda

@@ -17,8 +17,13 @@ in the card's 232448-byte opt-in, else the factorization's window (two P
 slots, one Z, one Hinv). A soft launch then adds its soft area where that
 still fits: for each of the 2 N (nx + nu) bound entries ten words (t, gam,
 Z, z, sig_s, the pair's denominator, four words handed between row
-passes) and a class byte, the bytes rounded up to whole words. Pure
-arithmetic: no JAX, no card.
+passes) and a class byte, the bytes rounded up to whole words. A single
+hard plain problem at N >= 61 takes the cluster plan instead: min(8, N //
+4) CTAs of 256 threads, each with the scratch, the ring, the stacks of
+the largest chunk (ceil(N / C) stages) and its cluster area (eight nx^2
+matrices, two nx nu blocks, three 32-word boundary slots, two 4-word
+reduction slots).
+Pure arithmetic: no JAX, no card.
 """
 import re
 
@@ -51,12 +56,16 @@ def test_plan_matches_hand_count(nx, nu, N, resident):
     stacks = STACKS[(nx, nu, N)]
     assert stacks == 4 * ((N + 1) * nx * nx + N * nu * nx + N * nu * nu)
     want = BASE[(nx, nu)] + (stacks if resident else WINDOW[(nx, nu)])
-    assert plan == (128, want, resident, 0)
+    assert plan == (128, want, resident, 0, 0)
     assert plan.layout == ("resident" if resident else "global")
     assert plan.key == (plan.layout, "batch")
-    # a single problem: the single plan, the same shared memory
-    single = K.launch_plan(N, K.PLAIN, False, nx, nu, 1)
-    assert single == (256, want, resident, 0)
+    # a single problem: the single plan, the same shared memory (a soft
+    # one here: a single hard plain problem at N >= 61 takes the cluster
+    # plan, test_cluster_plan_matches_hand_count)
+    single = K.launch_plan(N, K.PLAIN, N >= 61, nx, nu, 1)
+    if N >= 61:
+        want = K.launch_plan(N, K.PLAIN, True, nx, nu, 2).smem_bytes
+    assert single == (256, want, resident, 0, 0)
     assert single.key == (plan.layout, "single")
     # resident exactly where the stacks fit beside the scratch and ring
     assert resident == (BASE[(nx, nu)] + stacks <= OPTIN)
@@ -86,22 +95,23 @@ def test_soft_area_in_shared_memory_up_to_n61():
     one. Per entry 10 words and a byte: 46 N entries, about 1886 N bytes
     on top of the hard plan's 12140 + 1708 N."""
     extra = {N: K.launch_plan(N, K.PLAIN, True, 17, 6, 1).smem_bytes
-             - K.launch_plan(N, K.PLAIN, False, 17, 6, 1).smem_bytes
+             - K.launch_plan(N, K.PLAIN, False, 17, 6, 2).smem_bytes
              for N in range(1, 130)}
     assert max(N for N, b in extra.items() if b) == 61
     assert all(extra[N] == 4 * (460 * N + (46 * N + 3) // 4)
                for N in range(1, 62))
     assert all(extra[N] == 0 for N in range(62, 130))
     assert BASE[(17, 6)] + STACKS[(17, 6, 60)] + SOFT_AREA[60] <= OPTIN
-    assert K.launch_plan(120, K.PLAIN, True, 17, 6, 1) \
-        == K.launch_plan(120, K.PLAIN, False, 17, 6, 1)
+    assert K.launch_plan(120, K.PLAIN, True, 17, 6, 2) \
+        == K.launch_plan(120, K.PLAIN, False, 17, 6, 2)
 
 
 def test_longest_resident_horizon():
     """17x6 is resident up to N=128 (the last horizon whose stacks fit),
-    global past it."""
+    global past it (a batch; a single hard plain problem from N=61 takes
+    the cluster plan)."""
     last = max(N for N in range(1, 400)
-               if K.launch_plan(N, K.PLAIN, False, 17, 6, 1).resident)
+               if K.launch_plan(N, K.PLAIN, False, 17, 6, 2).resident)
     assert last == 128
     assert BASE[(17, 6)] + 4 * ((last + 1) * 289 + last * 138) <= OPTIN
     assert BASE[(17, 6)] + 4 * ((last + 2) * 289 + (last + 1) * 138) > OPTIN
@@ -141,6 +151,10 @@ def test_source_constants_match_the_wrapper():
     assert const("LIN_THREADS") == K.LIN_THREADS == 128
     assert const("LIN_COLS") == K.LIN_COLS == 2
     assert const("SMEM_OPTIN") == K.SMEM_OPTIN == OPTIN
+    assert const("CLUSTER_MIN_N") == K.CLUSTER_MIN_N == 61
+    assert const("CLUSTER_CTAS") == K.CLUSTER_CTAS == 8
+    assert const("CLUSTER_CHUNK_MIN") == K.CLUSTER_CHUNK_MIN == 4
+    assert (const("CL_VEC"), const("CL_RED")) == (K.CL_VEC, K.CL_RED)
     assert ("__launch_bounds__(THREADS, THREADS == BATCH_THREADS ? 2 : 1)"
             in src)
 
@@ -187,13 +201,49 @@ def test_plan_is_picked_from_the_batch_size(mode, prologue):
     for N in (8, 20, 30, 60, 120, 240):
         for soft in (False, True):
             one = K.launch_plan(N, mode, soft, 17, 6, 1)
+            cl = mode == K.PLAIN and not soft and N >= 61
+            assert one.cluster == (8 if cl else 0)
             for B in (2, 16, 1024):
                 many = K.launch_plan(N, mode, soft, 17, 6, B)
-                assert many == (128, one.smem_bytes, one.resident, 0)
+                if not cl:
+                    assert many == (128, one.smem_bytes, one.resident, 0, 0)
                 assert many.key == (many.layout, "batch")
-                assert not many.single
+                assert not many.single and not many.cluster
             single = mode != K.FUSE_COST
             assert one.threads == (256 if single else 128)
             assert one.single == single == K.single_plan(mode, 1)
             assert one.prologue_blocks == prologue.get(N, 0)
             assert one.key == (one.layout, "single" if single else "batch")
+
+
+@pytest.mark.parametrize("nx,nu,N,C,n", [(17, 6, 61, 8, 8), (17, 6, 120, 8, 15),
+                                         (17, 6, 240, 8, 30),
+                                         (13, 4, 240, 8, 30)])
+def test_cluster_plan_matches_hand_count(nx, nu, N, C, n):
+    """A single hard plain problem from N=61: C CTAs of 256 threads, each
+    with the scratch and the ring, the stacks of n = ceil(N / C) stages
+    and its cluster area; resident, no prologue grid, the "cluster"
+    layout. Every other launch at that N keeps its plan."""
+    plan = K.launch_plan(N, K.PLAIN, False, nx, nu, 1)
+    chunk = 4 * ((n + 1) * nx * nx + n * nu * nx + n * nu * nu)
+    area = 4 * (8 * nx * nx + 2 * nx * nu + 3 * 32 + 2 * 4)
+    assert plan == (256, BASE[(nx, nu)] + chunk + area, True, 0, C)
+    assert plan.layout == "cluster" and plan.key == ("cluster", "single")
+    assert K.cluster_ctas(N) == C and -(-N // C) == n
+    assert plan.smem_bytes <= OPTIN
+    if (nx, N) == (17, 240):      # the issue's ~52 KB of stacks per CTA
+        assert chunk == 52396
+    for mode, soft, B in ((K.PLAIN, True, 1), (K.PLAIN, False, 2),
+                          (K.FUSE_LIN, False, 1), (K.FUSE_COST, False, 1)):
+        assert K.launch_plan(N, mode, soft, nx, nu, B).cluster == 0
+
+
+@pytest.mark.parametrize("N", [8, 16, 60, 61, 120, 240, 1000])
+def test_chunks_cover_the_horizon(N):
+    """`chunk_starts` cuts N stages into cluster_ctas(N) chunks in stage
+    order, of ceil(N / C) stages at most and CLUSTER_CHUNK_MIN at least."""
+    C = K.cluster_ctas(N)
+    ks = K.chunk_starts(N, C)
+    assert ks[0] == 0 and ks[-1] == N and len(ks) == C + 1
+    sizes = [b - a for a, b in zip(ks, ks[1:])]
+    assert max(sizes) == -(-N // C) and min(sizes) >= K.CLUSTER_CHUNK_MIN

@@ -47,6 +47,17 @@ record too. A second build with the shared-memory opt-in
 lowered to 30000 bytes keeps the soft area in the global workspace at N=8
 (the stacks stay resident), as N=120 does on the card: the same bits.
 
+The cluster plan (kernel K7 on Hopper) needs N >= 61 on the card; a third
+build lowers CLUSTER_MIN_N to 8, so that a single hard plain problem at
+N=8 and N=16 takes it here (2 and 4 CTAs of one cluster, which the
+stand-in runs at once: `tests/cuda_cpu/cuda_runtime.h`). Its launches
+are held to the cluster-order twin (`box_qp_solve_plain(chunks=C)`) by
+the file's tolerances: after one iteration u0, du and dx, the slacks and
+duals and the merit; at the full budget the objective (2e-3 relative +
+1e-3) and kkt_eq (0.2 relative + 1e-3). Every launch that takes another
+plan in that build (the batch plan, the single plan at N=7, soft, and
+fuse_lin) gives the default build's bits.
+
 Needs g++ (C++20); skipped, naming the reason, where it is missing.
 """
 import ctypes
@@ -89,9 +100,10 @@ def cpu_source(src: str) -> str:
     return src
 
 
-def start_build(d: Path, optin=None):
+def start_build(d: Path, optin=None, cluster_min_n=None):
     """Start g++ on the kernel library into `d` (SMEM_OPTIN replaced by
-    `optin` bytes where given); `finish_build` waits for it."""
+    `optin` bytes, CLUSTER_MIN_N by `cluster_min_n`, where given);
+    `finish_build` waits for it."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the CUDA source on the CPU")
@@ -100,6 +112,11 @@ def start_build(d: Path, optin=None):
         old = f"constexpr long long SMEM_OPTIN = {K.SMEM_OPTIN};"
         assert text.count(old) == 1
         text = text.replace(old, f"constexpr long long SMEM_OPTIN = {optin};")
+    if cluster_min_n is not None:
+        old = f"constexpr int CLUSTER_MIN_N = {K.CLUSTER_MIN_N};"
+        assert text.count(old) == 1
+        text = text.replace(
+            old, f"constexpr int CLUSTER_MIN_N = {cluster_min_n};")
     src = d / "box_qp_ipm_cpu.cpp"
     src.write_text(text)
     so = d / "libbox_qp_ipm_cpu.so"
@@ -148,15 +165,21 @@ class OneCpu:
 # the shared-memory opt-in of the second build, which keeps the soft area
 # in the global workspace at N=8
 OPTIN_GLOBAL_SOFT = 30000
+# the third build's CLUSTER_MIN_N: N=8 and 16 take the cluster plan (2 and
+# 4 CTAs)
+CLUSTER_MIN_N_CPU = 8
 
 
 @pytest.fixture(scope="module")
 def cpu_libs(tmp_path_factory):
-    """The kernel library built for the CPU, and the second build with the
-    opt-in lowered to OPTIN_GLOBAL_SOFT (both compiled at once)."""
+    """The kernel library built for the CPU, the second build with the
+    opt-in lowered to OPTIN_GLOBAL_SOFT and the third with CLUSTER_MIN_N
+    lowered to CLUSTER_MIN_N_CPU (all compiled at once)."""
     builds = [start_build(tmp_path_factory.mktemp("box_qp_ipm_cpu")),
               start_build(tmp_path_factory.mktemp("box_qp_ipm_cpu_global"),
-                          OPTIN_GLOBAL_SOFT)]
+                          OPTIN_GLOBAL_SOFT),
+              start_build(tmp_path_factory.mktemp("box_qp_ipm_cpu_cluster"),
+                          cluster_min_n=CLUSTER_MIN_N_CPU)]
     return [OneCpu(finish_build(b)) for b in builds]
 
 
@@ -428,3 +451,121 @@ def test_prologue_alone_is_the_full_launch_prologue_on_cpu(cpu_kernel):
     with pytest.raises(RuntimeError, match="launch failed"):
         run(K.PROLOGUE_ONLY, tuple(map(_twice, ins)))
     assert K.fused_lin_prologue.launches == n0 + 2
+
+
+def _use_cluster_build(monkeypatch, cpu_libs):
+    """The third build bound, and the wrapper's plan lowered to match."""
+    lib = cpu_libs[2]
+    monkeypatch.setattr(K, "_library", lambda: lib)
+    monkeypatch.setattr(K, "CLUSTER_MIN_N", CLUSTER_MIN_N_CPU)
+    monkeypatch.setattr(K, "_max_clusters", lambda *a: 1)
+
+
+@pytest.mark.parametrize("N,C", [(8, 2), (16, 4)])
+def test_cluster_kernel_matches_cluster_twin_on_cpu(cpu_kernel, cpu_libs,
+                                                    monkeypatch, N, C):
+    """The cluster plan built for the CPU (CLUSTER_MIN_N lowered to 8) at
+    a hover QP, B=1, against the twin in the same order (`chunks=C`):
+    the centred init (rtol 1e-5, atol 1e-6), one iteration and the full
+    budget by the file's tolerances; each launch counted under ("cluster",
+    "single")."""
+    _use_cluster_build(monkeypatch, cpu_libs)
+    plan = K.launch_plan(N, K.PLAIN, False, 17, 6, 1)
+    assert (plan.cluster, plan.layout) == (C, "cluster")
+    qp = S.blaster_qps(N, 1, DEV)
+    lay0 = K.box_qp_solve.by_layout.get(("cluster", "single"), 0)
+
+    def kern(it):
+        return K._solve_kernel(qp, it, MU0, ALPHA, REG, None, None, None)
+
+    def twin(it):
+        return K.box_qp_solve_plain(qp, iters=it)   # takes the plan's C
+    k0, t0 = kern(0), twin(0)
+    for f in ("dx", "du", *S.SLACK_DUALS):
+        torch.testing.assert_close(getattr(k0, f), getattr(t0, f), rtol=1e-5,
+                                   atol=1e-6, msg=f)
+    sk, sp = kern(1), twin(1)
+    torch.testing.assert_close(sk.du[:, 0], sp.du[:, 0], rtol=0, atol=2e-3)
+    torch.testing.assert_close(sk.du, sp.du, rtol=0, atol=5e-3)
+    torch.testing.assert_close(sk.dx, sp.dx, rtol=0, atol=5e-3)
+    for f in S.SLACK_DUALS:
+        torch.testing.assert_close(getattr(sk, f), getattr(sp, f), rtol=1e-3,
+                                   atol=1e-3, msg=f)
+    torch.testing.assert_close(sk.mu, sp.mu, rtol=1e-3, atol=0)
+    sk, sp = kern(FULL), twin(FULL)
+    for f in ("dx", "du", "kkt_eq", "mu"):
+        assert torch.isfinite(getattr(sk, f)).all(), f
+    ok, op = (qp_objective(qp, x.dx[0], x.du[0]) for x in (sk, sp))
+    assert abs(ok - op) <= 2e-3 * abs(op) + 1e-3, (ok, op)
+    assert ((sk.kkt_eq - sp.kkt_eq).abs()
+            <= 0.2 * sp.kkt_eq.abs() + 1e-3).all(), (sk.kkt_eq, sp.kkt_eq)
+    assert K.box_qp_solve.by_layout[("cluster", "single")] == lay0 + 3
+
+
+def _other_plan_cases():
+    """(label, launch) of the launches that take another plan than the
+    cluster plan in the third build: the batch plan (B=2), the single
+    plan below CLUSTER_MIN_N_CPU (N=7), soft bounds and fuse_lin (N=8)."""
+    qp7 = S.blaster_qps(7, 1, DEV)
+    kern_b, _, _ = _plain_case(B=2)
+    kern_1, _, _ = _plain_case(B=1)
+    soft, _ = S.soft_specs(N, DEV, idx=(0, 1, 2))
+    kern_f, _, _ = _fuse_lin_case(B=1)
+    return {"plain_batch": lambda it: kern_b(it, None),
+            "plain_n7": lambda it: K._solve_kernel(qp7, it, MU0, ALPHA, REG,
+                                                   None, None, None),
+            "plain_soft": lambda it: kern_1(it, soft),
+            "fuse_lin": lambda it: kern_f(it, None)}
+
+
+@pytest.mark.parametrize("case", ["plain_batch", "plain_n7", "plain_soft",
+                                  "fuse_lin"])
+def test_other_plans_keep_their_bits_in_the_cluster_build(
+        cpu_kernel, cpu_libs, monkeypatch, case):
+    """A launch that takes another plan than the cluster plan gives the
+    same bits in the build whose CLUSTER_MIN_N is lowered as in the
+    default build (3 iterations), and counts under its own plan."""
+    run = _other_plan_cases()[case]
+    a = run(3)
+    _use_cluster_build(monkeypatch, cpu_libs)
+    before = sum(w.by_layout.get(("cluster", "single"), 0)
+                 for w in (K.box_qp_solve, K.fused_rti_solve))
+    b = run(3)
+    assert sum(w.by_layout.get(("cluster", "single"), 0)
+               for w in (K.box_qp_solve, K.fused_rti_solve)) == before
+    for f in a._fields:
+        if getattr(a, f) is not None:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_cluster_plan_the_card_cannot_hold_raises(cpu_kernel, cpu_libs,
+                                                  monkeypatch):
+    """Where the card holds no cluster of the plan (max active clusters
+    0), the launch raises and counts nothing: no other plan is taken."""
+    _use_cluster_build(monkeypatch, cpu_libs)
+    monkeypatch.setattr(K, "_max_clusters", lambda *a: 0)
+    qp = S.blaster_qps(8, 1, DEV)
+    n0 = K.box_qp_solve.launches
+    with pytest.raises(RuntimeError, match="no fallback"):
+        K._solve_kernel(qp, 1, MU0, ALPHA, REG, None, None, None)
+    assert K.box_qp_solve.launches == n0
+
+
+def test_library_plan_matches_launch_plan_on_cpu(cpu_libs, monkeypatch):
+    """The library's own plan (`box_qp_ipm_plan`, built with g++) equals
+    `launch_plan` at every horizon up to N=130 and at N=237-240, every
+    mode, soft or hard, B in (1, 2, 1024), both models: the cluster plan
+    from N=61 (its CTAs, per-CTA shared bytes) and every other plan as
+    before; and in the build with CLUSTER_MIN_N lowered, from N=8."""
+    for lib, min_n in ((cpu_libs[0], K.CLUSTER_MIN_N),
+                       (cpu_libs[2], CLUSTER_MIN_N_CPU)):
+        monkeypatch.setattr(K, "_library", lambda lib=lib: lib)
+        monkeypatch.setattr(K, "CLUSTER_MIN_N", min_n)
+        for nx, nu in ((17, 6), (13, 4)):
+            for N in (*range(1, 131), 237, 238, 240):
+                for mode in (K.PLAIN, K.FUSE_COST, K.FUSE_LIN):
+                    for soft in (False, True):
+                        for B in (1, 2, 1024):
+                            assert K.library_plan(N, mode, soft, nx, nu, B) \
+                                == K.launch_plan(N, mode, soft, nx, nu, B), \
+                                (min_n, nx, N, mode, soft, B)

@@ -1,12 +1,16 @@
-"""The long-horizon layout (kernel K7): the Pallas kernel's `stream_p` /
+"""The long horizons (kernel K7): the Pallas kernel's `stream_p` /
 `stream_big` variants stream P, the A/B record and the Z gains through HBM
-once an instance outgrows the TPU's resident budget; the port's kernel
-keeps every stage stack in global memory at any horizon, so K7 is one
-layout: `box_qp_solve(stream_p=, stream_big=)` accept the Pallas
-wrapper's switches and select nothing. Held here: the port's plain twin
-against the JAX streaming modes (Pallas in interpret mode) at N=8
-(chunk 4) and N=7 (chunk 1), hard and soft; the N=120 twin against the
-JAX Riccati IPM; the positions chip_smoke.py's phase 15 is held to.
+once an instance outgrows the TPU's resident budget. The port's kernel
+picks its plan from N and the batch size alone: the factor stacks
+resident in shared memory up to N=128 and in global memory past it, and
+a single hard plain problem from N=61 on a thread-block cluster (the
+cluster plan; its twin and plan: tests/test_torch_k7_cluster.py).
+`box_qp_solve(stream_p=, stream_big=)` accept the Pallas wrapper's
+switches and select nothing. Held here: the port's plain twin against
+the JAX streaming modes (Pallas in interpret mode) at N=8 (chunk 4) and
+N=7 (chunk 1), hard and soft; the N=120 twin (B=1: the cluster plan's
+order) against the JAX Riccati IPM; the positions chip_smoke.py's phase
+15 is held to.
 
 Tolerances (tests/test_torch_ipm.py, tests/test_torch_soft.py): one IPM
 iteration pointwise at the cold tolerances (u0 atol 2e-3, dx/du atol 5e-3,
